@@ -1,0 +1,358 @@
+"""Index construction (paper §4.1, Algorithm 1). Port of
+``repro/core/build_pipeline.py``.
+
+``repro`` runs the graph stages as one jitted program (``fori_loop`` over
+rounds, ``lax.map`` over node chunks, ``vmap`` over the three single-path
+views). Here the same stages are Python loops over rounds and node chunks on
+batched tensors; the heavy work of every chunk is one kernel launch:
+
+  1. NN-Descent: ``fused_topk`` per chunk and round (rows gathered by id);
+  1b. per-path refinement: the same descent, with each chunk's query rows
+      scaled by the path weights on the fly (no weighted corpus copies);
+  2-3. RNG-IP pruning + keyword recycling: ``pairwise_tile`` per chunk;
+  entry points: self and per-path norms through ``hybrid_distance`` with
+      ids = arange(N)[:, None];
+  4. logical edges: host-side numpy.
+
+Random draws: torch cannot reproduce ``jax.random``, so the builder takes a
+``torch.Generator`` and, optionally, precomputed draws (``BuildDraws``), which
+lets a test feed in the draws ``repro`` made.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core import knn_graph, pruning
+from repro_torch.core.index import BuildConfig, HybridIndex
+from repro_torch.core.knn_graph import KnnConfig
+from repro_torch.core.logical_edges import LogicalEdges, build_logical_edges
+from repro_torch.core.usms import FusedVectors, PathWeights, weighted_query
+from repro_torch.device import resolve_device
+from repro_torch.kernels import ops
+from repro_torch.kernels.ref import topk_desc
+
+SINGLE_PATH_WEIGHTS = (
+    PathWeights.make(1.0, 0.0, 0.0),
+    PathWeights.make(0.0, 1.0, 0.0),
+    PathWeights.make(0.0, 0.0, 1.0),
+)
+_NORM_CHUNK = 65536  # rows per per-path norm launch (bounds the weighted copy)
+
+
+@dataclasses.dataclass
+class BuildDraws:
+    """Random draws of one build, in place of the generator's.
+
+    init_graph:  (N, knn.k) initial neighbor ids.
+    rounds:      one (N, extra_random) id table per NN-Descent round.
+    path_rounds: per single path (dense, learned, lexical), one table per
+                 refinement round.
+    Any field left None is drawn from the generator.
+    """
+
+    init_graph: Optional[torch.Tensor] = None
+    rounds: Optional[Sequence[torch.Tensor]] = None
+    path_rounds: Optional[Sequence[Sequence[torch.Tensor]]] = None
+
+
+@dataclasses.dataclass
+class GraphArrays:
+    knn_ids: torch.Tensor  # (N, K)
+    knn_scores: torch.Tensor  # (N, K)
+    semantic_edges: torch.Tensor  # (N, d)
+    keyword_edges: torch.Tensor  # (N, dk)
+    entry_points: torch.Tensor  # (n_entry,)
+    self_ip: torch.Tensor  # (N,)
+
+
+def _chunks(n: int, chunk: int):
+    return [(s, min(s + chunk, n)) for s in range(0, n, max(chunk, 1))]
+
+
+def _rows(corpus: FusedVectors, s: int, e: int, weights: PathWeights | None) -> FusedVectors:
+    """Query rows s:e, scaled by ``weights`` for a single-path view."""
+    rows = corpus[s:e]
+    return rows if weights is None else weighted_query(rows, weights)
+
+
+def _randint(n: int, shape, gen: torch.Generator, device) -> torch.Tensor:
+    return torch.randint(0, n, shape, generator=gen, device=device, dtype=torch.int32)
+
+
+def _on(t: torch.Tensor, device) -> torch.Tensor:
+    return torch.as_tensor(t).to(device=device, dtype=torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# Stage 1: NN-Descent
+# ---------------------------------------------------------------------------
+
+
+def _descent_init(
+    corpus: FusedVectors, weights: PathWeights | None, nbr_ids: torch.Tensor, cfg: KnnConfig
+):
+    """Score and sort the initial rows (k == row width: the fused top-k is
+    the sort), chunk by chunk."""
+    k = cfg.k
+    ids_out, sc_out = [], []
+    for s, e in _chunks(corpus.n, cfg.node_chunk):
+        top, pos = ops.fused_topk_vs_ids(
+            _rows(corpus, s, e, weights), corpus, nbr_ids[s:e], k, use_kernel=cfg.use_kernel
+        )
+        ids = ops.take_topk_ids(nbr_ids[s:e], pos)
+        ids_out.append(ids)
+        sc_out.append(torch.where(ids >= 0, top, torch.full_like(top, float("-inf"))))
+    return torch.cat(ids_out), torch.cat(sc_out)
+
+
+def _descent_rounds(
+    corpus: FusedVectors,
+    weights: PathWeights | None,
+    nbr_ids: torch.Tensor,
+    nbr_scores: torch.Tensor,
+    cfg: KnnConfig,
+    rand_rounds: Sequence[torch.Tensor],
+):
+    """One NN-Descent round per table in ``rand_rounds``; each streams node
+    chunks against the round-start neighbor table."""
+    n = corpus.n
+    node_ids = torch.arange(n, dtype=torch.int32, device=nbr_ids.device)
+    for rand_ids in rand_rounds:
+        ids_out, sc_out = [], []
+        for s, e in _chunks(n, cfg.node_chunk):
+            ids_c, sc_c = knn_graph._descent_round_chunk(
+                corpus, nbr_ids, _rows(corpus, s, e, weights), node_ids[s:e],
+                nbr_ids[s:e], nbr_scores[s:e], rand_ids[s:e], cfg,
+            )
+            ids_out.append(ids_c)
+            sc_out.append(sc_c)
+        nbr_ids, nbr_scores = torch.cat(ids_out), torch.cat(sc_out)
+    return nbr_ids, nbr_scores
+
+
+def nn_descent(
+    corpus: FusedVectors,
+    cfg: KnnConfig,
+    generator: torch.Generator,
+    *,
+    init_graph: torch.Tensor | None = None,
+    rounds: Sequence[torch.Tensor] | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused NN-Descent over the corpus. Returns (nbr_ids (N, K), scores
+    (N, K)) sorted by hybrid score, descending per row."""
+    n, dev = corpus.n, corpus.device
+    init = _on(init_graph, dev) if init_graph is not None else knn_graph._init_graph(
+        n, cfg.k, generator, dev)
+    ids, scores = _descent_init(corpus, None, init, cfg)
+    if rounds is None:
+        rounds = [_randint(n, (n, cfg.extra_random), generator, dev) for _ in range(cfg.iters)]
+    return _descent_rounds(corpus, None, ids, scores, cfg, [_on(r, dev) for r in rounds])
+
+
+# ---------------------------------------------------------------------------
+# Stage 1b: per-path refinement
+# ---------------------------------------------------------------------------
+
+
+def _graph_pk(cfg: BuildConfig) -> int:
+    d = cfg.prune.degree
+    return max((d - 2 * max(d // 4, 1)) // 3 + 1, 2)
+
+
+def _path_refinement(
+    corpus: FusedVectors,
+    knn_ids: torch.Tensor,
+    cfg: BuildConfig,
+    pk: int,
+    generator: torch.Generator,
+    draws: BuildDraws,
+) -> torch.Tensor:
+    """The d/2 single-path neighbor slots: a short descent per path, warm
+    started from the fused graph, with each chunk's query rows scaled by
+    the path weights. Returns (N, 3, pk) per-path neighbor ids."""
+    n, dev = corpus.n, corpus.device
+    pcfg = dataclasses.replace(cfg.knn, iters=cfg.path_refine_iters, k=max(pk, 12))
+    per_path = []
+    for p, w in enumerate(SINGLE_PATH_WEIGHTS):
+        nbr = knn_ids[:, : pcfg.k]
+        if nbr.shape[1] < pcfg.k:  # knn.k < 12: widen with random ids
+            extra = knn_graph._init_graph(n, pcfg.k - nbr.shape[1], generator, dev)
+            nbr = torch.cat([nbr, extra], dim=1)
+        if draws.path_rounds is not None:
+            rounds = [_on(r, dev) for r in draws.path_rounds[p]]
+        else:
+            rounds = [_randint(n, (n, pcfg.extra_random), generator, dev)
+                      for _ in range(pcfg.iters)]
+        ids, scores = _descent_init(corpus, w, nbr.contiguous(), pcfg)
+        ids, _ = _descent_rounds(corpus, w, ids, scores, pcfg, rounds)
+        per_path.append(ids[:, :pk])
+    return torch.stack(per_path, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# Stages 2-3: pruning + keyword recycling
+# ---------------------------------------------------------------------------
+
+
+def _prune_all(
+    corpus: FusedVectors,
+    knn_ids: torch.Tensor,
+    knn_scores: torch.Tensor,
+    cself: torch.Tensor,
+    path_ids: torch.Tensor | None,
+    cfg: pruning.PruneConfig,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """RNG-IP pruning over node chunks."""
+    n = corpus.n
+    rev = knn_graph.reverse_neighbors(knn_ids, max(cfg.degree // 4, 1))
+    node_ids = torch.arange(n, dtype=torch.int32, device=knn_ids.device)
+    sems, kws = [], []
+    for s, e in _chunks(n, cfg.node_chunk):
+        sem, kw, _ = pruning._prune_chunk(
+            corpus, corpus[s:e], node_ids[s:e], knn_ids[s:e], knn_scores[s:e], cself,
+            rev[s:e], None if path_ids is None else path_ids[s:e], cfg,
+        )
+        sems.append(sem)
+        kws.append(kw)
+    return torch.cat(sems), torch.cat(kws)
+
+
+# ---------------------------------------------------------------------------
+# Entry points (paper §4.2.1)
+# ---------------------------------------------------------------------------
+
+
+def _path_norms(corpus: FusedVectors, w: PathWeights, use_kernel) -> torch.Tensor:
+    """score(w ⊙ v, v) for every row: the distance kernel with
+    ids = arange(N)[:, None], query rows weighted chunk by chunk."""
+    out = []
+    for s, e in _chunks(corpus.n, _NORM_CHUNK):
+        ids = torch.arange(s, e, dtype=torch.int32, device=corpus.device)[:, None]
+        out.append(ops.hybrid_scores_vs_ids(
+            _rows(corpus, s, e, w), corpus, ids, use_kernel=use_kernel)[:, 0])
+    return torch.cat(out)
+
+
+def _entry_points(
+    corpus: FusedVectors, sip: torch.Tensor, n_entry: int, use_kernel: bool | None
+) -> torch.Tensor:
+    """Union of top-norm nodes under the fused metric AND each single path."""
+    per = max(-(-n_entry // 4), 1)
+    parts = [topk_desc(sip, per)[1]]
+    for w in SINGLE_PATH_WEIGHTS:
+        parts.append(topk_desc(_path_norms(corpus, w, use_kernel), per)[1])
+    cat = torch.cat(parts).to(torch.int32)
+    entries = pruning.unique_take(cat, torch.zeros(cat.shape, device=cat.device), n_entry)
+    fill = topk_desc(sip, n_entry)[1].to(torch.int32)  # backfill duplicates
+    return torch.where(entries >= 0, entries, fill)
+
+
+# ---------------------------------------------------------------------------
+# Assembly
+# ---------------------------------------------------------------------------
+
+
+class _Stages:
+    """Seconds per build stage, read on the host after a device sync (only
+    when the caller asks for them)."""
+
+    def __init__(self, out: dict | None, device):
+        self.out, self.device = out, device
+        self.t = time.perf_counter() if out is not None else 0.0
+
+    def mark(self, name: str) -> None:
+        if self.out is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        now = time.perf_counter()
+        self.out[name] = now - self.t
+        self.t = now
+
+
+def build_graph(
+    corpus: FusedVectors,
+    cfg: BuildConfig,
+    generator: torch.Generator,
+    *,
+    draws: BuildDraws | None = None,
+    stage_seconds: dict | None = None,
+) -> GraphArrays:
+    """All graph stages (Algorithm 1 steps 1-3 + entry points)."""
+    draws = draws or BuildDraws()
+    clock = _Stages(stage_seconds, corpus.device)
+    knn_ids, knn_scores = nn_descent(
+        corpus, cfg.knn, generator, init_graph=draws.init_graph, rounds=draws.rounds
+    )
+    clock.mark("descent")
+    path_ids = None
+    if cfg.path_refine_iters > 0:
+        path_ids = _path_refinement(corpus, knn_ids, cfg, _graph_pk(cfg), generator, draws)
+    clock.mark("refinement")
+    cself = pruning.self_scores(corpus, use_kernel=cfg.prune.use_kernel)
+    sem, kw = _prune_all(corpus, knn_ids, knn_scores, cself, path_ids, cfg.prune)
+    clock.mark("prune")
+    entries = _entry_points(corpus, cself, min(cfg.n_entry, corpus.n), cfg.prune.use_kernel)
+    clock.mark("entry_points")
+    return GraphArrays(knn_ids, knn_scores, sem, kw, entries, cself)
+
+
+def build_index(
+    corpus: FusedVectors,
+    cfg: BuildConfig = BuildConfig(),
+    *,
+    generator: Optional[torch.Generator] = None,
+    draws: Optional[BuildDraws] = None,
+    kg_triplets: Optional[np.ndarray] = None,
+    doc_entities: Optional[np.ndarray] = None,
+    n_entities: int = 0,
+    device=None,
+    report: Optional[dict] = None,
+) -> HybridIndex:
+    """Full construction (Algorithm 1) on ``device`` (``None`` -> CUDA;
+    raises when CUDA is absent). ``generator`` defaults to seed 0 on the
+    device. ``report`` (a dict), when given, receives ``stage_seconds``
+    (seconds per stage, each ended by a device sync) and ``knn_ids`` (the
+    NN-Descent graph the edges were pruned from)."""
+    dev = resolve_device(device)
+    corpus = corpus.to(dev)
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    stage_seconds = None if report is None else report.setdefault("stage_seconds", {})
+    g = build_graph(corpus, cfg, generator, draws=draws, stage_seconds=stage_seconds)
+    if report is not None:
+        report["knn_ids"] = g.knn_ids
+    n = corpus.n
+
+    # Step 4: logical edges (host-side numpy)
+    t0 = time.perf_counter()
+    if kg_triplets is not None and doc_entities is not None and n_entities > 0:
+        log = build_logical_edges(
+            kg_triplets, np.asarray(doc_entities), n_entities,
+            l_cap=cfg.logical_cap, m_cap=cfg.entity_doc_cap,
+        )
+    else:
+        log = LogicalEdges.empty(n)
+    if stage_seconds is not None:
+        stage_seconds["logical_edges"] = time.perf_counter() - t0
+
+    t = lambda a: torch.as_tensor(a).to(dev)
+    return HybridIndex(
+        corpus=corpus,
+        semantic_edges=g.semantic_edges,
+        keyword_edges=g.keyword_edges,
+        logical_edges=t(log.edges),
+        doc_entities=t(log.doc_entities),
+        entity_to_docs=t(log.entity_to_docs),
+        entity_adj=t(log.entity_adj),
+        entry_points=g.entry_points,
+        alive=torch.ones((n,), dtype=torch.bool, device=dev),
+        self_ip=g.self_ip,
+    )
+

@@ -1,0 +1,108 @@
+"""Approximate k-NN graph construction with NN-Descent (paper §4.1 Step 1,
+Algorithm 1 lines 1-4). Port of ``repro/core/knn_graph.py``.
+
+Each round explores every node's 2-hop neighborhood: gather (C, K*K) 2-hop
+candidate ids + R random ids -> dedup -> fused hybrid score + top-k (the
+``fused_topk`` kernel gathers the candidate rows by id) -> merge with the
+current neighbors. The builder (``core/build_pipeline.py``) runs it chunk by
+chunk over nodes.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.core.usms import PAD_IDX, FusedVectors
+from repro_torch.kernels import ops
+from repro_torch.kernels.ref import topk_desc
+
+
+@dataclasses.dataclass(frozen=True)
+class KnnConfig:
+    k: int = 32  # neighbors kept per node during descent
+    iters: int = 6
+    extra_random: int = 8  # random candidates injected per round (escape lows)
+    node_chunk: int = 2048  # nodes scored per fused-top-k launch (memory bound)
+    use_kernel: bool | None = None  # None -> kernel on CUDA tensors; False -> plain
+
+
+def dedup_mask(ids: torch.Tensor) -> torch.Tensor:
+    """Mask marking the first occurrence of each id along the last axis
+    (PAD_IDX entries always masked out). Any leading batch shape."""
+    sorted_ids, order = torch.sort(ids, dim=-1, stable=True)
+    first = torch.ones_like(sorted_ids, dtype=torch.bool)
+    first[..., 1:] = sorted_ids[..., 1:] != sorted_ids[..., :-1]
+    mask_sorted = first & (sorted_ids != PAD_IDX)
+    return torch.zeros_like(mask_sorted).scatter(-1, order, mask_sorted)
+
+
+def _merge_topk(ids_a, scores_a, ids_b, scores_b, k: int):
+    """Merge two (.., L) candidate lists into top-k by score with id dedup."""
+    ids = torch.cat([ids_a, ids_b], dim=-1)
+    scores = torch.cat([scores_a, scores_b], dim=-1)
+    keep = dedup_mask(ids)
+    scores = torch.where(keep, scores, torch.full_like(scores, float("-inf")))
+    top, pos = topk_desc(scores, k)
+    out_ids = torch.gather(ids, -1, pos)
+    out_ids = torch.where(torch.isfinite(top), out_ids, torch.full_like(out_ids, PAD_IDX))
+    return out_ids, top
+
+
+def _descent_round_chunk(
+    corpus: FusedVectors,
+    nbr_ids: torch.Tensor,  # (N, K) round-start graph (global)
+    chunk_queries: FusedVectors,  # (C, ...) fused vectors of this node chunk
+    chunk_node_ids: torch.Tensor,  # (C,)
+    chunk_nbrs: torch.Tensor,  # (C, K)
+    chunk_scores: torch.Tensor,  # (C, K)
+    rand_ids: torch.Tensor,  # (C, R) random candidate injection
+    cfg: KnnConfig,
+):
+    k = cfg.k
+    c = chunk_nbrs.shape[0]
+    valid = chunk_nbrs >= 0
+    two_hop = nbr_ids[chunk_nbrs.clamp(min=0).long()].reshape(c, k * k)
+    two_hop = torch.where(valid.repeat_interleave(k, dim=-1), two_hop,
+                          torch.full_like(two_hop, PAD_IDX))
+    cand = torch.cat([two_hop, rand_ids.to(two_hop.dtype)], dim=-1)
+    # never propose the node itself or ids already in the neighbor list
+    pad = torch.full_like(cand, PAD_IDX)
+    cand = torch.where(cand == chunk_node_ids[:, None], pad, cand)
+    already = (cand[:, :, None] == chunk_nbrs[:, None, :]).any(-1)
+    cand = torch.where(already, pad, cand)
+    cand = torch.where(dedup_mask(cand), cand, pad)
+    # fused distance + per-row top-k; pre-selecting k is exact because cand
+    # is deduped and disjoint from chunk_nbrs (see repro's note)
+    sel_scores, sel_pos = ops.fused_topk_vs_ids(
+        chunk_queries, corpus, cand, k, use_kernel=cfg.use_kernel
+    )
+    sel_ids = ops.take_topk_ids(cand, sel_pos)
+    return _merge_topk(chunk_nbrs, chunk_scores, sel_ids, sel_scores, k)
+
+
+def _init_graph(n: int, k: int, generator: torch.Generator, device) -> torch.Tensor:
+    """Random initial neighbors, self-loops remapped (same rule as repro;
+    torch's draws differ from jax.random's)."""
+    ids = torch.randint(0, n, (n, k), generator=generator, device=device, dtype=torch.int32)
+    own = torch.arange(n, dtype=torch.int32, device=device)[:, None]
+    return torch.where(ids == own, (ids + 1) % n, ids)
+
+
+def reverse_neighbors(nbr_ids: torch.Tensor, cap: int) -> torch.Tensor:
+    """Fixed-width reverse adjacency: rev[v] lists up to ``cap`` nodes u
+    with v in N(u), in increasing u (id-sort + per-group position)."""
+    n, k = nbr_ids.shape
+    dev = nbr_ids.device
+    dst = nbr_ids.reshape(-1).long()
+    src = torch.arange(n, dtype=torch.int32, device=dev).repeat_interleave(k)
+    dst_s = torch.where(dst >= 0, dst, torch.full_like(dst, n))  # invalid to the end
+    dst_sorted, order = torch.sort(dst_s, stable=True)
+    src_sorted = src[order]
+    group_start = torch.searchsorted(dst_sorted, dst_sorted, side="left")
+    pos = torch.arange(n * k, device=dev) - group_start
+    keep = (dst_sorted < n) & (pos < cap)
+    rev = torch.full((n, cap), PAD_IDX, dtype=torch.int32, device=dev)
+    rev[dst_sorted[keep], pos[keep]] = src_sorted[keep]
+    return rev

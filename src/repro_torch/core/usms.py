@@ -1,0 +1,160 @@
+"""Unified Semantic Metric Space (USMS), paper §3.1/§3.2.
+
+Port of ``repro/core/usms.py``. Weighted hybrid search is exactly Maximum
+Inner Product Search (Theorem 1):
+
+    M_w(q, d) = <[w_d·qd, w_s·qs, w_f·qf], [dd, ds, df]>
+
+so weights are applied to the query only. Sparse vectors keep the fixed-nnz
+ELL layout ``(idx, val)`` with ``PAD_IDX`` padding: ``idx == PAD_IDX`` ⇔
+``val == 0``, indices unique per row.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+PAD_IDX = -1  # sentinel for unused sparse slots / entity slots
+
+
+@dataclasses.dataclass
+class SparseVec:
+    """Fixed-nnz (ELL) sparse vectors: idx (..., P) int32 PAD-padded,
+    val (..., P) float32, 0 in padded slots."""
+
+    idx: torch.Tensor
+    val: torch.Tensor
+
+    def __getitem__(self, key) -> "SparseVec":
+        return SparseVec(self.idx[key], self.val[key])
+
+    def to(self, device) -> "SparseVec":
+        return SparseVec(self.idx.to(device), self.val.to(device))
+
+
+@dataclasses.dataclass
+class FusedVectors:
+    """A batch of documents or queries in the USMS.
+
+    dense:   (..., Dd) float32 semantic embedding.
+    learned: SparseVec (..., Ps) learned sparse.
+    lexical: SparseVec (..., Pf) full-text term weights; ``lexical.idx``
+             doubles as the keyword set K(·) used by keyword edges.
+    """
+
+    dense: torch.Tensor
+    learned: SparseVec
+    lexical: SparseVec
+
+    @property
+    def n(self) -> int:
+        return self.dense.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.dense.device
+
+    def __getitem__(self, key) -> "FusedVectors":
+        return FusedVectors(self.dense[key], self.learned[key], self.lexical[key])
+
+    def to(self, device) -> "FusedVectors":
+        return FusedVectors(
+            self.dense.to(device), self.learned.to(device), self.lexical.to(device)
+        )
+
+    def take(self, ids: torch.Tensor) -> "FusedVectors":
+        """Gather rows by id along axis 0 (any id shape). PAD ids are clipped
+        to row 0, as ``repro``'s ``take`` does; callers mask the scores.
+        Used only by the plain versions: the kernels gather by id inside."""
+        safe = ids.clamp(0, self.n - 1).long()
+        return FusedVectors(
+            self.dense[safe],
+            SparseVec(self.learned.idx[safe], self.learned.val[safe]),
+            SparseVec(self.lexical.idx[safe], self.lexical.val[safe]),
+        )
+
+    def tensors(self) -> tuple[torch.Tensor, ...]:
+        return (
+            self.dense,
+            self.learned.idx,
+            self.learned.val,
+            self.lexical.idx,
+            self.lexical.val,
+        )
+
+
+def corpus_nbytes_by_leaf(corpus: FusedVectors) -> dict:
+    """Byte footprint of a corpus, keyed by (leaf, dtype)."""
+    out: dict = {}
+    named = [
+        ("dense", corpus.dense),
+        ("sparse_idx", corpus.learned.idx),
+        ("sparse_val", corpus.learned.val),
+        ("sparse_idx", corpus.lexical.idx),
+        ("sparse_val", corpus.lexical.val),
+    ]
+    for leaf, arr in named:
+        key = (leaf, str(arr.dtype).replace("torch.", ""))
+        out[key] = out.get(key, 0) + arr.numel() * arr.element_size()
+    return out
+
+
+@dataclasses.dataclass
+class PathWeights:
+    """Runtime fusion weights [w_d, w_s, w_f, w_k]: floats, 0-d tensors or
+    (B,) tensors (per-query weights)."""
+
+    dense: object
+    sparse: object
+    full: object
+    kg: object
+
+    @classmethod
+    def make(cls, dense=1.0, sparse=0.0, full=0.0, kg=0.0) -> "PathWeights":
+        f = lambda x: torch.as_tensor(x, dtype=torch.float32)
+        return cls(f(dense), f(sparse), f(full), f(kg))
+
+    @classmethod
+    def three_path(cls) -> "PathWeights":
+        return cls.make(1.0, 1.0, 1.0, 0.0)
+
+
+def stack_weights(ws) -> PathWeights:
+    """Stack per-request PathWeights into one whose leaves are (B,) tensors."""
+    st = lambda xs: torch.stack([torch.as_tensor(x, dtype=torch.float32) for x in xs])
+    return PathWeights(
+        st([w.dense for w in ws]),
+        st([w.sparse for w in ws]),
+        st([w.full for w in ws]),
+        st([w.kg for w in ws]),
+    )
+
+
+def _expand_weight(w, like: torch.Tensor) -> torch.Tensor:
+    """A scalar or (B,) weight, right-padded with singleton axes so it
+    broadcasts against (..., D)-shaped ``like``."""
+    w = torch.as_tensor(w, dtype=torch.float32, device=like.device)
+    return w.reshape(tuple(w.shape) + (1,) * (like.dim() - w.dim()))
+
+
+def weighted_query(q: FusedVectors, w: PathWeights) -> FusedVectors:
+    """Theorem 1: scale the query components by the path weights."""
+    return FusedVectors(
+        q.dense * _expand_weight(w.dense, q.dense),
+        SparseVec(q.learned.idx, q.learned.val * _expand_weight(w.sparse, q.learned.val)),
+        SparseVec(q.lexical.idx, q.lexical.val * _expand_weight(w.full, q.lexical.val)),
+    )
+
+
+def keyword_overlap(a_idx: torch.Tensor, b_idx: torch.Tensor) -> torch.Tensor:
+    """|K(a) ∩ K(b)| for PAD-padded keyword id arrays: (..., Pa) x (..., Pb)
+    -> (...,) int32. Assumes unique ids per row."""
+    eq = a_idx.unsqueeze(-1) == b_idx.unsqueeze(-2)
+    valid = (a_idx.unsqueeze(-1) >= 0) & (b_idx.unsqueeze(-2) >= 0)
+    return (eq & valid).sum(dim=(-1, -2)).to(torch.int32)
+
+
+def has_keyword_overlap(a_idx: torch.Tensor, b_idx: torch.Tensor) -> torch.Tensor:
+    return keyword_overlap(a_idx, b_idx) > 0

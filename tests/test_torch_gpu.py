@@ -1,0 +1,110 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on a CUDA
+card. Imports neither jax nor repro, so it runs where only PyTorch is
+installed:
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
+
+Without a card every test skips (the kernels have no CPU mode).
+chip_smoke.py phase 2 makes the same checks at the main path's shapes.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.core.usms import FusedVectors, SparseVec  # noqa: E402
+
+pytestmark = pytest.mark.gpu
+TOL = 1e-4  # fp32 sums in another order than the plain version
+
+
+@pytest.fixture(scope="module")
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _ell(rng, rows, cap, vocab):
+    idx = np.full((rows, cap), -1, np.int32)
+    val = np.zeros((rows, cap), np.float32)
+    for r in range(rows):
+        k = rng.integers(0, cap + 1)
+        idx[r, :k] = rng.choice(vocab, size=k, replace=False)
+        val[r, :k] = rng.uniform(0.1, 1.5, size=k)
+    return SparseVec(torch.as_tensor(idx), torch.as_tensor(val))
+
+
+def _fused(rng, rows, dd=64, ps=12, pf=6):
+    dense = torch.as_tensor(rng.normal(size=(rows, dd)).astype(np.float32))
+    return FusedVectors(dense, _ell(rng, rows, ps, 97), _ell(rng, rows, pf, 31))
+
+
+def test_kernels_match_plain_versions(cuda):
+    from repro_torch.kernels.fused_topk import fused_topk
+    from repro_torch.kernels.hybrid_distance import hybrid_distance
+    from repro_torch.kernels.pairwise_tile import pairwise_tile
+
+    rng = np.random.default_rng(0)
+    q, corpus = _fused(rng, 8, ps=7, pf=4), _fused(rng, 300)
+    ids = rng.integers(0, 300, size=(8, 50)).astype(np.int32)
+    ids[rng.random(ids.shape) < 0.2] = -1
+    ids[0] = -1  # all PAD
+    ids[1] = 17  # planted ties
+    bias = rng.normal(size=ids.shape).astype(np.float32)
+    bias[1] = 0.0
+    tid, tb = torch.as_tensor(ids), torch.as_tensor(bias)
+    qc, cc = q.to(cuda), corpus.to(cuda)
+
+    want = hybrid_distance(q, corpus, tid)
+    got = hybrid_distance(qc, cc, tid.to(cuda)).cpu()
+    assert torch.equal(torch.isinf(got), tid < 0)
+    live = tid >= 0
+    np.testing.assert_allclose(got[live].numpy(), want[live].numpy(), rtol=1e-5, atol=TOL)
+
+    ws, wp = fused_topk(q, corpus, tid, 10, tb)
+    gs, gp = (t.cpu() for t in fused_topk(qc, cc, tid.to(cuda), 10, tb.to(cuda)))
+    np.testing.assert_allclose(gs.numpy(), ws.numpy(), rtol=1e-5, atol=TOL)
+    assert torch.equal(gp < 0, wp < 0)
+    flip = gp != wp
+    assert bool(((gs - ws).abs()[flip] <= TOL).all())
+    assert bool((gp[0] == -1).all())
+    assert torch.equal(gp[1], torch.arange(10, dtype=torch.int32))
+
+    pid = tid.clamp(min=0)[:, :16].contiguous()
+    np.testing.assert_allclose(pairwise_tile(cc, pid.to(cuda)).cpu().numpy(),
+                               pairwise_tile(corpus, pid).numpy(), rtol=1e-5, atol=TOL)
+
+
+def test_kernel_build_and_search_match_plain(cuda):
+    from repro_torch.core.build_pipeline import build_index
+    from repro_torch.core.fusion import FusionSpec
+    from repro_torch.core.index import BuildConfig
+    from repro_torch.core.knn_graph import KnnConfig
+    from repro_torch.core.pruning import PruneConfig
+    from repro_torch.core.search import SearchParams, search
+    from repro_torch.data.corpus import CorpusConfig, make_corpus
+
+    c = make_corpus(CorpusConfig(n_docs=1024, n_queries=32, n_topics=16, d_dense=64, seed=2))
+    cfg = BuildConfig(knn=KnnConfig(k=16, iters=4, node_chunk=512),
+                      prune=PruneConfig(degree=12, keyword_degree=6, node_chunk=256))
+    plain = dataclasses.replace(
+        cfg, knn=dataclasses.replace(cfg.knn, use_kernel=False),
+        prune=dataclasses.replace(cfg.prune, use_kernel=False))
+    gen = lambda: torch.Generator(device=cuda).manual_seed(4)
+    ik = build_index(c.docs, cfg, generator=gen())
+    ip = build_index(c.docs, plain, generator=gen())
+    same = [set(a[a >= 0].tolist()) == set(b[b >= 0].tolist())
+            for a, b in zip(ik.semantic_edges.cpu().numpy(), ip.semantic_edges.cpu().numpy())]
+    assert np.mean(same) >= 0.99
+    params = SearchParams(use_keywords=True)
+    rk = search(ik, c.queries, FusionSpec.three_path(), params, keywords=c.query_keywords)
+    rp = search(ik, c.queries, FusionSpec.three_path(),
+                dataclasses.replace(params, use_kernel=False), keywords=c.query_keywords)
+    np.testing.assert_allclose(rk.scores.cpu().numpy(), rp.scores.cpu().numpy(), atol=TOL)
+    assert (rk.ids != rp.ids).float().mean().item() <= 0.01
