@@ -11,15 +11,30 @@ Phases (each prints its own lines; any failure exits nonzero):
   2. kernel checks: each kernel against its plain PyTorch version on the
      card, at the main path's shapes (Dd = 1024, the corpus caps, B x C of
      NN-Descent chunks and search rounds) plus edge cases (all-PAD rows,
-     k > live, planted ties); max-abs-error, agreement up to ties, times;
+     k > live, planted ties); the int8 variants over an int8 segment of
+     2^18 rows at the shapes a served 32-row bucket gives them and at a
+     large shape, with a zero row and a row at +-127 among the candidates;
+     max-abs-error, agreement up to ties, times and bounds;
   3. small end-to-end: N = 4096 docs with the KG, built and searched once
      through the kernels and once through the plain versions;
   4. full width: make_corpus at N = 2^20, d_dense = 1024, build_index with
      the default BuildConfig (no KG: the dense (E, E) entity adjacency would
      be ~1 TB), search 1024 queries under six fusion specs, QPS and recall;
-  5. the kernels line: launches on the main path (phase 4), errors, times
-     and bounds;
-  6. the last line: {"ok": true, "device": {...}}.
+  5. serving at full width: the same corpus as four sealed segments of 2^18
+     (build_pool_segment + append_segment, one fp32 group) and its int8
+     twin, each served through HybridSearchService (default ServiceConfig)
+     under three-path, RRF and keyword-constrained specs: QPS, p50/p99
+     request latency, recall@10 against brute force over all 2^20 docs,
+     nDCG@10, the index-bytes gauges, compiles, and the launches of every
+     kernel variant while each pool served (each pool must run its own
+     variants and not the other's); then int8 storage against fp32 apart
+     from the graph: brute-force top-10 overlap and the score gap against
+     the gap the format allows, with planted faults that must fail;
+  6. the kernels line: launches on each variant's path (phase 4 plus the
+     fp32 pool's serving for the fp32 variants, phase 4 for pairwise_tile,
+     the int8 pool's serving for the int8 variants), errors, times and
+     bounds at the shape the path runs most;
+  7. the last line: {"ok": true, "device": {...}}.
 
 Imports nothing of JAX. Needs one CUDA card; exits nonzero without one.
 """
@@ -40,6 +55,11 @@ FP32_FLOP_PER_S = 67e12  # H100 SXM fp32, outside the tensor cores
 TOL = 1e-4  # fp32 sums of ~1000 products in another order than the plain version
 N_FULL = 2**20
 N_QUERIES = 1024
+N_SEGMENT = 2**18  # phase 5: the 2^20 corpus as four sealed segments
+RECALL_GAP = 0.02  # int8 three-path recall@10 must stay within this of fp32 (ROADMAP Queue 1)
+# int8-stored brute-force top-10 overlap with fp32's: sound 0.9996, planted
+# scale faults 0.0009 and 0.9769 on an H100 at 2^20 (PERF.md, Findings PR 12)
+INT8_OVERLAP = 0.99
 
 
 class SmokeFailure(Exception):
@@ -76,7 +96,12 @@ def time_ms(fn, reps: int, warm: int = 2) -> float:
 
 
 def row_bytes(f) -> int:
-    return f.dense.shape[1] * 4 + (f.learned.idx.shape[1] + f.lexical.idx.shape[1]) * 8
+    """Bytes of one stored row: fp32 dense + 8 B per ELL slot, or int8 dense
+    + a 4-byte scale + 6 B per ELL slot (int32 id, fp16 value)."""
+    slots = f.learned.idx.shape[1] + f.lexical.idx.shape[1]
+    if hasattr(f, "dense_q"):
+        return f.dense_q.shape[1] + 4 + slots * 6
+    return f.dense.shape[1] * 4 + slots * 8
 
 
 def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
@@ -92,7 +117,7 @@ def scoring_work(q, corpus, ids, out_bytes: int, extra_in: int = 0):
     live = ids[ids >= 0]
     uniq = int(torch.unique(live).numel())
     nbytes = uniq * row_bytes(corpus) + q.n * row_bytes(q) + ids.numel() * 4 + out_bytes + extra_in
-    flops = 2.0 * corpus.dense.shape[1] * int(live.numel())
+    flops = 2.0 * q.dense.shape[1] * int(live.numel())
     return nbytes, flops
 
 
@@ -186,6 +211,7 @@ def phase_kernels(corpus, queries, results: dict):
     """Each kernel vs its plain version on the card."""
     import torch
 
+    from repro_torch.core.index import BuildConfig
     from repro_torch.core.search import SearchParams
     from repro_torch.core.usms import FusedVectors, PathWeights, SparseVec, weighted_query
     from repro_torch.kernels.fused_topk import fused_topk, fused_topk_plain
@@ -251,9 +277,11 @@ def phase_kernels(corpus, queries, results: dict):
 
     # --- hybrid_distance: self scores over N, entry scoring, final re-score ---
     self_ids = torch.arange(n, dtype=torch.int32, device="cuda")[:, None]
-    rescore_q = FusedVectors(torch.cat([qw.dense] * 3), SparseVec(
-        torch.cat([qw.learned.idx] * 3), torch.cat([qw.learned.val] * 3)), SparseVec(
-        torch.cat([qw.lexical.idx] * 3), torch.cat([qw.lexical.val] * 3)))
+    stack3 = lambda q: FusedVectors(  # the final re-score's three query blocks
+        torch.cat([q.dense] * 3),
+        *(SparseVec(torch.cat([sv.idx] * 3), torch.cat([sv.val] * 3))
+          for sv in (q.learned, q.lexical)))
+    rescore_q = stack3(qw)
     cases = [
         ("self_scores", corpus, self_ids),
         ("entry_scoring", qw, random_ids(n, N_QUERIES, 16, 0.0, gen)),
@@ -291,6 +319,100 @@ def phase_kernels(corpus, queries, results: dict):
     flops = 2.0 * corpus.dense.shape[1] * ids.shape[0] * 32 * 32
     record("pairwise_tile", "prune_chunk C=1024 K=32", err, ms, plain_ms, nbytes, flops)
     torch.cuda.empty_cache()
+
+    # --- int8 variants over one sealed segment's storage ---------------------
+    from repro_torch.core.usms import quantize_corpus
+    from repro_torch.kernels.fused_topk import fused_topk_int8, fused_topk_int8_plain
+    from repro_torch.kernels.hybrid_distance import (
+        hybrid_distance_int8,
+        hybrid_distance_int8_plain,
+    )
+
+    seg = rows(0, N_SEGMENT)
+    dense = seg.dense.clone()
+    dense[0] = 0.0  # a zero row: scale 1.0, all-zero int8
+    dense[1, 0::2], dense[1, 1::2] = 1.0, -1.0  # a row at +-127
+    cq = quantize_corpus(FusedVectors(dense, seg.learned, seg.lexical))
+    del dense
+    need(float(cq.dense_scale[0]) == 1.0 and not bool(cq.dense_q[0].any()), "int8: zero row")
+    need(bool((cq.dense_q[1].abs() == 127).all()), "int8: +-127 row")
+    nq = cq.n
+    big_q = rows(N_SEGMENT, N_SEGMENT + 2048)  # rows of another segment as queries
+
+    def plant(ids):
+        """Edge rows: all PAD, k > live, planted ties, the zero and +-127 rows."""
+        ids[0] = -1
+        ids[1, :3] = torch.tensor([11, 22, 33], dtype=torch.int32, device="cuda")
+        ids[1, 3:] = -1
+        ids[2] = 12345 % nq
+        ids[3, ::2] = 777 % nq
+        ids[4, :2] = torch.tensor([0, 1], dtype=torch.int32, device="cuda")
+        return ids
+
+    # serving shapes: a 32-row bucket with keywords on expands one node per
+    # round into 16 semantic + 8 keyword edges (C = 24), picks the round's
+    # top 24 and the twin pool's top 16; entry scoring takes the 16 entry
+    # points; the final re-score stacks the three single-path queries
+    # (B = 96) over the 64 + 16 pooled ids (C = 80)
+    sb = 32
+    serve_c = sp.expand * (BuildConfig().prune.degree + BuildConfig().prune.keyword_degree)
+    bias_for = lambda b, c: torch.rand((b, c), generator=gen, device="cuda")
+    cases = [
+        ("serve_round", qw[0:sb], plant(random_ids(nq, sb, serve_c, 0.2, gen)),
+         min(sp.pool_size, serve_c), bias_for(sb, serve_c)),
+        ("serve_twin", qw[0:sb], plant(random_ids(nq, sb, serve_c, 0.5, gen)),
+         min(sp.kw_pool_size, serve_c), bias_for(sb, serve_c)),
+        ("search_round", qw[0:64], plant(random_ids(nq, 64, 16, 0.2, gen)), 16,
+         bias_for(64, 16)),
+        ("large", big_q, random_ids(nq, 2048, 32 * 32 + 8, 0.3, gen), 32, None),
+    ]
+    for label, q, ids, k, bias in cases:
+        b = ids.shape[0]
+        if bias is not None:
+            bias[2:4] = 0.0
+        s_k, p_k = fused_topk_int8(q, cq, ids, k, bias)
+        s_p, p_p = fused_topk_int8_plain(q, cq, ids, k, bias)
+        full = hybrid_distance_int8_plain(q, cq, ids)
+        if bias is not None:
+            full = full + bias
+        full = torch.where(ids >= 0, full, torch.full_like(full, NEG))
+        err = topk_agree(s_k, p_k, s_p, p_p, full, TOL)
+        if label != "large":
+            need(bool((p_k[0] == -1).all()) and bool((s_k[0] == NEG).all()), "int8: all-PAD row")
+            need(bool((p_k[1, 3:] == -1).all()) and bool((p_k[1, :3] >= 0).all()), "int8: k > live")
+            need(torch.equal(p_k[2], torch.arange(k, device="cuda", dtype=torch.int32)),
+                 "int8: planted ties, lowest position first")
+            tied = p_k[3][p_k[3] % 2 == 0]
+            need(torch.equal(tied, torch.sort(tied).values), "int8: planted ties, order")
+        ms = time_ms(lambda: fused_topk_int8(q, cq, ids, k, bias), 5 if b > 256 else 20)
+        plain_ms = time_ms(lambda: fused_topk_int8_plain(q, cq, ids, k, bias), 2, warm=1)
+        nbytes, flops = scoring_work(q, cq, ids, b * k * 8,
+                                     0 if bias is None else bias.numel() * 4)
+        record("fused_topk_int8", f"{label} B={b} C={ids.shape[1]} k={k}"
+               f"{' bias' if bias is not None else ''}", err, ms, plain_ms, nbytes, flops)
+        torch.cuda.empty_cache()
+
+    cases = [
+        ("serve_entry", qw[0:sb], plant(random_ids(nq, sb, BuildConfig().n_entry, 0.0, gen))),
+        ("serve_rescore", stack3(qw[0:sb]), plant(random_ids(nq, 3 * sb, sp.pool_size + sp.kw_pool_size,
+                                                0.3, gen))),
+        ("final_rescore", qw[0:64], plant(random_ids(nq, 64, sp.pool_size + sp.kw_pool_size,
+                                                     0.3, gen))),
+        ("large", big_q, random_ids(nq, 2048, 32 * 32 + 8, 0.3, gen)),
+    ]
+    for label, q, ids in cases:
+        out_k = hybrid_distance_int8(q, cq, ids)
+        out_p = hybrid_distance_int8_plain(q, cq, ids)
+        need(torch.equal(torch.isinf(out_k), ids < 0), f"hybrid_distance_int8 {label}: -inf mask")
+        live = ids >= 0
+        err = float((out_k - out_p).abs()[live].max().item())
+        need(err <= TOL, f"hybrid_distance_int8 {label}: error {err}")
+        ms = time_ms(lambda: hybrid_distance_int8(q, cq, ids), 5 if ids.shape[0] > 256 else 20)
+        plain_ms = time_ms(lambda: hybrid_distance_int8_plain(q, cq, ids), 2, warm=1)
+        nbytes, flops = scoring_work(q, cq, ids, ids.numel() * 4)
+        record("hybrid_distance_int8", f"{label} B={ids.shape[0]} C={ids.shape[1]}", err, ms,
+               plain_ms, nbytes, flops)
+        torch.cuda.empty_cache()
 
 
 def phase_small_e2e():
@@ -449,6 +571,201 @@ def phase_full(corpus_bundle, results: dict):
     say("phase 4 plain check: 64 queries through the plain versions agree up to ties")
 
 
+def phase_serving(corpus_bundle, results: dict, device: str = "cuda"):
+    """Four sealed segments of 2^18 docs, fp32 and int8, served through
+    HybridSearchService. (``device`` lets the phase be rehearsed on the CPU
+    at a tiny size.)"""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.distributed import SegmentedIndex
+    from repro_torch.core.fusion import FusionSpec
+    from repro_torch.core.index import BuildConfig
+    from repro_torch.core.search import SearchParams
+    from repro_torch.core.segment_pool import (
+        SegmentPool,
+        alive_docs_pool,
+        append_segment,
+        build_pool_segment,
+    )
+    from repro_torch.core.usms import SparseVec, quantize_corpus, weighted_query
+    from repro_torch.data.corpus import ndcg_at_k, recall_at_k
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.fused_topk import fused_topk, fused_topk_int8
+    from repro_torch.kernels.hybrid_distance import hybrid_distance, hybrid_distance_int8
+    from repro_torch.kernels.pairwise_tile import pairwise_tile
+    from repro_torch.obs.metrics import GLOBAL
+    from repro_torch.serving.hybrid_service import HybridSearchService
+
+    c = corpus_bundle
+    n = c.docs.n
+    wrappers = {"hybrid_distance": hybrid_distance, "hybrid_distance_int8": hybrid_distance_int8,
+                "fused_topk": fused_topk, "fused_topk_int8": fused_topk_int8,
+                "pairwise_tile": pairwise_tile}
+
+    # ---- build: four sealed fp32 segments, then the int8 twin --------------
+    t = time.perf_counter()
+    pool = SegmentPool(groups=[])
+    for s in range(n // N_SEGMENT):
+        lo, hi = s * N_SEGMENT, (s + 1) * N_SEGMENT
+        seg = build_pool_segment(c.docs[lo:hi], np.arange(lo, hi), BuildConfig(),
+                                 generator=torch.Generator(device).manual_seed(100 + s),
+                                 device=device)
+        pool, g = append_segment(pool, seg)
+        need(g == 0, "equal-capacity segments must share one group")
+        del seg
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    sync()
+    build_s = time.perf_counter() - t
+    t = time.perf_counter()
+    pool_q = SegmentPool(groups=[SegmentedIndex(dataclasses.replace(
+        g.index, corpus=quantize_corpus(g.index.corpus)), g.global_ids) for g in pool.groups])
+    sync()
+    quant_s = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    say(f"phase 5 pool: {pool.n_segments} segments of {N_SEGMENT} in {pool.n_groups} group, "
+        f"built in {build_s:.2f} s; int8 twin quantized in {quant_s:.3f} s")
+
+    kwds = np.asarray(torch.as_tensor(c.query_keywords).cpu())
+    specs = [("three_path", FusionSpec.three_path(), None),
+             ("rrf", FusionSpec.rrf(), None),
+             ("keyword", FusionSpec.three_path(), kwds)]
+    truth_cache: dict = {}
+
+    def truth(spec):
+        key = tuple(float(torch.as_tensor(getattr(spec.weights, f)))
+                    for f in ("dense", "sparse", "full"))
+        if key not in truth_cache:
+            truth_cache[key] = ops.topk_hybrid(weighted_query(c.queries, spec.weights), c.docs,
+                                               10, chunk=8192)[1]
+        return truth_cache[key]
+
+    out, launches = {}, {}
+    index_bytes = GLOBAL.get("allanpoe_index_bytes_total")
+    for dtype, p in (("float32", pool), ("int8", pool_q)):
+        index_bytes.reset()  # only this service's labels
+        svc = HybridSearchService(p, SearchParams(use_keywords=True, corpus_dtype=dtype))
+        gauges = {f"{leaf}/{dt}": int(v) for (leaf, dt), v in index_bytes.values().items()}
+        _ = svc.path_stats  # corpus stats once, before the timed requests
+        hist = svc.metrics.get("allanpoe_serving_request_latency_seconds")
+        for w in wrappers.values():  # each pool's path: counts zeroed just before
+            w.launches = 0
+        rows = {}
+        for name, spec, kw in specs:
+            before = hist.snapshot()
+            sync()
+            t = time.perf_counter()
+            res = svc.search(c.queries, spec, keywords=kw)
+            secs = time.perf_counter() - t
+            lat = hist.snapshot().minus(before)
+            ids = res.ids.to(device)
+            need(res.ids.shape == (N_QUERIES, 10), f"phase 5 {dtype} {name}: ids shape")
+            ok = res.ids >= 0
+            need(bool(torch.isfinite(res.scores[ok]).all()), f"phase 5 {dtype} {name}: scores")
+            need(bool(ok[:, 0].all()), f"phase 5 {dtype} {name}: a query without results")
+            rec = recall_at_k(ids, truth(spec))
+            nd = ndcg_at_k(ids, c.query_relevant, 10)
+            rows[name] = dict(qps=N_QUERIES / secs, p50_ms=lat.quantile(0.5) * 1e3,
+                              p99_ms=lat.quantile(0.99) * 1e3, recall=rec, ndcg=nd, res=res)
+            say(f"phase 5 serve {dtype} {name}: {N_QUERIES} queries {secs:.3f} s QPS "
+                f"{N_QUERIES / secs:.1f} p50 {lat.quantile(0.5) * 1e3:.2f} ms p99 "
+                f"{lat.quantile(0.99) * 1e3:.2f} ms vector recall@10 {rec:.4f} nDCG@10 {nd:.4f}")
+        launches[dtype] = {k: w.launches for k, w in wrappers.items()}  # read just after
+        buckets = svc.metrics.get("allanpoe_serving_batches_total").values()
+        need(svc.stats.compiles == len(buckets),
+             f"phase 5 {dtype}: {svc.stats.compiles} compiles for {len(buckets)} bucket shapes")
+        say(f"phase 5 {dtype} index bytes: {json.dumps(gauges)}; compiles {svc.stats.compiles} "
+            f"for bucket shapes {sorted(b[0] for b in buckets)} over "
+            f"{svc.stats.batches} batches")
+        # 64 queries through the plain versions: the same ids up to ties
+        plain = HybridSearchService(p, SearchParams(use_keywords=True, corpus_dtype=dtype,
+                                                    use_kernel=False))
+        for name, spec, kw in specs[::2]:
+            rp = plain.search(c.queries[0:64], spec, keywords=None if kw is None else kw[:64])
+            rk = rows[name]["res"]
+            ids_agree(rk.ids[:64], rk.scores[:64], rp.ids, rp.scores, TOL)
+        say(f"phase 5 {dtype} plain check: 64 queries through the plain versions agree up to "
+            "ties (three_path, keyword)")
+        out[dtype] = dict(rows=rows, dense=gauges.get(f"dense/{dtype}", 0))
+        del svc, plain
+        torch.cuda.empty_cache()
+
+    for dtype, other in (("float32", "int8"), ("int8", "float32")):
+        say(f"phase 5 launches while the {dtype} pool served: {json.dumps(launches[dtype])}")
+        for k in ("hybrid_distance", "fused_topk"):
+            mine, theirs = (k, k + "_int8") if dtype == "float32" else (k + "_int8", k)
+            need(launches[dtype][mine] > 0, f"{mine} was not launched while the {dtype} pool "
+                 "served")
+            need(launches[dtype][theirs] == 0, f"{theirs} launched while the {dtype} pool served")
+    for k in ("hybrid_distance", "fused_topk"):  # fp32: phase 4's path plus this one
+        results[k]["launches"] += launches["float32"][k]
+        results[k + "_int8"]["launches"] = launches["int8"][k + "_int8"]
+    ratio = out["int8"]["dense"] / out["float32"]["dense"]
+    need(ratio <= 0.26, f"int8 dense bytes are {ratio:.4f} of fp32")
+    gap = out["float32"]["rows"]["three_path"]["recall"] - out["int8"]["rows"]["three_path"][
+        "recall"]
+    need(abs(gap) <= RECALL_GAP, f"int8 three-path recall@10 differs from fp32 by {gap:.4f}")
+    served = recall_at_k(out["int8"]["rows"]["three_path"]["res"].ids,
+                         out["float32"]["rows"]["three_path"]["res"].ids)
+    say(f"phase 5 int8 vs fp32: dense bytes ratio {ratio:.4f}; three-path recall@10 gap "
+        f"{gap:.4f} (limit {RECALL_GAP}); served top-10 overlap {served:.4f}")
+
+    # ---- int8 storage against fp32, independent of the graph ---------------
+    # brute force over the rows a pool stores vs brute force over the fp32
+    # corpus, three-path weights: top-10 overlap, and per (query, true top-10
+    # doc) the score gap against what the format allows, half a quantization
+    # step per dense term plus fp16 rounding (2^-11) of each sparse product
+    # (vals are >= 0, so the sparse part of the score is their sum). Planted
+    # faults must fail one of the two checks.
+    spec3 = FusionSpec.three_path()
+    qw3 = weighted_query(c.queries, spec3.weights)
+    want = truth(spec3).long()
+    need(all(bool((v >= 0).all()) for f in (c.docs, qw3) for v in (f.learned.val, f.lexical.val)),
+         "negative sparse values: the fp16 bound below needs vals >= 0")
+    s_fp32 = ops.hybrid_scores_vs_ids(qw3, c.docs, want.int())
+    dense_part = torch.einsum("bd,bkd->bk", qw3.dense, c.docs.dense[want])
+    q_l1 = qw3.dense.abs().sum(1, keepdim=True)
+
+    def stored_vs_fp32(p):
+        """(top-10 overlap, max score gap / allowed gap) of pool p's storage."""
+        docs, gids, _ = alive_docs_pool(p)
+        gids = torch.as_tensor(gids, dtype=torch.long, device=device)
+        top = gids[ops.topk_hybrid(qw3, docs, 10, chunk=8192)[1].long()]
+        at = torch.empty(n, dtype=torch.long, device=device)
+        at[gids] = torch.arange(gids.numel(), device=device)
+        scale = torch.empty(n, device=device)
+        for g in p.groups:
+            gid = g.global_ids.reshape(-1).long()
+            scale[gid[gid >= 0]] = g.index.corpus.dense_scale.reshape(-1)[gid >= 0]
+        s_stored = ops.hybrid_scores_vs_ids(qw3, docs, at[want].int())
+        allowed = 0.5 * scale[want] * q_l1 + 2.0**-11 * (s_fp32 - dense_part).abs() + TOL
+        return recall_at_k(top, want), float(((s_stored - s_fp32).abs() / allowed).max().item())
+
+    def planted(fn):
+        return SegmentPool(groups=[SegmentedIndex(dataclasses.replace(
+            g.index, corpus=fn(g.index.corpus)), g.global_ids) for g in pool_q.groups])
+
+    bf16 = lambda sv: SparseVec(sv.idx, sv.val.to(torch.bfloat16).to(torch.float16))
+    faults = {
+        "scale=1": lambda q: dataclasses.replace(q, dense_scale=torch.ones_like(q.dense_scale)),
+        "scale x2": lambda q: dataclasses.replace(q, dense_scale=2 * q.dense_scale),
+        "vals via bf16": lambda q: dataclasses.replace(q, learned=bf16(q.learned),
+                                                       lexical=bf16(q.lexical)),
+    }
+    overlap, gap_ratio = stored_vs_fp32(pool_q)
+    readings = {k: stored_vs_fp32(planted(fn)) for k, fn in faults.items()}
+    say(f"phase 5 int8 vs fp32 brute force (three-path, top-10 of {n}): overlap {overlap:.4f} "
+        f"(limit {INT8_OVERLAP}), max score gap {gap_ratio:.4f} of the allowed gap; planted "
+        "faults: " + ", ".join(f"{k} overlap {ov:.4f} gap {r:.4g}x allowed"
+                               for k, (ov, r) in readings.items()))
+    need(overlap >= INT8_OVERLAP, f"int8 brute-force top-10 overlap {overlap:.4f}")
+    need(gap_ratio <= 1.0, f"int8 score gap {gap_ratio:.4f} of the allowed gap")
+    for k, (ov, r) in readings.items():
+        need(ov < INT8_OVERLAP or r > 1.0, f"planted fault {k} passes the int8 checks")
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found next to this script", file=sys.stderr)
@@ -476,6 +793,8 @@ def main() -> int:
         phase_kernels(full.docs, full.queries, results)
         phase_small_e2e()
         phase_full(full, results)
+        torch.cuda.empty_cache()
+        phase_serving(full, results)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
@@ -483,8 +802,12 @@ def main() -> int:
     src = {
         "hybrid_distance": ("src/repro_torch/kernels/csrc/hybrid_distance.cu",
                             "src/repro/kernels/hybrid_distance.py:95", "self_scores"),
+        "hybrid_distance_int8": ("src/repro_torch/kernels/csrc/hybrid_distance.cu",
+                                 "src/repro/kernels/hybrid_distance.py:38", "serve_rescore"),
         "fused_topk": ("src/repro_torch/kernels/csrc/fused_topk.cu",
                        "src/repro/kernels/fused_topk.py:160", "descent_chunk"),
+        "fused_topk_int8": ("src/repro_torch/kernels/csrc/fused_topk.cu",
+                            "src/repro/kernels/fused_topk.py:124", "serve_round"),
         "pairwise_tile": ("src/repro_torch/kernels/csrc/pairwise_tile.cu",
                           "src/repro/kernels/pairwise_tile.py:77", "prune_chunk"),
     }

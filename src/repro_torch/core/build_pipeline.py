@@ -356,3 +356,55 @@ def build_index(
         self_ip=g.self_ip,
     )
 
+
+
+# ---------------------------------------------------------------------------
+# Row-axis reshaping of a built index (shape bucketing): the segment pool's
+# capacity-padded segments.
+# ---------------------------------------------------------------------------
+
+
+def map_index_rows(index: HybridIndex, fn) -> HybridIndex:
+    """Apply ``fn(tensor, pad_fill)`` to every per-row (axis 0 == N) tensor of
+    a single-segment fp32 index; entity tables and entry points are
+    N-independent."""
+    from repro_torch.core.usms import PAD_IDX, SparseVec
+
+    c = index.corpus
+    return dataclasses.replace(
+        index,
+        corpus=FusedVectors(
+            fn(c.dense, 0),
+            SparseVec(fn(c.learned.idx, PAD_IDX), fn(c.learned.val, 0)),
+            SparseVec(fn(c.lexical.idx, PAD_IDX), fn(c.lexical.val, 0)),
+        ),
+        semantic_edges=fn(index.semantic_edges, PAD_IDX),
+        keyword_edges=fn(index.keyword_edges, PAD_IDX),
+        logical_edges=fn(index.logical_edges, PAD_IDX),
+        doc_entities=fn(index.doc_entities, PAD_IDX),
+        alive=fn(index.alive, False),
+        self_ip=fn(index.self_ip, 0.0),
+    )
+
+
+def pad_index_rows(index: HybridIndex, capacity: int) -> HybridIndex:
+    """Pad an index's per-row tensors with DEAD rows up to ``capacity``. Pad
+    rows are unreachable: entry points and edges reference only real rows,
+    ``alive`` is False, and no global-id map covers them."""
+    n = index.n
+    if capacity <= n:
+        return index
+
+    def pad(a, fill):
+        tail = torch.full((capacity - n,) + tuple(a.shape[1:]), fill, dtype=a.dtype,
+                          device=a.device)
+        return torch.cat([a, tail])
+
+    return map_index_rows(index, pad)
+
+
+def slice_index_rows(index: HybridIndex, n: int) -> HybridIndex:
+    """Drop a padded index's dead tail (inverse of ``pad_index_rows``)."""
+    if index.n == n:
+        return index
+    return map_index_rows(index, lambda a, _fill: a[:n])

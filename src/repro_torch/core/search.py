@@ -8,7 +8,9 @@ their semantic (and, when asked, keyword and logical) edges, dedups against
 the pool and the visited ring, and scores + selects the round's candidates
 with one ``fused_topk`` launch (plus one for the twin keyword pool). The
 final pool is re-scored per path with one ``hybrid_distance`` launch and
-fused by the ``FusionSpec`` mode.
+fused by the ``FusionSpec`` mode. An index whose corpus is in int8 storage
+(``QuantizedFusedVectors``) runs the same loop through the kernels'
+``has_scale`` variants.
 """
 
 from __future__ import annotations
@@ -48,10 +50,13 @@ class SearchParams:
     use_keywords: bool = False  # keyword edge loading + filtering
     use_kg: bool = False  # logical edge traversal
     kg_max_hops: int = 3
-    corpus_dtype: str = "float32"  # int8 storage waits for the quantized slice
+    corpus_dtype: str = "float32"  # sealed-corpus storage: "float32" or "int8"
+    # (per-row int8 dense + fp16 sparse vals, quantized at seal time; every
+    # corpus score, the final per-path re-score included, reads the stored
+    # form). It names the storage the index carries, never traced data.
 
 
-CORPUS_DTYPES = ("float32",)
+CORPUS_DTYPES = ("float32", "int8")
 
 
 def resolve_params(params: SearchParams) -> SearchParams:

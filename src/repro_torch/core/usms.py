@@ -7,7 +7,9 @@ Inner Product Search (Theorem 1):
 
 so weights are applied to the query only. Sparse vectors keep the fixed-nnz
 ELL layout ``(idx, val)`` with ``PAD_IDX`` padding: ``idx == PAD_IDX`` ⇔
-``val == 0``, indices unique per row.
+``val == 0``, indices unique per row. Sealed corpora may be held in
+compressed storage (``QuantizedFusedVectors``: int8 dense + fp32 row scale,
+fp16 sparse values).
 """
 
 from __future__ import annotations
@@ -85,20 +87,114 @@ class FusedVectors:
         )
 
 
-def corpus_nbytes_by_leaf(corpus: FusedVectors) -> dict:
-    """Byte footprint of a corpus, keyed by (leaf, dtype)."""
+@dataclasses.dataclass
+class QuantizedFusedVectors:
+    """A sealed corpus in compressed storage (DESIGN.md §13): per-row
+    symmetric int8 dense vectors with fp32 scales, fp16 ELL sparse values
+    (ids stay int32).
+
+    dense_q:     (..., Dd) int8 — round(dense / scale), clipped to ±127.
+    dense_scale: (...,) float32 — per-row scale; 1.0 for all-zero rows.
+    learned:     SparseVec (..., Ps) with float16 vals.
+    lexical:     SparseVec (..., Pf) with float16 vals.
+
+    Has no ``.dense``, as in ``repro``: fp32 rows come back only through an
+    explicit ``dequantize_corpus``.
+    """
+
+    dense_q: torch.Tensor
+    dense_scale: torch.Tensor
+    learned: SparseVec
+    lexical: SparseVec
+
+    @property
+    def n(self) -> int:
+        return self.dense_q.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.dense_q.device
+
+    def __getitem__(self, key) -> "QuantizedFusedVectors":
+        return QuantizedFusedVectors(
+            self.dense_q[key], self.dense_scale[key], self.learned[key], self.lexical[key]
+        )
+
+    def to(self, device) -> "QuantizedFusedVectors":
+        return QuantizedFusedVectors(
+            self.dense_q.to(device), self.dense_scale.to(device),
+            self.learned.to(device), self.lexical.to(device),
+        )
+
+    def take(self, ids: torch.Tensor) -> "QuantizedFusedVectors":
+        """Gather rows by id along axis 0; PAD ids clip to row 0 (callers mask
+        the scores). Used only by the plain versions."""
+        safe = ids.clamp(0, self.n - 1).long()
+        return QuantizedFusedVectors(
+            self.dense_q[safe],
+            self.dense_scale[safe],
+            SparseVec(self.learned.idx[safe], self.learned.val[safe]),
+            SparseVec(self.lexical.idx[safe], self.lexical.val[safe]),
+        )
+
+    def tensors(self) -> tuple[torch.Tensor, ...]:
+        return (
+            self.dense_q,
+            self.dense_scale,
+            self.learned.idx,
+            self.learned.val,
+            self.lexical.idx,
+            self.lexical.val,
+        )
+
+
+def quantize_corpus(f: FusedVectors) -> QuantizedFusedVectors:
+    """Seal-time compression of a built corpus: symmetric per-row int8 dense
+    (scale = max|row| / 127, 1.0 for all-zero rows; ``torch.round`` rounds
+    half to even like ``jnp.round``), fp16 sparse values (PAD slots stay 0)."""
+    amax = f.dense.abs().amax(dim=-1)
+    scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax)).to(torch.float32)
+    dense_q = torch.clamp(torch.round(f.dense / scale[..., None]), -127, 127).to(torch.int8)
+    return QuantizedFusedVectors(
+        dense_q,
+        scale,
+        SparseVec(f.learned.idx, f.learned.val.to(torch.float16)),
+        SparseVec(f.lexical.idx, f.lexical.val.to(torch.float16)),
+    )
+
+
+def dequantize_corpus(q: QuantizedFusedVectors) -> FusedVectors:
+    """fp32 storage back from a quantized corpus (rebuild / compaction input)."""
+    return FusedVectors(
+        q.dense_q.to(torch.float32) * q.dense_scale[..., None],
+        SparseVec(q.learned.idx, q.learned.val.to(torch.float32)),
+        SparseVec(q.lexical.idx, q.lexical.val.to(torch.float32)),
+    )
+
+
+def corpus_nbytes_by_leaf(corpus) -> dict:
+    """Byte footprint of a corpus, keyed by (leaf, dtype) — feeds the
+    ``allanpoe_index_bytes_total`` gauges."""
     out: dict = {}
-    named = [
-        ("dense", corpus.dense),
+    if isinstance(corpus, QuantizedFusedVectors):
+        named = [("dense", corpus.dense_q), ("dense_scale", corpus.dense_scale)]
+    else:
+        named = [("dense", corpus.dense)]
+    named += [
         ("sparse_idx", corpus.learned.idx),
         ("sparse_val", corpus.learned.val),
         ("sparse_idx", corpus.lexical.idx),
         ("sparse_val", corpus.lexical.val),
     ]
     for leaf, arr in named:
-        key = (leaf, str(arr.dtype).replace("torch.", ""))
+        key = (leaf, dtype_name(arr))
         out[key] = out.get(key, 0) + arr.numel() * arr.element_size()
     return out
+
+
+def dtype_name(t: torch.Tensor) -> str:
+    """numpy-style dtype name of a tensor ("float32", "int8", "bool")."""
+    return str(t.dtype).replace("torch.", "")
 
 
 @dataclasses.dataclass

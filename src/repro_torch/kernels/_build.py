@@ -34,7 +34,11 @@ _L = ctypes.c_longlong
 _ARGTYPES = {  # every launch ends (..., int device, void* stream)
     "hybrid_distance_launch": [_P] * 5 + [_I] * 4 + [_P] * 5 + [_L, _I, _I, _I]
     + [_P, _I, _P, _I, _P],
+    "hybrid_distance_q8_launch": [_P] * 5 + [_I] * 4 + [_P] * 6 + [_L, _I, _I, _I]
+    + [_P, _I, _P, _I, _P],
     "fused_topk_launch": [_P] * 5 + [_I] * 4 + [_P] * 5 + [_L, _I, _I, _I]
+    + [_P, _P, _I, _I, _P, _P, _I, _P],
+    "fused_topk_q8_launch": [_P] * 5 + [_I] * 4 + [_P] * 6 + [_L, _I, _I, _I]
     + [_P, _P, _I, _I, _P, _P, _I, _P],
     "fused_topk_smem_bytes": [_I, _I, _I, _I],
     "pairwise_tile_launch": [_P] * 5 + [_L, _I, _I, _I] + [_P, _I, _I, _P, _I, _P],

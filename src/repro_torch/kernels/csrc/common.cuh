@@ -4,13 +4,19 @@
 //   dense  (rows, Dd) float32
 //   ELL    (rows, P)  int32 ids / float32 vals; id == -1 (PAD) <=> val == 0,
 //          live ids unique within a row.
+// Quantized storage (QuantizedFusedVectors, DESIGN.md §13):
+//   dense  (rows, Dd) int8 + scale (rows,) float32
+//   ELL    (rows, P)  int32 ids / float16 vals.
+// Queries are always fp32.
 //
 // Sparse intersection follows the paper (§4.1): the query row's live ELL ids
 // are sorted once per block into shared memory, and each lane binary-searches
 // one candidate slot in them. The dense part is one warp per candidate row:
-// coalesced float4 loads, warp-shuffle reduction.
+// coalesced 16-byte loads (4 floats or 16 int8 values), warp-shuffle
+// reduction; int8 rows multiply the reduced sum by the row scale once.
 #pragma once
 
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
@@ -111,7 +117,7 @@ static __device__ __forceinline__ void load_query(QueryCache q, int b, const flo
   __syncthreads();
 }
 
-// Candidate rows of the corpus, by pointer.
+// Candidate rows of the corpus, by pointer: fp32 storage.
 struct CorpusView {
   const float* dense;
   const int* si;
@@ -122,52 +128,109 @@ struct CorpusView {
   int dd;
   int ps;
   int pf;
-  int vec4;  // dense rows are 16-byte aligned and dd % 4 == 0
+  int vec;  // dense rows are 16-byte aligned and dd % 4 == 0
+
+  // Lane-partial dense dot of row `row` with the cached query; the caller
+  // reduces over the warp and applies `finish`.
+  __device__ __forceinline__ float dense_dot(const float* qd, long long row, int lane) const {
+    float d = 0.f;
+    const float* crow = dense + size_t(row) * dd;
+    if (vec) {
+      const float4* c4 = reinterpret_cast<const float4*>(crow);
+      const float4* q4 = reinterpret_cast<const float4*>(qd);
+      const int n4 = dd >> 2;
+#pragma unroll 4
+      for (int i = lane; i < n4; i += kWarp) {
+        float4 a = __ldg(c4 + i);
+        float4 b = q4[i];
+        d += a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
+      }
+    } else {
+      for (int i = lane; i < dd; i += kWarp) d += __ldg(crow + i) * qd[i];
+    }
+    return d;
+  }
+  __device__ __forceinline__ float finish(float d, long long) const { return d; }
+  static __device__ __forceinline__ float val(const float* p) { return __ldg(p); }
+};
+
+// Four int8 values packed in one 32-bit word (little-endian) dotted with four
+// query floats.
+static __device__ __forceinline__ float dot4_i8(int w, const float4 b) {
+  return float(int8_t(w)) * b.x + float(int8_t(w >> 8)) * b.y +
+         float(int8_t(w >> 16)) * b.z + float(int8_t(w >> 24)) * b.w;
+}
+
+// Candidate rows in quantized storage: int8 dense + fp32 row scale, fp16 ELL
+// values (read as fp16, widened in registers).
+struct CorpusViewQ8 {
+  const int8_t* dense;
+  const float* scale;
+  const int* si;
+  const __half* sv;
+  const int* fi;
+  const __half* fv;
+  long long n;
+  int dd;
+  int ps;
+  int pf;
+  int vec;  // dense rows are 16-byte aligned and dd % 16 == 0
+
+  __device__ __forceinline__ float dense_dot(const float* qd, long long row, int lane) const {
+    float d = 0.f;
+    const int8_t* crow = dense + size_t(row) * dd;
+    if (vec) {
+      const int4* c16 = reinterpret_cast<const int4*>(crow);
+      const float4* q4 = reinterpret_cast<const float4*>(qd);
+      const int n16 = dd >> 4;
+#pragma unroll 2
+      for (int i = lane; i < n16; i += kWarp) {
+        const int4 raw = __ldg(c16 + i);
+        d += dot4_i8(raw.x, q4[4 * i]) + dot4_i8(raw.y, q4[4 * i + 1]) +
+             dot4_i8(raw.z, q4[4 * i + 2]) + dot4_i8(raw.w, q4[4 * i + 3]);
+      }
+    } else {
+      for (int i = lane; i < dd; i += kWarp) d += float(__ldg(crow + i)) * qd[i];
+    }
+    return d;
+  }
+  // dequantize once per row, after the warp reduction (the Pallas kernel's
+  // op order, repro/kernels/hybrid_distance.py:69)
+  __device__ __forceinline__ float finish(float d, long long row) const {
+    return d * __ldg(scale + row);
+  }
+  static __device__ __forceinline__ float val(const __half* p) { return __half2float(*p); }
 };
 
 // Warp-cooperative hybrid score of the cached query against corpus row `row`
 // (every lane returns the same value): (dense + learned) + lexical.
-static __device__ __forceinline__ float warp_score(const QueryCache& q, const CorpusView& c,
+template <typename View>
+static __device__ __forceinline__ float warp_score(const QueryCache& q, const View& c,
                                                    long long row, int lane) {
-  float d = 0.f;
-  const float* crow = c.dense + size_t(row) * c.dd;
-  if (c.vec4) {
-    const float4* c4 = reinterpret_cast<const float4*>(crow);
-    const float4* q4 = reinterpret_cast<const float4*>(q.dense);
-    const int n4 = c.dd >> 2;
-#pragma unroll 4
-    for (int i = lane; i < n4; i += kWarp) {
-      float4 a = __ldg(c4 + i);
-      float4 b = q4[i];
-      d += a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
-    }
-  } else {
-    for (int i = lane; i < c.dd; i += kWarp) d += __ldg(crow + i) * q.dense[i];
-  }
-  d = warp_sum(d);
+  const float d = c.finish(warp_sum(c.dense_dot(q.dense, row, lane)), row);
 
   float s = 0.f;
   const int* srow = c.si + size_t(row) * c.ps;
-  const float* svrow = c.sv + size_t(row) * c.ps;
+  const auto* svrow = c.sv + size_t(row) * c.ps;
   const int ns = q.counts[0];
   for (int p = lane; p < c.ps; p += kWarp) {
     int id = __ldg(srow + p);
     if (id >= 0) {
       int j = find_sorted(q.sid, ns, id);
-      if (j >= 0) s += __ldg(svrow + p) * q.sval[j];
+      if (j >= 0) s += View::val(svrow + p) * q.sval[j];
     }
   }
   s = warp_sum(s);
 
   float f = 0.f;
   const int* frow = c.fi + size_t(row) * c.pf;
-  const float* fvrow = c.fv + size_t(row) * c.pf;
+  const auto* fvrow = c.fv + size_t(row) * c.pf;
   const int nf = q.counts[1];
   for (int p = lane; p < c.pf; p += kWarp) {
     int id = __ldg(frow + p);
     if (id >= 0) {
       int j = find_sorted(q.fid, nf, id);
-      if (j >= 0) f += __ldg(fvrow + p) * q.fval[j];
+      if (j >= 0) f += View::val(fvrow + p) * q.fval[j];
     }
   }
   f = warp_sum(f);

@@ -1,23 +1,27 @@
 """Hybrid distance by id (paper §4.1 Step 1): kernel wrapper + plain version.
 
-Replaces ``repro/kernels/hybrid_distance.py::hybrid_distance_pallas`` (fp32;
-the int8 ``has_scale`` variant waits for the quantized slice). The CUDA
-kernel is ``csrc/hybrid_distance.cu``: it gathers candidate rows by id
-inside the kernel, so the ``(B, C, Dd)`` gathered copy that ``repro`` builds
-with ``corpus.take`` never exists, and it intersects ELL rows by binary
-search over the query's sorted ids instead of Pq x Pc compares. Bound on the
-H100: bytes (one Dd-float row per live candidate); the design streams each
-row once with coalesced float4 loads, one warp per candidate.
+Replaces ``repro/kernels/hybrid_distance.py::hybrid_distance_pallas`` in
+both forms: fp32 storage (``hybrid_distance``) and int8 storage with a
+per-row scale, the ``has_scale`` variant (``hybrid_distance_int8``). The CUDA
+kernel is ``csrc/hybrid_distance.cu``, one template over the two storage
+views: it gathers candidate rows by id inside the kernel, so the
+``(B, C, Dd)`` gathered copy that ``repro`` builds with ``corpus.take``
+never exists, and it intersects ELL rows by binary search over the query's
+sorted ids instead of Pq x Pc compares. Bound on the H100: bytes (one dense
+row per live candidate: Dd floats, or Dd int8 values + a 4-byte scale); the
+design streams each row once with coalesced 16-byte loads, one warp per
+candidate. The int8 form multiplies the warp-reduced dense sum by the row
+scale (DESIGN.md §13) and reads fp16 ELL values as fp16.
 
-``hybrid_distance(q, corpus, ids)`` launches the kernel for CUDA tensors and
-takes the plain version for CPU tensors; there is no fallback between them.
+Each wrapper launches its kernel for CUDA tensors and takes its plain version
+for CPU tensors; there is no fallback between them.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.usms import FusedVectors
+from repro_torch.core.usms import FusedVectors, QuantizedFusedVectors
 from repro_torch.kernels import _build, ref
 
 
@@ -27,10 +31,22 @@ def hybrid_distance_plain(q: FusedVectors, corpus: FusedVectors, ids: torch.Tens
     return torch.where(ids >= 0, scores, torch.full_like(scores, float("-inf")))
 
 
+def hybrid_distance_int8_plain(
+    q: FusedVectors, corpus: QuantizedFusedVectors, ids: torch.Tensor
+) -> torch.Tensor:
+    """Plain version over int8 storage: gather, ``scale * <q, int8>`` +
+    sparse, mask PAD to -inf."""
+    scores = ref.hybrid_scores_quant_ref(q, corpus.take(ids))
+    return torch.where(ids >= 0, scores, torch.full_like(scores, float("-inf")))
+
+
+def _tensors(g) -> tuple:
+    return g.tensors() if isinstance(g, (FusedVectors, QuantizedFusedVectors)) else (g,)
+
+
 def tensors_device(*groups) -> torch.device:
     """The one device all given tensors lie on (raises on a mix)."""
-    devs = {t.device for g in groups for t in (g.tensors() if isinstance(g, FusedVectors) else (g,))
-            if t is not None}
+    devs = {t.device for g in groups for t in _tensors(g) if t is not None}
     if len(devs) != 1:
         raise ValueError(f"tensors lie on several devices: {sorted(map(str, devs))}")
     return devs.pop()
@@ -60,17 +76,47 @@ def check_fused(fv: FusedVectors, name: str, rows: int | None = None) -> None:
     _need(fv.lexical.idx.shape == fv.lexical.val.shape, f"{name}.lexical idx/val shapes differ")
 
 
+def check_quantized(qv: QuantizedFusedVectors, name: str) -> None:
+    """Validate a QuantizedFusedVectors operand for the int8 kernels: 2-D,
+    contiguous, int8 dense, float32 scale, float16 vals, int32 ids."""
+    n = qv.dense_q.shape[0]
+    _need(qv.dense_q.dim() == 2, f"{name}.dense_q must be (N, Dd)")
+    _need(qv.dense_scale.shape == (n,), f"{name}.dense_scale must be ({n},)")
+    for leaf, t, dt in (
+        ("dense_q", qv.dense_q, torch.int8),
+        ("dense_scale", qv.dense_scale, torch.float32),
+        ("learned.idx", qv.learned.idx, torch.int32),
+        ("learned.val", qv.learned.val, torch.float16),
+        ("lexical.idx", qv.lexical.idx, torch.int32),
+        ("lexical.val", qv.lexical.val, torch.float16),
+    ):
+        _need(t.dtype == dt, f"{name}.{leaf} must be {dt}, got {t.dtype}")
+        _need(t.is_contiguous(), f"{name}.{leaf} must be contiguous")
+        _need(t.shape[0] == n, f"{name}.{leaf} must have {n} rows")
+    for sv, path in ((qv.learned, "learned"), (qv.lexical, "lexical")):
+        _need(sv.idx.dim() == 2 and sv.idx.shape == sv.val.shape,
+              f"{name}.{path} idx/val must be equal (N, P)")
+
+
 def check_ids(ids: torch.Tensor, rows: int, name: str = "ids") -> None:
     _need(ids.dim() == 2 and ids.shape[0] == rows, f"{name} must be ({rows}, C)")
     _need(ids.dtype == torch.int32, f"{name} must be int32, got {ids.dtype}")
     _need(ids.is_contiguous(), f"{name} must be contiguous")
 
 
-def corpus_args(corpus: FusedVectors) -> list:
-    """Pointer/shape arguments of a corpus, in the C functions' order."""
-    vec4 = int(corpus.dense.shape[1] % 4 == 0 and corpus.dense.data_ptr() % 16 == 0)
+def corpus_args(corpus) -> list:
+    """Pointer/shape arguments of a corpus, in the C functions' order; an
+    int8 corpus adds its scale pointer after the dense one. ``vec``: dense
+    rows are 16-byte aligned, so the kernel loads 16 bytes per lane (4 floats
+    or 16 int8 values)."""
+    if isinstance(corpus, QuantizedFusedVectors):
+        dense, lanes, extra = corpus.dense_q, 16, [corpus.dense_scale.data_ptr()]
+    else:
+        dense, lanes, extra = corpus.dense, 4, []
+    vec = int(dense.shape[1] % lanes == 0 and dense.data_ptr() % 16 == 0)
     return [
-        corpus.dense.data_ptr(),
+        dense.data_ptr(),
+        *extra,
         corpus.learned.idx.data_ptr(),
         corpus.learned.val.data_ptr(),
         corpus.lexical.idx.data_ptr(),
@@ -78,7 +124,7 @@ def corpus_args(corpus: FusedVectors) -> list:
         corpus.n,
         corpus.learned.idx.shape[1],
         corpus.lexical.idx.shape[1],
-        vec4,
+        vec,
     ]
 
 
@@ -96,13 +142,34 @@ def query_args(q: FusedVectors) -> list:
     ]
 
 
-def check_query_corpus(q: FusedVectors, corpus: FusedVectors, ids: torch.Tensor) -> None:
+def check_query_corpus(q: FusedVectors, corpus, ids: torch.Tensor) -> None:
     b = q.dense.shape[0]
     check_fused(q, "q", b)
-    check_fused(corpus, "corpus")
+    if isinstance(corpus, QuantizedFusedVectors):
+        check_quantized(corpus, "corpus")
+        dd = corpus.dense_q.shape[1]
+    else:
+        check_fused(corpus, "corpus")
+        dd = corpus.dense.shape[1]
     check_ids(ids, b)
-    _need(q.dense.shape[1] == corpus.dense.shape[1], "query and corpus dense widths differ")
+    _need(q.dense.shape[1] == dd, "query and corpus dense widths differ")
     _need(ids.shape[1] < 2**31 and b < 2**31, "B and C must fit in int32")
+
+
+def _launch(fn_name: str, q: FusedVectors, corpus, ids: torch.Tensor) -> torch.Tensor:
+    check_query_corpus(q, corpus, ids)
+    b, c = ids.shape
+    out = torch.empty((b, c), dtype=torch.float32, device=ids.device)
+    if b == 0 or c == 0:
+        return out
+    lib = _build.library()
+    (qd, qsi, qsv, qfi, qfv, _, dd, psq, pfq) = query_args(q)
+    rc = getattr(lib, fn_name)(
+        qd, qsi, qsv, qfi, qfv, b, dd, psq, pfq, *corpus_args(corpus),
+        ids.data_ptr(), c, out.data_ptr(), *_build.device_and_stream(out),
+    )
+    _build.check(rc, fn_name)
+    return out
 
 
 def hybrid_distance(q: FusedVectors, corpus: FusedVectors, ids: torch.Tensor) -> torch.Tensor:
@@ -113,22 +180,27 @@ def hybrid_distance(q: FusedVectors, corpus: FusedVectors, ids: torch.Tensor) ->
     if dev.type == "cpu":
         return hybrid_distance_plain(q, corpus, ids)
     _need(dev.type == "cuda", f"no kernel for device {dev}")
-    check_query_corpus(q, corpus, ids)
-    b, c = ids.shape
-    out = torch.empty((b, c), dtype=torch.float32, device=dev)
-    if b == 0 or c == 0:
-        return out
-    lib = _build.library()
-    (qd, qsi, qsv, qfi, qfv, _, dd, psq, pfq) = query_args(q)
-    cd, csi, csv, cfi, cfv, n, psc, pfc, vec4 = corpus_args(corpus)
-    rc = lib.hybrid_distance_launch(
-        qd, qsi, qsv, qfi, qfv, b, dd, psq, pfq,
-        cd, csi, csv, cfi, cfv, n, psc, pfc, vec4,
-        ids.data_ptr(), c, out.data_ptr(), *_build.device_and_stream(out),
-    )
+    _need(isinstance(corpus, FusedVectors), "hybrid_distance takes fp32 storage")
+    out = _launch("hybrid_distance_launch", q, corpus, ids)
     hybrid_distance.launches += 1
-    _build.check(rc, "hybrid_distance")
+    return out
+
+
+def hybrid_distance_int8(
+    q: FusedVectors, corpus: QuantizedFusedVectors, ids: torch.Tensor
+) -> torch.Tensor:
+    """``hybrid_distance`` over int8 storage (the ``has_scale`` variant): the
+    same contract, the dense dot multiplied by the row scale. CUDA tensors
+    launch the kernel; CPU tensors take the plain version."""
+    dev = tensors_device(q, corpus, ids)
+    if dev.type == "cpu":
+        return hybrid_distance_int8_plain(q, corpus, ids)
+    _need(dev.type == "cuda", f"no kernel for device {dev}")
+    _need(isinstance(corpus, QuantizedFusedVectors), "hybrid_distance_int8 takes int8 storage")
+    out = _launch("hybrid_distance_q8_launch", q, corpus, ids)
+    hybrid_distance_int8.launches += 1
     return out
 
 
 hybrid_distance.launches = 0
+hybrid_distance_int8.launches = 0

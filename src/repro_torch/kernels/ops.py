@@ -13,69 +13,103 @@ version for CPU tensors; ``False`` asks for the plain PyTorch version on any
 device (the chip check holds the kernels against it). The ``*_vs_ids`` forms
 are the main path's: the kernels gather rows by id, so no gathered copy of
 the candidates is built. The gathered forms view ``cands`` as a corpus of
-B*C rows addressed by position.
+B*C rows addressed by position. Candidates in int8 storage
+(``QuantizedFusedVectors``) go to the ``has_scale`` variants, as
+``repro/kernels/ops.py`` dispatches on the corpus type.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.usms import PAD_IDX, FusedVectors, SparseVec
+from repro_torch.core.usms import PAD_IDX, FusedVectors, QuantizedFusedVectors, SparseVec
 from repro_torch.kernels import ref
 from repro_torch.kernels.fused_topk import NEG as NEG  # re-export
+from repro_torch.kernels.fused_topk import (
+    fused_topk_int8,
+    fused_topk_int8_plain,
+    fused_topk_plain,
+)
 from repro_torch.kernels.fused_topk import fused_topk as _fused_topk_kernel
-from repro_torch.kernels.fused_topk import fused_topk_plain
-from repro_torch.kernels.hybrid_distance import hybrid_distance, hybrid_distance_plain
+from repro_torch.kernels.hybrid_distance import (
+    hybrid_distance,
+    hybrid_distance_int8,
+    hybrid_distance_int8_plain,
+    hybrid_distance_plain,
+)
 from repro_torch.kernels.pairwise_tile import pairwise_tile, pairwise_tile_plain
 
 
-def _contig(f: FusedVectors) -> FusedVectors:
+def _quantized(corpus) -> bool:
+    return isinstance(corpus, QuantizedFusedVectors)
+
+
+def _contig(f):
     c = lambda t: t.contiguous()
-    return FusedVectors(
-        c(f.dense), SparseVec(c(f.learned.idx), c(f.learned.val)),
-        SparseVec(c(f.lexical.idx), c(f.lexical.val)),
-    )
+    sv = lambda v: SparseVec(c(v.idx), c(v.val))
+    if _quantized(f):
+        return QuantizedFusedVectors(c(f.dense_q), c(f.dense_scale), sv(f.learned), sv(f.lexical))
+    return FusedVectors(c(f.dense), sv(f.learned), sv(f.lexical))
 
 
-def _flat_rows(cands: FusedVectors) -> tuple[FusedVectors, torch.Tensor]:
+def _flat_rows(cands):
     """View (B, C, ...) gathered rows as a (B*C, ...) corpus plus the (B, C)
     position ids that address it."""
-    b, c = cands.dense.shape[:2]
+    lead = cands.dense_q if _quantized(cands) else cands.dense
+    b, c = lead.shape[:2]
     flat = lambda t: t.reshape((b * c,) + tuple(t.shape[2:]))
-    corpus = _contig(FusedVectors(
-        flat(cands.dense),
-        SparseVec(flat(cands.learned.idx), flat(cands.learned.val)),
-        SparseVec(flat(cands.lexical.idx), flat(cands.lexical.val)),
-    ))
-    pos = torch.arange(b * c, dtype=torch.int32, device=cands.dense.device).reshape(b, c)
-    return corpus, pos
+    sv = lambda v: SparseVec(flat(v.idx), flat(v.val))
+    if _quantized(cands):
+        corpus = QuantizedFusedVectors(flat(cands.dense_q), flat(cands.dense_scale),
+                                       sv(cands.learned), sv(cands.lexical))
+    else:
+        corpus = FusedVectors(flat(cands.dense), sv(cands.learned), sv(cands.lexical))
+    pos = torch.arange(b * c, dtype=torch.int32, device=lead.device).reshape(b, c)
+    return _contig(corpus), pos
 
 
-def hybrid_scores(q: FusedVectors, cands: FusedVectors, *, use_kernel: bool | None = None):
+def _distance_fns(corpus):
+    """(kernel wrapper, plain version) of the distance op for a storage type."""
+    if _quantized(corpus):
+        return hybrid_distance_int8, hybrid_distance_int8_plain
+    return hybrid_distance, hybrid_distance_plain
+
+
+def _topk_fns(corpus):
+    """(kernel wrapper, plain version) of the fused top-k op for a storage type."""
+    if _quantized(corpus):
+        return fused_topk_int8, fused_topk_int8_plain
+    return _fused_topk_kernel, fused_topk_plain
+
+
+def hybrid_scores(q: FusedVectors, cands, *, use_kernel: bool | None = None):
     """Score B queries against their (B, C, ...) candidate rows -> (B, C).
     Weights must already be folded into ``q`` (usms.weighted_query)."""
     if use_kernel is False:
+        if _quantized(cands):
+            return ref.hybrid_scores_quant_ref(q, cands)
         return ref.hybrid_scores_ref(q, cands)
     corpus, pos = _flat_rows(cands)
-    return hybrid_distance(_contig(q), corpus, pos)
+    return _distance_fns(corpus)[0](_contig(q), corpus, pos)
 
 
 def hybrid_scores_vs_ids(
     q: FusedVectors,
-    corpus: FusedVectors,
+    corpus,
     ids: torch.Tensor,  # (B, C) int32; PAD_IDX entries score -inf
     *,
     use_kernel: bool | None = None,
 ) -> torch.Tensor:
     ids = ids.to(torch.int32).contiguous()
+    kernel, plain = _distance_fns(corpus)
     if use_kernel is False:
-        return hybrid_distance_plain(q, corpus, ids)
-    return hybrid_distance(_contig(q), corpus, ids)
+        return plain(q, corpus, ids)
+    return kernel(_contig(q), corpus, ids)
 
 
 def fused_topk(
     q: FusedVectors,
-    cands: FusedVectors,
+    cands,
     cid: torch.Tensor,  # (B, C) int32 candidate ids; PAD_IDX slots invalid
     k: int,
     *,
@@ -87,15 +121,17 @@ def fused_topk(
     ``(NEG, PAD_IDX)``. ``bias`` must be finite (mask via PAD ids)."""
     bias = None if bias is None else bias.float().contiguous()
     if use_kernel is False:
+        if _quantized(cands):
+            return ref.fused_topk_quant_ref(q, cands, cid, bias, k)
         return ref.fused_topk_ref(q, cands, cid, bias, k)
     corpus, pos = _flat_rows(cands)
     ids = torch.where(cid >= 0, pos, torch.full_like(pos, PAD_IDX))
-    return _fused_topk_kernel(_contig(q), corpus, ids, k, bias)
+    return _topk_fns(corpus)[0](_contig(q), corpus, ids, k, bias)
 
 
 def fused_topk_vs_ids(
     q: FusedVectors,
-    corpus: FusedVectors,
+    corpus,
     ids: torch.Tensor,  # (B, C) int32 candidate ids into the corpus
     k: int,
     *,
@@ -106,9 +142,10 @@ def fused_topk_vs_ids(
     kernel gathers them itself)."""
     ids = ids.to(torch.int32).contiguous()
     bias = None if bias is None else bias.float().contiguous()
+    kernel, plain = _topk_fns(corpus)
     if use_kernel is False:
-        return fused_topk_plain(q, corpus, ids, k, bias)
-    return _fused_topk_kernel(_contig(q), corpus, ids, k, bias)
+        return plain(q, corpus, ids, k, bias)
+    return kernel(_contig(q), corpus, ids, k, bias)
 
 
 def take_topk(values: torch.Tensor, pos: torch.Tensor, fill) -> torch.Tensor:

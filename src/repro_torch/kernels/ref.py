@@ -1,8 +1,7 @@
 """Plain PyTorch versions of the hybrid distance kernels.
 
-Port of ``repro/kernels/ref.py`` (every oracle but the quantized pair).
-These are the plain versions each CUDA kernel is held against; the kernel
-wrappers take them for CPU tensors only.
+Port of ``repro/kernels/ref.py``. These are the plain versions each CUDA
+kernel is held against; the kernel wrappers take them for CPU tensors only.
 
 Semantics contract (shared with the CUDA kernels):
 
@@ -18,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.usms import PAD_IDX, FusedVectors
+from repro_torch.core.usms import PAD_IDX, FusedVectors, QuantizedFusedVectors
 
 NEG = -1e30  # "no candidate" score sentinel of the fused top-k path
 
@@ -47,6 +46,18 @@ def hybrid_scores_ref(q: FusedVectors, cands: FusedVectors) -> torch.Tensor:
     return dense + sp + fp
 
 
+def hybrid_scores_quant_ref(q: FusedVectors, cands: QuantizedFusedVectors) -> torch.Tensor:
+    """Quantized-storage oracle: ``scale_c * <q, int8_c>``. The scale
+    multiplies the dense dot product, not the rows (DESIGN.md §13), as the
+    int8 kernel does after its warp reduction."""
+    dense = torch.einsum(
+        "bd,bcd->bc", q.dense.float(), cands.dense_q.float()
+    ) * cands.dense_scale.float()
+    sp = sparse_ip_ref(q.learned.idx, q.learned.val, cands.learned.idx, cands.learned.val)
+    fp = sparse_ip_ref(q.lexical.idx, q.lexical.val, cands.lexical.idx, cands.lexical.val)
+    return dense + sp + fp
+
+
 def fused_topk_ref(
     q: FusedVectors,
     cands: FusedVectors,
@@ -57,6 +68,17 @@ def fused_topk_ref(
     """Plain fused distance + top-k: ``(scores, positions)`` of shape (B, k),
     descending, ties to the lowest position; invalid slots (NEG, PAD_IDX)."""
     return select_topk_ref(hybrid_scores_ref(q, cands), cid, bias, k)
+
+
+def fused_topk_quant_ref(
+    q: FusedVectors,
+    cands: QuantizedFusedVectors,
+    cid: torch.Tensor,
+    bias: torch.Tensor | None,
+    k: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``fused_topk_ref`` over quantized candidate storage (same contract)."""
+    return select_topk_ref(hybrid_scores_quant_ref(q, cands), cid, bias, k)
 
 
 def topk_desc(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:

@@ -1,0 +1,763 @@
+"""Batched hybrid-search serving engine. Port of
+``repro/serving/hybrid_service.py`` over one device.
+
+``HybridSearchService`` is the online request path:
+
+  * heterogeneous requests (any ``FusionSpec``, optional keywords/entities,
+    any ``k <= params.k``) are micro-batched into fixed shape buckets by
+    ``serving.batcher``: batch padded to a power of two, keyword/entity
+    widths padded to bucket caps;
+  * every bucket is keyed on ``(index shape key, bucket, SearchParams)``.
+    ``repro`` AOT-compiles an XLA executable per key; PyTorch runs eagerly
+    and compiles nothing, so the service only records the keys it has seen.
+    The hit/miss counter ``allanpoe_serving_executable_cache_total`` and
+    ``stats.compiles`` (the misses) keep their meaning: fusion mode and
+    weights are (B,) tensors, never part of the key, so one key serves every
+    weight mix;
+  * ``mark_deleted`` on a single index goes through a copy-on-write snapshot
+    swap: the writer builds the next index off to the side and publishes it
+    atomically, so in-flight batches never see a half-updated index;
+  * the same service fronts a single ``HybridIndex`` and a ``SegmentPool``:
+    a pool read runs ``make_local_group_search`` once per shape group and
+    merges the groups per row in global-id space, fusion-aware;
+  * token-bucket admission control runs in front of ``MicroBatcher.enqueue``;
+    a background pump thread drives ``poll`` so deadline flushes do not
+    depend on the submit path.
+
+Not in this port yet (each raises ``NotImplementedError``): ``insert``
+(``build_pipeline.insert``), a ``SegmentedIndex`` or pool behind a mesh, and
+deletes on a pool (the segment router's global-id routing); ROADMAP Queue 1
+items 3, 5 and 6 list them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import threading
+import time
+from typing import Optional, Sequence, Union
+
+import numpy as np
+import torch
+
+from repro_torch.core.distributed import SegmentedIndex, make_local_group_search
+from repro_torch.core.fusion import (
+    FUSION_MODE_NAMES,
+    FusionSpec,
+    PathStats,
+    as_fusion_spec,
+    merge_fused_host,
+    stack_specs,
+)
+from repro_torch.core.index import INDEX_FIELDS, HybridIndex
+from repro_torch.core.index import mark_deleted as index_mark_deleted
+from repro_torch.core.search import SearchParams, SearchResult, resolve_params, search_padded
+from repro_torch.core.segment_pool import SegmentPool, group_shape_key
+from repro_torch.core.usms import (
+    PAD_IDX,
+    FusedVectors,
+    PathWeights,
+    QuantizedFusedVectors,
+    SparseVec,
+    corpus_nbytes_by_leaf,
+    dtype_name,
+)
+from repro_torch.obs.export import write_metrics_snapshot
+from repro_torch.obs.metrics import GLOBAL as GLOBAL_METRICS
+from repro_torch.obs.metrics import MetricsRegistry
+from repro_torch.obs.tracer import TraceContext, Tracer
+from repro_torch.serving.batcher import (
+    AdmissionConfig,
+    AdmissionController,
+    AdmissionError,
+    BatcherConfig,
+    Bucket,
+    MicroBatcher,
+    PendingResult,
+    QueueFullError,
+    SearchRequest,
+)
+
+# process-wide storage-footprint gauges, set at every snapshot publish (and
+# at construction). Labels: leaf kind x storage dtype, so the quantized
+# compression ratio is a scraped metric. With several services in one
+# process the most recent publisher wins.
+_INDEX_BYTES = GLOBAL_METRICS.gauge(
+    "allanpoe_index_bytes_total",
+    "served index storage bytes by leaf kind and dtype",
+    labels=("leaf", "dtype"),
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class ServiceConfig:
+    batcher: BatcherConfig = BatcherConfig()
+    admission: Optional[AdmissionConfig] = None  # token buckets before enqueue
+    pump_interval_s: Optional[float] = None  # auto-start a poll() pump thread
+    # observability (DESIGN.md §12): share a registry/tracer across services
+    # by passing them in; None gives the service its own private ones
+    metrics: Optional[MetricsRegistry] = None
+    tracer: Optional[Tracer] = None
+    # periodic JSON snapshot flush from the pump thread (service registry +
+    # the process-global one), every _METRICS_DUMP_INTERVAL_S; None disables
+    metrics_dump_path: Optional[str] = None
+
+
+_METRICS_DUMP_INTERVAL_S = 10.0
+
+
+def _bucket_label(bucket: Bucket) -> str:
+    return f"{bucket.batch}x{bucket.kw_width}x{bucket.ent_width}"
+
+
+def _fusion_mode_label(spec) -> str:
+    """Host-side fusion-mode label of a request spec ("batched" for (B,)
+    leaf specs)."""
+    try:
+        mode = spec.mode
+        if np.ndim(mode) >= 1:
+            return "batched"
+        return FUSION_MODE_NAMES.get(int(mode), str(int(mode)))
+    except (TypeError, ValueError, AttributeError):
+        return "unknown"
+
+
+def _spec_row(spec: FusionSpec, i: int) -> FusionSpec:
+    """Row i of a batched (B,)-leaf spec."""
+    st = spec.stats
+    return FusionSpec(
+        mode=spec.mode[i],
+        weights=PathWeights(*(torch.as_tensor(getattr(spec.weights, f))[i]
+                              for f in ("dense", "sparse", "full", "kg"))),
+        rrf_k=spec.rrf_k[i],
+        stats=None if st is None else PathStats(st.minv[i], st.maxv[i], st.mean[i], st.std[i]),
+    )
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+class ServiceStats:
+    """Thread-safe service counters backed by the metrics registry (every
+    increment goes through the registry's single lock); the properties
+    report totals."""
+
+    def __init__(self, metrics: MetricsRegistry):
+        self._requests = metrics.counter(
+            "allanpoe_serving_requests_total",
+            "requests admitted and enqueued (rejects counted separately)",
+            labels=("mode",),
+        )
+        self._batches = metrics.counter(
+            "allanpoe_serving_batches_total", "batches executed", labels=("bucket",)
+        )
+        self._compiles = metrics.counter(
+            "allanpoe_serving_compiles_total",
+            "first batches per index key x bucket x params (repro's compiles)",
+        )
+        self._padded_slots = metrics.counter(
+            "allanpoe_serving_padded_slots_total", "wasted batch slots (padding overhead measure)"
+        )
+        self._rejected = metrics.counter(
+            "allanpoe_serving_rejected_total",
+            "rejected submits by reason (admission = rate policy, queue_full = backpressure)",
+            labels=("reason",),
+        )
+
+    @property
+    def requests(self) -> int:
+        return int(self._requests.total())
+
+    @property
+    def batches(self) -> int:
+        return int(self._batches.total())
+
+    @property
+    def compiles(self) -> int:
+        return int(self._compiles.total())
+
+    @property
+    def padded_slots(self) -> int:
+        return int(self._padded_slots.total())
+
+    @property
+    def rejected_queue_full(self) -> int:
+        return int(self._rejected.value(reason="queue_full"))
+
+    @property
+    def rejected_admission(self) -> int:
+        return int(self._rejected.value(reason="admission"))
+
+    @property
+    def rejected(self) -> int:
+        return self.rejected_queue_full + self.rejected_admission
+
+    def __repr__(self) -> str:
+        return (
+            f"ServiceStats(requests={self.requests}, batches={self.batches}, "
+            f"compiles={self.compiles}, padded_slots={self.padded_slots}, "
+            f"rejected_queue_full={self.rejected_queue_full}, "
+            f"rejected_admission={self.rejected_admission})"
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class _Snapshot:
+    """An immutable index the read path holds across a whole batch — the
+    copy-on-write unit."""
+
+    index: Union[HybridIndex, SegmentPool]
+    version: int
+
+
+def _index_device(index) -> torch.device:
+    if isinstance(index, SegmentPool):
+        return index.groups[0].global_ids.device
+    return index.semantic_edges.device
+
+
+class HybridSearchService:
+    """Micro-batched serving front-end over a hybrid index snapshot."""
+
+    def __init__(
+        self,
+        index: Union[HybridIndex, SegmentPool],
+        params: SearchParams,
+        config: Optional[ServiceConfig] = None,
+        *,
+        mesh=None,
+    ):
+        if mesh is not None:
+            raise NotImplementedError(
+                "serving over a mesh waits for the multi-GPU slice (ROADMAP Queue 1 item 5)")
+        if isinstance(index, SegmentedIndex):
+            raise ValueError(
+                "a SegmentedIndex is served through a mesh; wrap it with "
+                "SegmentPool.from_segmented to serve it on one device")
+        self.params = resolve_params(params)
+        # declared storage must match what the index holds: quantized
+        # segments under corpus_dtype="float32" would be served under a key
+        # that does not describe them. "int8" over (still) fp32 groups is
+        # allowed: old fp32 seals may coexist with new int8 ones.
+        if self.params.corpus_dtype == "float32":
+            quantized = [c for c, _ in self._norm_parts(_Snapshot(index, version=0))
+                         if isinstance(c, QuantizedFusedVectors)]
+            if quantized:
+                raise ValueError(
+                    "index holds quantized corpus storage but SearchParams.corpus_dtype is "
+                    '"float32"; construct the service with corpus_dtype="int8"'
+                )
+        self.config = config or ServiceConfig()
+        self.metrics = self.config.metrics or MetricsRegistry()
+        self.tracer = self.config.tracer or Tracer()
+        self.stats = ServiceStats(self.metrics)
+        self._m_exec_cache = self.metrics.counter(
+            "allanpoe_serving_executable_cache_total",
+            "index key x bucket x params lookups by outcome (repro's AOT cache)",
+            labels=("outcome",),
+        )
+        self._m_group_dispatch = self.metrics.counter(
+            "allanpoe_serving_group_dispatches_total",
+            "pool-read dispatches per segment shape group",
+            labels=("group",),
+        )
+        self._m_queue_depth = self.metrics.gauge(
+            "allanpoe_serving_queue_depth", "pending requests in the batcher"
+        )
+        self._m_queue_wait = self.metrics.histogram(
+            "allanpoe_serving_queue_wait_seconds", "enqueue -> batch start per request"
+        )
+        self._m_latency = self.metrics.histogram(
+            "allanpoe_serving_request_latency_seconds",
+            "enqueue -> result delivery per request (the bench p50/p99 source)",
+        )
+        self._m_batch_exec = self.metrics.histogram(
+            "allanpoe_serving_batch_exec_seconds", "assemble -> deliver per batch",
+            labels=("bucket",),
+        )
+        self._snap = _Snapshot(index, version=0)
+        self._index_bytes_keys: set = set()
+        self._tick_index_bytes(self._snap)
+        self._write_lock = threading.Lock()  # serializes snapshot writers
+        # queue lock: enqueue/take_ready only, never held across a batch run
+        self._queue_lock = threading.Lock()
+        # key lock: every _seen_keys check-and-add and prune
+        self._key_lock = threading.Lock()
+        self._batcher = MicroBatcher(self.config.batcher)
+        self._seen_keys: set = set()
+        self._pool = isinstance(index, SegmentPool)
+        self._local_fn = make_local_group_search(self.params) if self._pool else None
+        # running per-path normalization stats: refreshed lazily when the
+        # snapshot version moves, EMA-blended across publishes (DESIGN.md §11)
+        self._stats_cache: Optional[PathStats] = None
+        self._stats_version = -1
+        self._admission = (
+            AdmissionController(self.config.admission)
+            if self.config.admission is not None else None
+        )
+        self._pump_lock = threading.Lock()  # guards pump start/stop
+        self._pump_thread: Optional[threading.Thread] = None
+        self._pump_stop = threading.Event()
+        if self.config.pump_interval_s is not None:
+            self.start_pump()
+
+    # -- background pump (flush-on-deadline without a submit) ---------------
+
+    def start_pump(self, interval_s: Optional[float] = None) -> None:
+        """Start the daemon thread that drives ``poll()`` every
+        ``interval_s`` (default: ``config.pump_interval_s``). Idempotent."""
+        interval = self.config.pump_interval_s if interval_s is None else interval_s
+        if interval is None:
+            raise ValueError("pump interval required (arg or config)")
+        with self._pump_lock:  # check-then-start is atomic: exactly one pump
+            if self._pump_thread is not None and self._pump_thread.is_alive():
+                return
+            self._pump_stop = threading.Event()
+            stop = self._pump_stop
+
+            def loop():
+                last_dump = time.monotonic()
+                while not stop.wait(interval):
+                    try:
+                        self.poll()
+                    except Exception:  # noqa: BLE001 - the pump must keep pumping
+                        pass  # the failing batch already failed its own waiters
+                    if (self.config.metrics_dump_path is not None
+                            and time.monotonic() - last_dump
+                            >= _METRICS_DUMP_INTERVAL_S):
+                        last_dump = time.monotonic()
+                        try:
+                            self.dump_metrics()
+                        except OSError:
+                            pass  # a full disk must not kill the pump
+
+            self._pump_thread = threading.Thread(
+                target=loop, name="hybrid-service-pump", daemon=True)
+            self._pump_thread.start()
+
+    def dump_metrics(self, path=None) -> dict:
+        """Write the merged (service + process-global) metrics snapshot to
+        ``path`` (default ``config.metrics_dump_path``); returns the dict."""
+        path = self.config.metrics_dump_path if path is None else path
+        if path is None:
+            raise ValueError("no metrics dump path (arg or config)")
+        return write_metrics_snapshot(path, self.metrics, GLOBAL_METRICS)
+
+    def stop_pump(self, timeout_s: float = 5.0) -> None:
+        with self._pump_lock:
+            thread = self._pump_thread
+            if thread is not None:
+                self._pump_stop.set()
+                thread.join(timeout=timeout_s)
+                self._pump_thread = None
+                if self.config.metrics_dump_path is not None:
+                    try:
+                        self.dump_metrics()  # final flush on clean shutdown
+                    except OSError:
+                        pass
+
+    def __enter__(self) -> "HybridSearchService":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.stop_pump()
+
+    # -- snapshot management (copy-on-write swap) ---------------------------
+
+    @property
+    def snapshot_version(self) -> int:
+        return self._snap.version
+
+    @property
+    def index(self) -> Union[HybridIndex, SegmentPool]:
+        return self._snap.index
+
+    # EMA weight of FRESH stats at each snapshot publish
+    _STATS_EMA = 0.3
+
+    @staticmethod
+    def _norm_parts(snap: _Snapshot):
+        """(corpus, alive) pairs covering every row of a snapshot."""
+        idx = snap.index
+        if isinstance(idx, SegmentPool):
+            return [(g.index.corpus, g.index.alive) for g in idx.groups]
+        return [(idx.corpus, idx.alive)]
+
+    @property
+    def path_stats(self) -> PathStats:
+        """Running per-path normalization stats of the served corpus ((3,)
+        leaves), refreshed when the snapshot version moves."""
+        snap = self._snap
+        if self._stats_cache is None or self._stats_version != snap.version:
+            fresh = PathStats.from_corpus_parts(self._norm_parts(snap))
+            stats = (fresh if self._stats_cache is None
+                     else PathStats.ema(self._stats_cache, fresh, self._STATS_EMA))
+            self._stats_cache, self._stats_version = stats, snap.version
+        return self._stats_cache
+
+    def _resolve_spec(self, spec: FusionSpec) -> FusionSpec:
+        """Pin unresolved (stats=None) specs to the service's running stats."""
+        if spec.stats is not None:
+            return spec
+        return dataclasses.replace(spec, stats=self.path_stats)
+
+    def _tick_index_bytes(self, snap: _Snapshot) -> None:
+        """Set the ``allanpoe_index_bytes_total{leaf,dtype}`` gauges to this
+        snapshot's storage footprint: corpus leaves by kind (dense /
+        dense_scale / sparse_idx / sparse_val), everything else as "graph"
+        by dtype. Label pairs that vanished are zeroed, not left stale."""
+        totals: dict = {}
+
+        def add(leaf: str, t: torch.Tensor) -> None:
+            key = (leaf, dtype_name(t))
+            totals[key] = totals.get(key, 0) + t.numel() * t.element_size()
+
+        def add_index(hidx: HybridIndex) -> None:
+            for key, v in corpus_nbytes_by_leaf(hidx.corpus).items():
+                totals[key] = totals.get(key, 0) + v
+            for f in INDEX_FIELDS:
+                add("graph", getattr(hidx, f))
+
+        idx = snap.index
+        if isinstance(idx, SegmentPool):
+            for g in idx.groups:
+                add_index(g.index)
+                add("graph", g.global_ids)
+        else:
+            add_index(idx)
+        for leaf, dtype in self._index_bytes_keys - set(totals):
+            _INDEX_BYTES.set(0, leaf=leaf, dtype=dtype)
+        for (leaf, dtype), v in totals.items():
+            _INDEX_BYTES.set(v, leaf=leaf, dtype=dtype)
+        self._index_bytes_keys = set(totals)
+
+    def _publish(self, new_index) -> None:
+        dev = _index_device(new_index)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)  # readers never see a half-written index
+        self._snap = _Snapshot(new_index, self._snap.version + 1)
+        self._tick_index_bytes(self._snap)
+        valid = self._valid_index_keys(new_index)
+        with self._key_lock:
+            self._seen_keys = {k for k in self._seen_keys if k[0] in valid}
+
+    def insert(self, new_docs: FusedVectors, **_kwargs) -> int:
+        """Streaming inserts need ``build_pipeline.insert`` (and, for a pool,
+        the segment router), which the port does not have yet."""
+        raise NotImplementedError(
+            "insert waits for build_pipeline.insert and serving.segment_router "
+            "(ROADMAP Queue 1 items 3 and 6)")
+
+    def mark_deleted(self, ids) -> int:
+        """Mark-delete docs of a single index; returns the new snapshot
+        version. The index shape is unchanged, so every seen key stays
+        valid."""
+        if self._pool:
+            raise NotImplementedError(
+                "deletion on a pool needs the segment router's global-id routing "
+                "(ROADMAP Queue 1 item 6); use segment_pool.mark_deleted_pool")
+        with self._write_lock:
+            self._publish(index_mark_deleted(self._snap.index, ids))
+            return self._snap.version  # read under the lock: OUR version
+
+    # -- executable-cache keys -----------------------------------------------
+
+    @staticmethod
+    def _index_key(index) -> tuple:
+        return ("single", type(index.corpus).__name__, index.n)
+
+    def _valid_index_keys(self, index) -> set:
+        """Cache keys the given snapshot index can serve."""
+        if isinstance(index, SegmentPool):
+            return {group_shape_key(g) for g in index.groups}
+        return {self._index_key(index)}
+
+    @property
+    def executable_cache(self) -> set:
+        """The (index/group key, Bucket, SearchParams) keys served so far."""
+        return self._seen_keys
+
+    def _lookup(self, index_key: tuple, bucket: Bucket) -> bool:
+        """True if the key was served before. Every lookup lands in
+        ``allanpoe_serving_executable_cache_total{outcome}``; a miss counts
+        as one of ``stats.compiles``."""
+        key = (index_key, bucket, self.params)
+        with self._key_lock:
+            if key in self._seen_keys:
+                self._m_exec_cache.inc(outcome="hit")
+                return True
+            self._m_exec_cache.inc(outcome="miss")
+            if index_key in self._valid_index_keys(self._snap.index):
+                self._seen_keys.add(key)
+            self.stats._compiles.inc()
+            return False
+
+    # -- request path -------------------------------------------------------
+
+    def _validate(self, request: SearchRequest) -> None:
+        bcfg = self.config.batcher
+        if request.fusion is None:
+            raise ValueError(
+                "SearchRequest needs fusion=FusionSpec(...) (or the deprecated "
+                "weights=PathWeights form)")
+        if request.k > self.params.k:
+            raise ValueError(
+                f"request.k={request.k} exceeds the service cap params.k={self.params.k}")
+        if request.keywords is not None:
+            if not self.params.use_keywords:
+                raise ValueError("service params have use_keywords=False")
+            if len(request.keywords) > bcfg.kw_cap:
+                raise ValueError(f"{len(request.keywords)} keywords exceed kw_cap={bcfg.kw_cap}")
+        if request.entities is not None:
+            if not self.params.use_kg:
+                raise ValueError("service params have use_kg=False")
+            if len(request.entities) > bcfg.ent_cap:
+                raise ValueError(f"{len(request.entities)} entities exceed ent_cap={bcfg.ent_cap}")
+
+    def submit(self, request: SearchRequest) -> PendingResult:
+        """Enqueue one request; runs any batch whose flush trigger fired.
+        Raises ``AdmissionError`` on a token-bucket reject and
+        ``QueueFullError`` on a bounded-queue reject."""
+        self._validate(request)
+        ctx = request.trace
+        t_sub = time.perf_counter()
+        pending = PendingResult(service=self)
+        with self._queue_lock:
+            if self._admission is not None and not self._admission.try_admit(request.tenant):
+                self.stats._rejected.inc(reason="admission")
+                if ctx is not None:
+                    ctx.add_span("admission", t_sub, time.perf_counter(),
+                                 outcome="rejected_admission", tenant=request.tenant)
+                raise AdmissionError(
+                    f"token-bucket admission rejected request (tenant={request.tenant!r}); "
+                    "shed load or retry later")
+            try:
+                self._batcher.enqueue(request, pending)
+            except QueueFullError:
+                # admitted but never served: hand the tokens back
+                if self._admission is not None:
+                    self._admission.refund(request.tenant)
+                self.stats._rejected.inc(reason="queue_full")
+                if ctx is not None:
+                    ctx.add_span("admission", t_sub, time.perf_counter(),
+                                 outcome="rejected_queue_full", tenant=request.tenant)
+                raise
+            self.stats._requests.inc(mode=_fusion_mode_label(request.fusion))
+            self._m_queue_depth.set(len(self._batcher))
+        if ctx is not None:
+            ctx.add_span("admission", t_sub, time.perf_counter(),
+                         outcome="admitted", tenant=request.tenant)
+        try:
+            self._drain()
+        except Exception:  # noqa: BLE001 - the returned handle is the error channel
+            pass  # a failing batch has already failed its own waiters
+        return pending
+
+    def poll(self) -> int:
+        """Run deadline-due batches; returns the number executed."""
+        return self._drain()
+
+    def flush(self) -> int:
+        """Force-run every pending batch; returns the number executed."""
+        return self._drain(force=True)
+
+    def _drain(self, force: bool = False) -> int:
+        with self._queue_lock:
+            ready = self._batcher.take_ready(force=force)
+            self._m_queue_depth.set(len(self._batcher))
+        # run each dequeued batch outside the queue lock; every batch must
+        # resolve its waiters even if a sibling failed, so re-raise at the end
+        first_err: Optional[BaseException] = None
+        for bucket, entries in ready:
+            try:
+                self._run_batch(bucket, entries)
+            except Exception as err:  # noqa: BLE001 - waiters already failed
+                first_err = first_err or err
+        if first_err is not None:
+            raise first_err
+        return len(ready)
+
+    def _run_pool(self, pool: SegmentPool, bucket: Bucket, args, phases):
+        """Pool read: one group search per shape group, merged per row in
+        global-id space. Every group is dispatched before any result is read
+        back, so the groups' device work queues back to back."""
+        t0 = time.perf_counter()
+        hits = [self._lookup(group_shape_key(group), bucket) for group in pool.groups]
+        t1 = time.perf_counter()
+        results = []
+        for gi, group in enumerate(pool.groups):
+            self._m_group_dispatch.inc(group=gi)
+            results.append(self._local_fn(group, *args))
+        ids_parts = [_host(r.ids) for r in results]
+        score_parts = [_host(r.scores) for r in results]
+        ps_parts = [_host(r.path_scores) for r in results]
+        expanded = sum(_host(r.expanded).astype(np.int64) for r in results)
+        t2 = time.perf_counter()
+        phases.append(("executable_lookup", t0, t1,
+                       {"hit": all(hits), "groups": len(hits)}))
+        phases.append(("device_dispatch", t1, t2, {"groups": len(hits)}))
+        if len(ids_parts) == 1:
+            return ids_parts[0], score_parts[0], ps_parts[0], expanded
+        m_ids, m_scores, m_ps = merge_fused_host(
+            ids_parts, score_parts, ps_parts, args[1], ids_parts[0].shape[1])
+        phases.append(("fusion_rescore", t2, time.perf_counter(),
+                       {"parts": len(ids_parts), "site": "pool_merge"}))
+        return m_ids, m_scores, m_ps, expanded
+
+    def _run_batch(self, bucket: Bucket, entries) -> None:
+        # batch phases are timed once and attributed to every query in the
+        # batch as spans on its TraceContext (DESIGN.md §12 span taxonomy)
+        t_batch0 = time.perf_counter()
+        blabel = _bucket_label(bucket)
+        phases: list[tuple[str, float, float, dict]] = []
+        try:
+            snap = self._snap  # one snapshot for the whole batch
+            t0 = time.perf_counter()
+            args = self._assemble(bucket, entries, _index_device(snap.index))
+            phases.append(("batch_assembly", t0, time.perf_counter(),
+                           {"bucket": blabel, "requests": len(entries)}))
+            if isinstance(snap.index, SegmentPool):
+                ids, scores, ps, expanded = self._run_pool(snap.index, bucket, args, phases)
+            else:
+                t0 = time.perf_counter()
+                hit = self._lookup(self._index_key(snap.index), bucket)
+                t1 = time.perf_counter()
+                phases.append(("executable_lookup", t0, t1, {"hit": hit}))
+                res = search_padded(snap.index, *args, self.params)
+                ids, scores = _host(res.ids), _host(res.scores)
+                ps, expanded = _host(res.path_scores), _host(res.expanded)
+                phases.append(("device_dispatch", t1, time.perf_counter(), {}))
+        except Exception as err:
+            # entries are already dequeued: fail every waiter so no result()
+            # blocks forever, then surface to the driving thread
+            for e in entries:
+                e.pending._fail(err)
+            raise
+        for i, e in enumerate(entries):
+            e.pending._fulfill(ids[i, : e.request.k], scores[i, : e.request.k],
+                               int(expanded[i]), path_scores=ps[i, : e.request.k])
+        t_done = time.perf_counter()
+        for e in entries:
+            self._m_queue_wait.observe(t_batch0 - e.arrival_perf)
+            self._m_latency.observe(t_done - e.arrival_perf)
+            ctx = e.request.trace
+            if ctx is not None:
+                ctx.add_span("queue_wait", e.arrival_perf, t_batch0, bucket=blabel)
+                for name, p0, p1, attrs in phases:
+                    ctx.add_span(name, p0, p1, **attrs)
+        self._m_batch_exec.observe(t_done - t_batch0, bucket=blabel)
+        self.stats._batches.inc(bucket=blabel)
+        self.stats._padded_slots.inc(bucket.batch - len(entries))
+
+    def _assemble(self, bucket: Bucket, entries, device):
+        """Pack requests into the bucket's fixed shapes on the index's
+        device. Pad rows carry the all-zero fusion spec and PAD ids; their
+        results are discarded. Every spec is resolved against the running
+        stats, so fusion stays data, never part of the cache key."""
+        m = len(entries)
+        b = bucket.batch
+        padn = b - m
+
+        def stack(get, fill):
+            rows = [torch.as_tensor(get(e.request.query)) for e in entries]
+            t = torch.stack(rows).to(device)
+            if padn:
+                t = torch.cat([t, torch.full((padn,) + tuple(t.shape[1:]), fill,
+                                             dtype=t.dtype, device=device)])
+            return t
+
+        queries = FusedVectors(
+            stack(lambda q: q.dense, 0).to(torch.float32),
+            SparseVec(stack(lambda q: q.learned.idx, PAD_IDX).to(torch.int32),
+                      stack(lambda q: q.learned.val, 0).to(torch.float32)),
+            SparseVec(stack(lambda q: q.lexical.idx, PAD_IDX).to(torch.int32),
+                      stack(lambda q: q.lexical.val, 0).to(torch.float32)),
+        )
+        pad_spec = self._resolve_spec(FusionSpec.zero())
+        fusion = stack_specs([self._resolve_spec(e.request.fusion) for e in entries]
+                             + [pad_spec] * padn)
+        kw = np.full((b, bucket.kw_width), PAD_IDX, np.int32)
+        en = np.full((b, bucket.ent_width), PAD_IDX, np.int32)
+        for i, e in enumerate(entries):
+            if e.request.keywords is not None and len(e.request.keywords):
+                kws = np.asarray(e.request.keywords, np.int32)
+                kw[i, : len(kws)] = kws
+            if e.request.entities is not None and len(e.request.entities):
+                ens = np.asarray(e.request.entities, np.int32)
+                en[i, : len(ens)] = ens
+        return (queries, fusion, torch.as_tensor(kw, device=device),
+                torch.as_tensor(en, device=device))
+
+    # -- synchronous convenience -------------------------------------------
+
+    def search(
+        self,
+        queries: FusedVectors,
+        fusion: Union[FusionSpec, PathWeights, Sequence, None] = None,
+        *,
+        weights: Union[PathWeights, Sequence[PathWeights], None] = None,
+        keywords: Optional[np.ndarray] = None,
+        entities: Optional[np.ndarray] = None,
+        k: Optional[int] = None,
+        trace: Optional[TraceContext] = None,
+    ) -> SearchResult:
+        """Submit a whole batch row by row and flush; results come back as
+        one SearchResult of host (CPU) tensors. ``fusion`` is one spec, a
+        batched (B,)-leaf spec or a per-row sequence; ``weights=`` is the
+        deprecated ``PathWeights`` spelling. 2-D keyword/entity arrays may be
+        PAD_IDX padded; pad slots are stripped per row."""
+
+        def row_ids(arr, i):
+            if arr is None:
+                return None
+            row = np.asarray(arr)[i]
+            row = row[row >= 0]
+            return row if len(row) else None
+
+        if fusion is not None and weights is not None:
+            raise ValueError("pass fusion= or (deprecated) weights=, not both")
+        if fusion is None:
+            if weights is None:
+                raise TypeError("search() requires fusion=FusionSpec(...)")
+            fusion = weights  # deprecated form; as_fusion_spec warns below
+        b = queries.n
+        k = self.params.k if k is None else k
+        if isinstance(fusion, (FusionSpec, PathWeights)):
+            spec = as_fusion_spec(fusion)
+            if np.ndim(spec.mode) >= 1:  # batched (B,)-leaf form
+                get_f = lambda i: _spec_row(spec, i)
+            else:
+                get_f = lambda i: spec
+        else:  # per-row sequence of FusionSpec / deprecated PathWeights
+            rows = [as_fusion_spec(f) for f in fusion]
+            get_f = lambda i: rows[i]
+        reqs = [
+            SearchRequest(query=queries[i], fusion=get_f(i), k=k,
+                          keywords=row_ids(keywords, i), entities=row_ids(entities, i),
+                          trace=trace)
+            for i in range(b)
+        ]
+        # validate the whole batch before enqueuing anything
+        for req in reqs:
+            self._validate(req)
+        pendings = []
+        for req in reqs:
+            try:
+                pendings.append(self.submit(req))
+            except QueueFullError:
+                self.flush()  # drain to make room rather than strand queued rows
+                pendings.append(self.submit(req))
+        try:
+            self.flush()
+        except Exception:  # noqa: BLE001 - per-row errors surface from result()
+            pass
+        ids = np.stack([p.result()[0] for p in pendings])
+        scores = np.stack([p.result()[1] for p in pendings])
+        ps = np.stack([p.path_scores for p in pendings])
+        return SearchResult(
+            ids=torch.as_tensor(ids),
+            scores=torch.as_tensor(scores),
+            expanded=torch.as_tensor([p.expanded for p in pendings], dtype=torch.int32),
+            path_scores=torch.as_tensor(ps),
+        )

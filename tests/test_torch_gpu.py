@@ -1,6 +1,6 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on a CUDA
-card. Imports neither jax nor repro, so it runs where only PyTorch is
-installed:
+"""The port's CUDA kernels (fp32 and int8 storage) against their plain
+PyTorch versions, on a CUDA card. Imports neither jax nor repro, so it runs
+where only PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
@@ -107,4 +107,76 @@ def test_kernel_build_and_search_match_plain(cuda):
     rp = search(ik, c.queries, FusionSpec.three_path(),
                 dataclasses.replace(params, use_kernel=False), keywords=c.query_keywords)
     np.testing.assert_allclose(rk.scores.cpu().numpy(), rp.scores.cpu().numpy(), atol=TOL)
+    assert (rk.ids != rp.ids).float().mean().item() <= 0.01
+
+
+@pytest.mark.parametrize("dd", [64, 40])  # 16-byte int8 loads; the scalar path (40 % 16 != 0)
+def test_int8_kernels_match_plain_versions(cuda, dd):
+    from repro_torch.core.usms import quantize_corpus
+    from repro_torch.kernels.fused_topk import fused_topk_int8
+    from repro_torch.kernels.hybrid_distance import hybrid_distance_int8
+
+    rng = np.random.default_rng(1)
+    q, corpus = _fused(rng, 8, dd=dd, ps=7, pf=4), _fused(rng, 300, dd=dd)
+    corpus.dense[5] = 0.0  # zero row: scale 1.0
+    corpus.dense[6] = -1e4  # every value at -127
+    cq = quantize_corpus(corpus)
+    ids = rng.integers(0, 300, size=(8, 50)).astype(np.int32)
+    ids[rng.random(ids.shape) < 0.2] = -1
+    ids[0] = -1  # all PAD
+    ids[1] = 17  # planted ties
+    ids[2, :2] = [5, 6]
+    bias = rng.normal(size=ids.shape).astype(np.float32)
+    bias[1] = 0.0
+    tid, tb = torch.as_tensor(ids), torch.as_tensor(bias)
+    qc, cc = q.to(cuda), cq.to(cuda)
+
+    want = hybrid_distance_int8(q, cq, tid)
+    got = hybrid_distance_int8(qc, cc, tid.to(cuda)).cpu()
+    assert torch.equal(torch.isinf(got), tid < 0)
+    live = tid >= 0
+    np.testing.assert_allclose(got[live].numpy(), want[live].numpy(), rtol=1e-5, atol=TOL)
+
+    for bias_t in (None, tb):
+        ws, wp = fused_topk_int8(q, cq, tid, 10, bias_t)
+        gs, gp = (t.cpu() for t in fused_topk_int8(
+            qc, cc, tid.to(cuda), 10, None if bias_t is None else bias_t.to(cuda)))
+        np.testing.assert_allclose(gs.numpy(), ws.numpy(), rtol=1e-5, atol=TOL)
+        assert torch.equal(gp < 0, wp < 0)
+        assert bool(((gs - ws).abs()[gp != wp] <= TOL).all())
+        assert bool((gp[0] == -1).all())
+        if bias_t is not None:
+            assert torch.equal(gp[1], torch.arange(10, dtype=torch.int32))
+
+
+def test_int8_pool_service_matches_plain(cuda):
+    """A two-segment int8 pool served on the card through the kernels and
+    through the plain versions gives the same results up to ties."""
+    from repro_torch.core.fusion import FusionSpec
+    from repro_torch.core.index import BuildConfig
+    from repro_torch.core.knn_graph import KnnConfig
+    from repro_torch.core.pruning import PruneConfig
+    from repro_torch.core.search import SearchParams
+    from repro_torch.core.segment_pool import SegmentPool, append_segment, build_pool_segment
+    from repro_torch.data.corpus import CorpusConfig, make_corpus
+    from repro_torch.kernels.fused_topk import fused_topk, fused_topk_int8
+    from repro_torch.serving.hybrid_service import HybridSearchService
+
+    c = make_corpus(CorpusConfig(n_docs=1024, n_queries=32, n_topics=16, d_dense=64, seed=2))
+    cfg = BuildConfig(knn=KnnConfig(k=16, iters=4, node_chunk=512),
+                      prune=PruneConfig(degree=12, keyword_degree=6, node_chunk=256))
+    pool = SegmentPool(groups=[])
+    for s in range(2):
+        lo, hi = 512 * s, 512 * (s + 1)
+        seg = build_pool_segment(c.docs[lo:hi], np.arange(lo, hi), cfg, corpus_dtype="int8",
+                                 generator=torch.Generator(device=cuda).manual_seed(s))
+        pool, _ = append_segment(pool, seg)
+    params = SearchParams(use_keywords=True, corpus_dtype="int8")
+    kw = c.query_keywords
+    fused_topk.launches = fused_topk_int8.launches = 0
+    rk = HybridSearchService(pool, params).search(c.queries, FusionSpec.rrf(), keywords=kw)
+    assert fused_topk_int8.launches > 0 and fused_topk.launches == 0
+    rp = HybridSearchService(pool, dataclasses.replace(params, use_kernel=False)).search(
+        c.queries, FusionSpec.rrf(), keywords=kw)
+    np.testing.assert_allclose(rk.scores.numpy(), rp.scores.numpy(), atol=TOL)
     assert (rk.ids != rp.ids).float().mean().item() <= 0.01
