@@ -5,7 +5,7 @@
 
 Phases (each prints its own lines; any failure exits nonzero):
 
-  1. device and build: the card's name and power limit, then the three CUDA
+  1. device and build: the card's name and power limit, then the four CUDA
      kernels built from ``src/repro_torch/kernels/csrc`` (one nvcc each, in
      parallel, into the gitignored ``build/`` directory);
   2. kernel checks: each kernel against its plain PyTorch version on the
@@ -30,11 +30,23 @@ Phases (each prints its own lines; any failure exits nonzero):
      variants and not the other's); then int8 storage against fp32 apart
      from the graph: brute-force top-10 overlap and the score gap against
      the gap the format allows, with planted faults that must fail;
-  6. the kernels line: launches on each variant's path (phase 4 plus the
-     fp32 pool's serving for the fp32 variants, phase 4 for pairwise_tile,
-     the int8 pool's serving for the int8 variants), errors, times and
-     bounds at the shape the path runs most;
-  7. the last line: {"ok": true, "device": {...}}.
+  6. RAG at full width: llama3.2-1b (16 layers, d_model 2048, bf16, random
+     weights from a seed) with flash attention behind RagPipeline, retrieving
+     through HybridSearchService over phase 4's 2^20-doc index: 64 requests
+     of 4 retrieved docs x 256 context tokens + a 64-token prompt (prefill
+     L = 1088), 64 tokens generated greedily. First the flash kernel against
+     its plain version at the RAG shape (bf16, and fp32 on 4 rows) and at
+     edge shapes, with its time, bound and the scaled_dot_product_attention
+     call's time; then the main path (retrieval, prefill and decode times,
+     16 flash launches per prefill), retrieval through the service against
+     direct search, finite prefill logits, and flash prefill against naive
+     prefill on 8 rows, with two planted faults that must fail that check;
+  7. the kernels line: launches on each variant's path (phases 4 and 6 plus
+     the fp32 pool's serving for the fp32 variants, phase 4 for
+     pairwise_tile, the int8 pool's serving for the int8 variants, phase 6
+     for flash_attention_fwd), errors, times and bounds at the shape the
+     path runs most;
+  8. the last line: {"ok": true, "device": {...}}.
 
 Imports nothing of JAX. Needs one CUDA card; exits nonzero without one.
 """
@@ -52,6 +64,7 @@ SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_FLOP_PER_S = 67e12  # H100 SXM fp32, outside the tensor cores
+BF16_FLOP_PER_S = 989e12  # H100 SXM bf16, tensor cores, dense
 TOL = 1e-4  # fp32 sums of ~1000 products in another order than the plain version
 N_FULL = 2**20
 N_QUERIES = 1024
@@ -60,6 +73,19 @@ RECALL_GAP = 0.02  # int8 three-path recall@10 must stay within this of fp32 (RO
 # int8-stored brute-force top-10 overlap with fp32's: sound 0.9996, planted
 # scale faults 0.0009 and 0.9769 on an H100 at 2^20 (PERF.md, Findings PR 12)
 INT8_OVERLAP = 0.99
+# phase 6: RAG at llama3.2-1b's full width
+RAG_REQUESTS, RAG_PROMPT, RAG_GEN = 64, 64, 64
+RAG_TOP_K, RAG_CTX = 4, 256  # prefill L = 4 * 256 + 64 = 1088
+RAG_MAX_LEN = 1152
+FLASH_TOL = {"float32": 1e-5, "bfloat16": 2e-2}  # tests/test_flash_attention.py:40
+# flash vs naive prefill, bf16, max |last-position logit difference| over 8
+# rows (logits reach ~4.4). CPU rehearsal (examples/torch_flash_vs_naive.py,
+# batch 2, L = 1088): sound 0.039 / 0.050 / 0.055 / 0.084 at 1 / 2 / 4 / 8
+# layers; planted faults at 2-8 layers 1.39-4.36 (last key tile dropped,
+# causal mask off). On an H100 at 16 layers: sound 0.0898, faults 1.543
+# (tile dropped) and 5.812 (causal off) (PERF.md, Findings); phase 6 reads
+# both faults against the limit in every run
+PREFILL_GAP = 0.25
 
 
 class SmokeFailure(Exception):
@@ -104,8 +130,9 @@ def row_bytes(f) -> int:
     return f.dense.shape[1] * 4 + slots * 8
 
 
-def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
-    tb, tf = bytes_moved / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOP_PER_S * 1e3
+def bound(bytes_moved: float, flops: float, flop_rate: float = FP32_FLOP_PER_S
+          ) -> tuple[float, str]:
+    tb, tf = bytes_moved / HBM_BYTES_PER_S * 1e3, flops / flop_rate * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
@@ -569,6 +596,7 @@ def phase_full(corpus_bundle, results: dict):
                     keywords=kwds[:64])
         ids_agree(rk.ids[:64], rk.scores[:64], rp.ids, rp.scores, TOL)
     say("phase 4 plain check: 64 queries through the plain versions agree up to ties")
+    return index
 
 
 def phase_serving(corpus_bundle, results: dict, device: str = "cuda"):
@@ -766,6 +794,231 @@ def phase_serving(corpus_bundle, results: dict, device: str = "cuda"):
         need(ov < INT8_OVERLAP or r > 1.0, f"planted fault {k} passes the int8 checks")
 
 
+def flash_work(q, k, v, causal: bool) -> tuple[float, float, float]:
+    """(bytes, flops, peak flop rate) of one attention forward: q, k, v read
+    once, out and the fp32 LSE written once; 4 d flop per (row, col) pair the
+    mask keeps (QK^T and PV), counted for this shape."""
+    import torch
+
+    b, h, l, dk = q.shape
+    s, dv = k.shape[2], v.shape[3]
+    pairs = sum(min(r + 1, s) for r in range(l)) if causal else l * s
+    esz = q.element_size()
+    nbytes = (q.numel() + k.numel() + v.numel() + b * h * l * dv) * esz + b * h * l * 4
+    flops = 2.0 * b * h * pairs * (dk + dv)
+    return nbytes, flops, BF16_FLOP_PER_S if q.dtype == torch.bfloat16 else FP32_FLOP_PER_S
+
+
+def phase_flash(cfg, results: dict):
+    """The flash kernel against its plain version on the card: at the RAG
+    prefill shape (bf16, timed beside the plain version and SDPA; fp32 on 4
+    rows) and at edge shapes in fp32 and bf16."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention_fwd, flash_attention_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    results.setdefault("flash_attention_fwd", {"max_abs_err": 0.0, "checks": []})
+
+    def qkv(b, h, kv, l, s, dk, dv, dtype):
+        """Random q, k, v in the model's (B, L, H, d) memory, (B, H, L, d) views."""
+        mk = lambda n, heads, d: torch.randn((b, n, heads, d), generator=gen, device="cuda",
+                                             dtype=torch.float32).to(dtype).transpose(1, 2)
+        return mk(l, h, dk), mk(s, kv, dk), mk(s, kv, dv)
+
+    def check(label, q, k, v, causal, rows=None):
+        """Kernel vs plain on ``rows`` batch rows (all by default)."""
+        tol = FLASH_TOL[str(q.dtype).removeprefix("torch.")]
+        out, lse = flash_attention_fwd(q, k, v, causal)
+        sl = slice(None) if rows is None else slice(0, rows)
+        want_out, want_lse = flash_attention_plain(q[sl], k[sl], v[sl], causal, q.shape[-1] ** -0.5)
+        torch.cuda.synchronize()
+        err = 0.0
+        for got, want in ((out[sl].float(), want_out.float()), (lse[sl], want_lse)):
+            need(bool(torch.isfinite(got).all()), f"flash {label}: non-finite output")
+            diff = (got - want).abs()
+            need(bool((diff <= tol + tol * want.abs()).all()),
+                 f"flash {label}: error {float(diff.max()):.3g} beyond {tol} + {tol}|x|")
+            err = max(err, float(diff.max()))
+        results["flash_attention_fwd"]["max_abs_err"] = max(
+            results["flash_attention_fwd"]["max_abs_err"], err)
+        return err
+
+    edges = [
+        # label, (B, H, KV, L, S, dk, dv), causal
+        ("tail L=S=333 g=4", (2, 8, 2, 333, 333, 64, 64), True),
+        ("L=S=1", (4, 8, 2, 1, 1, 64, 64), True),
+        ("dk=48 dv=32", (2, 4, 2, 130, 130, 48, 32), True),
+        ("non-causal L=100 S=300 g=1", (2, 4, 4, 100, 300, 64, 64), False),
+        ("top-left causal L=96 S=160", (2, 8, 2, 96, 160, 64, 64), True),
+    ]
+    for label, shape, causal in edges:
+        for dtype in (torch.float32, torch.bfloat16):
+            err = check(label, *qkv(*shape, dtype), causal)
+            say(f"phase 6 flash {label} {str(dtype)[6:]}: max_abs_err {err:.3g} "
+                f"(tol {FLASH_TOL[str(dtype)[6:]]})")
+
+    # the RAG prefill shape: every layer of a prefill launches this
+    b, h, kv, d = RAG_REQUESTS, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    l = RAG_TOP_K * RAG_CTX + RAG_PROMPT
+    q, k, v = qkv(b, h, kv, l, l, d, d, torch.bfloat16)
+    err = check("rag", q, k, v, True, rows=8)
+    ms = time_ms(lambda: flash_attention_fwd(q, k, v, True), 10)
+    plain_ms = time_ms(lambda: [flash_attention_plain(q[i:i + 8], k[i:i + 8], v[i:i + 8], True,
+                                                      d**-0.5) for i in range(0, b, 8)], 2, warm=1)
+    sdpa = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+    lib_out = sdpa()
+    need(bool(torch.isfinite(lib_out).all()), "SDPA: non-finite output")
+    library_ms = time_ms(sdpa, 10)
+    nbytes, flops, rate = flash_work(q, k, v, True)
+    b_ms, b_by = bound(nbytes, flops, rate)
+    shape = f"rag_prefill B={b} H={h} KV={kv} L=S={l} d={d} causal bf16"
+    results["flash_attention_fwd"]["checks"].append(dict(
+        shape=shape, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=library_ms))
+    say(f"phase 6 flash {shape}: max_abs_err (8 rows) {err:.3g} ms {ms:.4f} plain_ms "
+        f"{plain_ms:.4f} bound_ms {b_ms:.4f} ({b_by}: {nbytes / 1e9:.3f} GB, "
+        f"{flops / 1e9:.1f} GFLOP) sdpa_ms {library_ms:.4f}")
+    del q, k, v, lib_out
+    # the same shape in fp32 on 4 rows, where 1e-5 leaves a wrong tile loop,
+    # causal skip or stride no room
+    err = check("rag fp32", *qkv(4, h, kv, l, l, d, d, torch.float32), True)
+    say(f"phase 6 flash rag B=4 H={h} KV={kv} L=S={l} d={d} causal float32: max_abs_err "
+        f"{err:.3g} (tol {FLASH_TOL['float32']})")
+    torch.cuda.empty_cache()
+
+
+def planted_flash(kernel, causal: bool, drop: int):
+    """A faulty stand-in for ``models.attention._flash`` that still runs the
+    kernel: the causal mask off, or the last ``drop`` keys left out."""
+
+    def flash(q, k, v):  # (B, L, H, d), as _flash takes them
+        s = k.shape[1] - drop
+        out, _ = kernel(q.transpose(1, 2), k[:, :s].transpose(1, 2), v[:, :s].transpose(1, 2),
+                        causal)
+        return out.transpose(1, 2)
+
+    return flash
+
+
+def phase_rag(corpus_bundle, index, results: dict):
+    """Retrieval-augmented generation at llama3.2-1b's full width."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.fusion import FusionSpec
+    from repro_torch.core.search import search
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.fused_topk import fused_topk
+    from repro_torch.kernels.hybrid_distance import hybrid_distance
+    from repro_torch.models import attention
+    from repro_torch.models import transformer as tfm
+    from repro_torch.obs.tracer import TraceContext
+    from repro_torch.serving.engine import ServeConfig, ServingEngine
+    from repro_torch.serving.hybrid_service import HybridSearchService
+    from repro_torch.serving.rag import RagConfig, RagPipeline
+
+    c = corpus_bundle
+    cfg = dataclasses.replace(get_config("llama3.2-1b"), attn_impl="flash")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t = time.perf_counter()
+    params = tfm.init_params(cfg, gen)
+    doc_tokens = torch.randint(0, cfg.vocab, (c.docs.n, RAG_CTX), generator=gen, device="cuda",
+                               dtype=torch.int32)
+    prompts = torch.randint(0, cfg.vocab, (RAG_REQUESTS, RAG_PROMPT), generator=gen,
+                            device="cuda", dtype=torch.int32)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    say(f"phase 6 setup: {cfg.name} {cfg.n_layers} layers d_model {cfg.d_model} {cfg.dtype}, "
+        f"{n_params} parameters (config n_params {cfg.n_params}, without the norms); doc_tokens "
+        f"{tuple(doc_tokens.shape)}; {time.perf_counter() - t:.1f} s")
+
+    phase_flash(cfg, results)
+
+    rag_cfg = RagConfig(top_k=RAG_TOP_K, ctx_tokens_per_doc=RAG_CTX)
+    service = HybridSearchService(index, dataclasses.replace(rag_cfg.search, k=RAG_TOP_K))
+    engine = ServingEngine(cfg, params, ServeConfig(max_len=RAG_MAX_LEN))
+    rag = RagPipeline(engine, index, doc_tokens, rag_cfg, service=service)
+    queries = c.queries[0:RAG_REQUESTS]
+    rag.answer(c.queries[0:8], prompts[:8], 2)  # warm-up: library handles, allocator
+
+    # ---- the main path: counts zeroed just before, read just after --------
+    wrappers = {"flash_attention_fwd": flash_attention_fwd, "hybrid_distance": hybrid_distance,
+                "fused_topk": fused_topk}
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    trace = TraceContext("rag")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, res = rag.answer(queries, prompts, RAG_GEN, trace=trace)
+    torch.cuda.synchronize()
+    e2e = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    span = lambda name: trace.find(name)[0]
+    retrieval_s = span("context_assembly").t0 - t0
+    prefill_s = span("prefill").t1 - span("prefill").t0
+    decode_s = span("decode").t1 - span("decode").t0
+    l = RAG_TOP_K * RAG_CTX + RAG_PROMPT
+    say(f"phase 6 RAG {RAG_REQUESTS} requests, top-{RAG_TOP_K} x {RAG_CTX} context + "
+        f"{RAG_PROMPT} prompt (L = {l}), {RAG_GEN} tokens greedy: retrieval {retrieval_s:.3f} s, "
+        f"prefill {prefill_s:.3f} s ({RAG_REQUESTS * l / prefill_s:.1f} tokens/s), decode "
+        f"{decode_s:.3f} s ({RAG_REQUESTS * (RAG_GEN - 1) / decode_s:.1f} tokens/s over "
+        f"{RAG_GEN - 1} steps), end to end {e2e:.3f} s per batch; peak memory {peak_gb:.2f} GB")
+    say(f"phase 6 main-path launches: {json.dumps(launches)} (one answer: retrieval through "
+        f"the service, one prefill of {cfg.n_layers} layers)")
+    need(launches["flash_attention_fwd"] == cfg.n_layers,
+         f"flash launches {launches['flash_attention_fwd']} != {cfg.n_layers} per prefill")
+    for k in ("hybrid_distance", "fused_topk"):
+        need(launches[k] > 0, f"{k} was not launched while RAG retrieved")
+        results[k]["launches"] += launches[k]
+    results["flash_attention_fwd"]["launches"] = launches["flash_attention_fwd"]
+
+    # ---- what came out ------------------------------------------------------
+    full = torch.cat([rag.build_context(res), prompts], dim=1)
+    need(tuple(out.shape) == (RAG_REQUESTS, l + RAG_GEN), f"output shape {tuple(out.shape)}")
+    need(torch.equal(out[:, :l], full), "the output does not start with [context ; prompt]")
+    need(bool(((out >= 0) & (out < cfg.vocab)).all()), "generated tokens out of range")
+    need(bool((res.ids[:, :RAG_TOP_K] >= 0).all()), "a request retrieved fewer than top_k docs")
+    direct = search(index, queries, FusionSpec.three_path(),
+                    dataclasses.replace(rag_cfg.search, k=RAG_TOP_K), device="cuda")
+    ids_agree(res.ids.cuda(), res.scores.cuda(), direct.ids, direct.scores, TOL)
+    say("phase 6 retrieval: the service's top-4 agree with direct search up to ties")
+
+    logits, _ = tfm.make_prefill(cfg, RAG_MAX_LEN)(params, full)
+    need(bool(torch.isfinite(logits.float()).all()), f"non-finite prefill logits at L = {l}")
+    naive_cfg = dataclasses.replace(cfg, attn_impl="naive")
+    naive, _ = tfm.make_prefill(naive_cfg, RAG_MAX_LEN)(params, full[:8])
+    gap = float((logits[:8].float() - naive.float()).abs().max())
+    agree = float((logits[:8].argmax(-1) == naive.argmax(-1)).float().mean())
+    say(f"phase 6 prefill logits at L = {l}: finite for all {RAG_REQUESTS} rows; flash vs naive "
+        f"on 8 rows: max |diff| {gap:.4g} (limit {PREFILL_GAP}), argmax agreement {agree:.3f}")
+    need(gap <= PREFILL_GAP, f"flash prefill differs from naive by {gap:.4g}")
+
+    # planted faults in the flash path, still through the kernel: each must
+    # read above the limit
+    sound = attention._flash
+    try:
+        for label, causal, drop in (("causal mask off", False, 0),
+                                    ("last key tile dropped", True, 64)):
+            attention._flash = planted_flash(flash_attention_fwd, causal, drop)
+            bad, _ = tfm.make_prefill(cfg, RAG_MAX_LEN)(params, full[:8])
+            fgap = float((bad.float() - naive.float()).abs().max())
+            fagree = float((bad.argmax(-1) == naive.argmax(-1)).float().mean())
+            say(f"phase 6 planted fault {label}: flash vs naive max |diff| {fgap:.4g}, argmax "
+                f"agreement {fagree:.3f}")
+            need(fgap > PREFILL_GAP, f"planted fault {label} passes the prefill check")
+    finally:
+        attention._flash = sound
+    del params, doc_tokens, service, engine, rag
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found next to this script", file=sys.stderr)
@@ -792,9 +1045,11 @@ def main() -> int:
         results: dict = {}
         phase_kernels(full.docs, full.queries, results)
         phase_small_e2e()
-        phase_full(full, results)
+        index = phase_full(full, results)
         torch.cuda.empty_cache()
         phase_serving(full, results)
+        torch.cuda.empty_cache()
+        phase_rag(full, index, results)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
@@ -810,6 +1065,8 @@ def main() -> int:
                             "src/repro/kernels/fused_topk.py:124", "serve_round"),
         "pairwise_tile": ("src/repro_torch/kernels/csrc/pairwise_tile.cu",
                           "src/repro/kernels/pairwise_tile.py:77", "prune_chunk"),
+        "flash_attention_fwd": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                                "src/repro/kernels/flash_attention.py:107", "rag_prefill"),
     }
     kernels = []
     for name, (path, replaces, headline) in src.items():
@@ -819,7 +1076,7 @@ def main() -> int:
             name=name, route="cuda", source=path, replaces=replaces,
             launches=r["launches"], max_abs_err=r["max_abs_err"], ms=chk["ms"],
             plain_ms=chk["plain_ms"], bound_ms=chk["bound_ms"], bound_by=chk["bound_by"],
-            library_ms=None, shape=chk["shape"]))
+            library_ms=chk.get("library_ms"), shape=chk["shape"]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)  # name, power limit: as nvidia-smi prints them
     print(json.dumps({"ok": True, "device": {

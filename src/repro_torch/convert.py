@@ -1,6 +1,7 @@
 """Carry ``repro``'s state into the port, from numpy arrays under ``repro``'s
-field names: corpora (fp32 or int8 storage), indexes, segmented indexes and
-segment pools. Imports no JAX: every leaf goes through ``np.asarray``.
+field names: corpora (fp32 or int8 storage), indexes, segmented indexes,
+segment pools and model parameters (and model parameters back). Imports no
+JAX: every leaf goes through ``np.asarray``.
 """
 
 from __future__ import annotations
@@ -14,6 +15,9 @@ from repro_torch.core.distributed import SegmentedIndex
 from repro_torch.core.index import INDEX_FIELDS, HybridIndex
 from repro_torch.core.segment_pool import SegmentPool
 from repro_torch.core.usms import FusedVectors, QuantizedFusedVectors, SparseVec
+from repro_torch.device import resolve_device
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.transformer import Transformer
 
 _INT_FIELDS = {
     "semantic_edges", "keyword_edges", "logical_edges", "doc_entities",
@@ -98,3 +102,74 @@ def segmented_from_arrays(seg, device) -> SegmentedIndex:
 def pool_from_arrays(pool, device) -> SegmentPool:
     """SegmentPool from an object with ``groups`` of segmented indexes."""
     return SegmentPool(groups=[segmented_from_arrays(g, device) for g in pool.groups])
+
+
+def _param_paths(model: Transformer):
+    """(parameter, path in ``repro``'s tree, layer index or None): block
+    parameters ``layers.<i>.<rest>`` sit at ``("layers", *rest)[i]`` in
+    ``repro``'s layer-stacked tree."""
+    for name, p in model.named_parameters():
+        parts = name.split(".")
+        if parts[0] == "layers":
+            yield p, ("layers",) + tuple(parts[2:]), int(parts[1])
+        else:
+            yield p, tuple(parts), None
+
+
+def _tree_paths(tree, prefix=()):
+    for key, sub in tree.items():
+        if isinstance(sub, Mapping):
+            yield from _tree_paths(sub, prefix + (key,))
+        else:
+            yield prefix + (key,)
+
+
+def model_params_from_numpy(cfg: ModelConfig, tree: Mapping, device) -> Transformer:
+    """The port's parameters from ``repro``'s parameter tree (nested dicts,
+    layer-stacked leaves (n_layers, ...), numpy or anything ``np.asarray``
+    takes). bfloat16 leaves (``ml_dtypes.bfloat16``) go through float32, which
+    holds every bfloat16 value exactly. ``device=None`` -> CUDA."""
+    model = Transformer(cfg, resolve_device(device))
+    paths = list(_param_paths(model))
+    want = {path for _, path, _ in paths}
+    extra = set(_tree_paths(tree)) - want
+    if extra:
+        raise KeyError(f"model_params_from_numpy: leaves the {cfg.family} model lacks: "
+                       f"{sorted(extra)}")
+    leaves: dict = {}
+    with torch.no_grad():
+        for p, path, layer in paths:
+            if path not in leaves:
+                node = tree
+                for key in path:
+                    node = node[key]
+                leaves[path] = np.asarray(node, np.float32)
+            a = leaves[path] if layer is None else leaves[path][layer]
+            if tuple(a.shape) != tuple(p.shape):
+                raise ValueError(f"{'.'.join(path)}: shape {a.shape}, the model wants "
+                                 f"{tuple(p.shape)}")
+            p.copy_(torch.tensor(a).to(p.dtype))
+    return model
+
+
+def model_params_to_numpy(model: Transformer) -> dict:
+    """``repro``'s parameter tree from the port's parameters: nested dicts,
+    leaves stacked over layers, as float32 numpy arrays (exact for bfloat16;
+    cast to ``model.cfg.dtype`` on the other side)."""
+    tree: dict = {}
+    stacks: dict = {}
+    for p, path, layer in _param_paths(model):
+        a = p.detach().float().cpu().numpy()
+        if layer is None:
+            node = tree
+            for key in path[:-1]:
+                node = node.setdefault(key, {})
+            node[path[-1]] = a
+        else:
+            stacks.setdefault(path, []).append(a)
+    for path, arrays in stacks.items():
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = np.stack(arrays)
+    return tree

@@ -22,7 +22,7 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("hybrid_distance.cu", "fused_topk.cu", "pairwise_tile.cu")
+SOURCES = ("hybrid_distance.cu", "fused_topk.cu", "pairwise_tile.cu", "flash_attention.cu")
 HEADERS = ("common.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -44,10 +44,15 @@ _ARGTYPES = {  # every launch ends (..., int device, void* stream)
     "pairwise_tile_launch": [_P] * 5 + [_L, _I, _I, _I] + [_P, _I, _I, _P, _I, _P],
     "pairwise_tile_smem_bytes": [_I, _I, _I],
     "pairwise_tile_max_k": [],
+    "flash_attention_fwd_launch": [_P] * 5 + [_I] * 7 + [_L] * 12
+    + [_I, ctypes.c_float, _I, _I, _P],
+    "flash_attention_smem_bytes": [_I, _I],
+    "flash_attention_max_d": [],
 }
 _RESTYPES = {
     "fused_topk_smem_bytes": ctypes.c_size_t,
     "pairwise_tile_smem_bytes": ctypes.c_size_t,
+    "flash_attention_smem_bytes": ctypes.c_size_t,
 }
 MAX_SMEM_BYTES = 232_448  # per block on sm_90, opt-in dynamic shared memory
 

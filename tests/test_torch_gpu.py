@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (fp32 and int8 storage) against their plain
-PyTorch versions, on a CUDA card. Imports neither jax nor repro, so it runs
+"""The port's CUDA kernels (fp32 and int8 storage, flash attention) against
+their plain PyTorch versions, on a CUDA card. Imports neither jax nor repro, so it runs
 where only PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -180,3 +180,39 @@ def test_int8_pool_service_matches_plain(cuda):
         c.queries, FusionSpec.rrf(), keywords=kw)
     np.testing.assert_allclose(rk.scores.numpy(), rp.scores.numpy(), atol=TOL)
     assert (rk.ids != rp.ids).float().mean().item() <= 0.01
+
+
+FLASH_CASES = [
+    # (B, H, KV, L, S, dk, dv, causal)
+    (2, 8, 2, 333, 333, 64, 64, True),  # L not a multiple of any tile, g = 4
+    (3, 4, 4, 1, 1, 64, 64, True),  # L = 1, g = 1
+    (2, 4, 2, 130, 130, 48, 32, True),  # dk != dv
+    (1, 4, 4, 100, 300, 32, 32, False),  # non-causal, S > L
+    (1, 2, 1, 70, 70, 192, 128, True),  # MLA's head dims: two column groups
+]
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_matches_plain(cuda, case, dtype):
+    """Out and LSE against the plain version, with the tolerances of
+    tests/test_flash_attention.py:40 (1e-5 fp32, 2e-2 bf16); q, k, v in the
+    model's (B, L, H, d) memory, read by stride."""
+    from repro_torch.kernels.flash_attention import flash_attention_fwd, flash_attention_plain
+
+    b, h, kv, l, s, dk, dv, causal = case
+    rng = np.random.default_rng(sum(case[:7]))
+    make = lambda *shape: torch.as_tensor(rng.normal(size=shape).astype(np.float32)).to(dtype)
+    q = make(b, l, h, dk).transpose(1, 2)
+    k = make(b, s, kv, dk).transpose(1, 2)
+    v = make(b, s, kv, dv).transpose(1, 2)
+    want_out, want_lse = flash_attention_plain(q, k, v, causal, dk**-0.5)
+    before = flash_attention_fwd.launches
+    out, lse = flash_attention_fwd(q.to(cuda), k.to(cuda), v.to(cuda), causal)
+    torch.cuda.synchronize()
+    assert flash_attention_fwd.launches == before + 1
+    assert out.dtype == dtype and out.shape == (b, h, l, dv) and lse.dtype == torch.float32
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    np.testing.assert_allclose(out.cpu().float().numpy(), want_out.float().numpy(),
+                               rtol=tol, atol=tol)
+    np.testing.assert_allclose(lse.cpu().numpy(), want_lse.numpy(), rtol=tol, atol=tol)
