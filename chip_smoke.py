@@ -5,8 +5,8 @@
 
 Phases (each prints its own lines; any failure exits nonzero):
 
-  1. device and build: the card's name and power limit, then the four CUDA
-     kernels built from ``src/repro_torch/kernels/csrc`` (one nvcc each, in
+  1. device and build: the card's name and power limit, then the five CUDA
+     sources built from ``src/repro_torch/kernels/csrc`` (one nvcc each, in
      parallel, into the gitignored ``build/`` directory);
   2. kernel checks: each kernel against its plain PyTorch version on the
      card, at the main path's shapes (Dd = 1024, the corpus caps, B x C of
@@ -41,19 +41,33 @@ Phases (each prints its own lines; any failure exits nonzero):
      16 flash launches per prefill), retrieval through the service against
      direct search, finite prefill logits, and flash prefill against naive
      prefill on 8 rows, with two planted faults that must fail that check;
-  7. the kernels line: launches on each variant's path (phases 4 and 6 plus
+  7. training at full width: llama3.2-1b (16 layers, d_model 2048, bf16,
+     remat full, random weights from a seed) with flash attention through
+     make_train_step, on TokenPipeline batches of 8 x 2048 tokens, AdamW
+     (lr 3e-4, 2 warm-up steps): first the two backward kernels against
+     their plain version at the training shape (bf16, timed beside the
+     plain version and the scaled_dot_product_attention backward; fp32 on 2
+     rows) and at edge shapes; then one warm-up step and 8 timed steps
+     (seconds, tokens/s, loss, grad norm, lr, peak memory, and exactly 32 /
+     16 / 16 forward / dQ / dK-dV launches per step), a first loss near
+     ln(vocab) and a last one below it; then the loss gradients through
+     flash against naive on 2 rows, with three planted faults in the
+     backward that must each fail that check;
+  8. the kernels line: launches on each variant's path (phases 4 and 6 plus
      the fp32 pool's serving for the fp32 variants, phase 4 for
-     pairwise_tile, the int8 pool's serving for the int8 variants, phase 6
-     for flash_attention_fwd), errors, times and bounds at the shape the
-     path runs most;
-  8. the last line: {"ok": true, "device": {...}}.
+     pairwise_tile, the int8 pool's serving for the int8 variants, phases 6
+     and 7 for flash_attention_fwd, phase 7 for the backward kernels),
+     errors, times and bounds at the shape the path runs most;
+  9. the last line: {"ok": true, "device": {...}}.
 
 Imports nothing of JAX. Needs one CUDA card; exits nonzero without one.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -86,6 +100,25 @@ FLASH_TOL = {"float32": 1e-5, "bfloat16": 2e-2}  # tests/test_flash_attention.py
 # (tile dropped) and 5.812 (causal off) (PERF.md, Findings); phase 6 reads
 # both faults against the limit in every run
 PREFILL_GAP = 0.25
+# phase 7: training at llama3.2-1b's full width
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_TIMED = 8, 2048, 8  # one warm-up step, then 8 timed
+# backward kernels vs the plain version, elementwise |g - w| <= atol + rtol |w|
+# as (atol, rtol): fp32 at tests/test_flash_attention.py:64's gradient
+# tolerance; bf16 within one bf16 ulp of each value (2^-7 |w|; both sides sum
+# in fp32 and round once) plus 2e-4 for the fp32 cancellation in dP - Delta,
+# as tests/test_torch_gpu.py holds them (readings in PERF.md, Findings)
+GRAD_TOL = {"float32": (2e-4, 2e-4), "bfloat16": (2e-4, 2.0**-7)}
+# flash vs naive loss gradients at full width on 2 x 2048 tokens, fp32 copies
+# of the trained parameters: max over parameters of |g_flash - g_naive| /
+# |g_naive|. CPU rehearsal (examples/torch_flash_vs_naive.py --grads --dtype
+# float32): sound 4.3e-7 / 7.3e-7 at 1 / 2 layers; planted faults 0.87-0.90
+# (dK/dV from the first head of each group), 0.20-2.17 (Delta = 0), 0.0109-
+# 0.0114 (last key tile's dS dropped). In bf16 the two paths drift apart by
+# 0.0087 at one layer (they round at different places), above the last-tile
+# fault's own share, so the gate reads fp32 and bf16 is printed beside it (at
+# 16 layers on an H100, flash reads 0.48 from fp32 naive, 0.11 with Delta
+# taken from an fp32 O, as naive's own 0.11: PERF.md, Findings)
+GRAD_GAP = 1e-3
 
 
 class SmokeFailure(Exception):
@@ -1019,6 +1052,341 @@ def phase_rag(corpus_bundle, index, results: dict):
     torch.cuda.empty_cache()
 
 
+
+def bwd_work(q, k, v, causal: bool, kernel: str) -> tuple[float, float, float]:
+    """(bytes, flops, peak rate) of one backward kernel: q, k, v, dO, LSE and
+    Delta read once, the gradients it writes written once; 2 flop per
+    multiply-add of the products over the (row, col) pairs the mask keeps:
+    dQ runs QK^T, dO V^T and dS K (3 products at d = 64); dK/dV runs those
+    first two, P^T dO and dS^T Q (4)."""
+    import torch
+
+    b, h, l, dk = q.shape
+    s, dv = k.shape[2], v.shape[3]
+    pairs = sum(min(r + 1, s) for r in range(l)) if causal else l * s
+    esz = q.element_size()
+    ins = (q.numel() + k.numel() + v.numel() + b * h * l * dv) * esz + 2 * b * h * l * 4
+    if kernel == "dq":
+        outs, width = q.numel() * esz, 2 * dk + dv
+    else:
+        outs, width = (k.numel() + v.numel()) * esz, 2 * dk + 2 * dv
+    flops = 2.0 * b * h * pairs * width
+    return ins + outs, flops, BF16_FLOP_PER_S if q.dtype == torch.bfloat16 else FP32_FLOP_PER_S
+
+
+def phase_flash_bwd(cfg, results: dict):
+    """The two backward kernels against the plain version on the card: at
+    the training shape (bf16, timed beside the plain version and the SDPA
+    backward; fp32 on 2 rows) and at edge shapes in fp32 and bf16."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (
+        _delta,
+        flash_attention_bwd_dkv,
+        flash_attention_bwd_dq,
+        flash_attention_bwd_plain,
+        flash_attention_fwd,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        results.setdefault(name, {"max_abs_err": 0.0, "checks": []})
+
+    def inputs(b, h, kv, l, s, dk, dv, dtype):
+        """q, k, v in the model's (B, L, H, d) memory and dO in memory of its
+        own (L, B, H, dv), as (B, H, L, d) views; out and LSE from the
+        forward kernel."""
+        mk = lambda n, heads, d: torch.randn((b, n, heads, d), generator=gen, device="cuda",
+                                             dtype=torch.float32).to(dtype).transpose(1, 2)
+        q, k, v = mk(l, h, dk), mk(s, kv, dk), mk(s, kv, dv)
+        do = torch.randn((l, b, h, dv), generator=gen, device="cuda").to(dtype).permute(1, 2, 0, 3)
+        return q, k, v, do
+
+    def check(label, q, k, v, do, causal, rows=None):
+        """Both kernels vs the plain version on ``rows`` batch rows (all by
+        default). Returns, per kernel, (max |err|, max |err| / (atol + rtol
+        |w|)), the second at most 1."""
+        atol, rtol = GRAD_TOL[str(q.dtype).removeprefix("torch.")]
+        out, lse = flash_attention_fwd(q, k, v, causal)
+        delta = _delta(out, do)
+        dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, causal)
+        dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal)
+        sl = slice(None) if rows is None else slice(0, rows)
+        want = flash_attention_bwd_plain(q[sl], k[sl], v[sl], out[sl], lse[sl], do[sl], causal,
+                                         q.shape[-1] ** -0.5)
+        torch.cuda.synchronize()
+        worst = {}
+        for name, got, w in (("flash_attention_bwd_dq", dq[sl], want[0]),
+                             ("flash_attention_bwd_dkv", dk[sl], want[1]),
+                             ("flash_attention_bwd_dkv", dv[sl], want[2])):
+            got, w = got.float(), w.float()
+            need(bool(torch.isfinite(got).all()), f"flash bwd {label}: non-finite {name}")
+            diff = (got - w).abs()
+            reading = float((diff / (atol + rtol * w.abs())).max())
+            need(reading <= 1, f"flash bwd {label} {name}: error {float(diff.max()):.3g}, "
+                 f"{reading:.3g} of its limit {atol:.3g} + {rtol:.3g} |w|")
+            err, rd = worst.get(name, (0.0, 0.0))
+            worst[name] = (max(err, float(diff.max())), max(rd, reading))
+        for name, (err, _) in worst.items():
+            results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
+        return worst
+
+    def say_check(label, dtype, worst):
+        atol, rtol = GRAD_TOL[str(dtype).removeprefix("torch.")]
+        say(f"phase 7 flash bwd {label} {str(dtype)[6:]}: " + ", ".join(
+            f"{n.removeprefix('flash_attention_bwd_')} max_abs_err {e:.3g} reading {r:.3g}"
+            for n, (e, r) in worst.items()) + f" (of the limit {atol:.3g} + {rtol:.3g} |w|)")
+
+    edges = [
+        # label, (B, H, KV, L, S, dk, dv), causal
+        ("tail L=S=333 g=4", (2, 8, 2, 333, 333, 64, 64), True),
+        ("L=S=1", (4, 8, 2, 1, 1, 64, 64), True),
+        ("non-causal L=100 S=300 g=1", (2, 4, 4, 100, 300, 64, 64), False),
+        ("g=1 L=S=200", (2, 4, 4, 200, 200, 64, 64), True),
+        ("dk=192 dv=128 L=S=130", (2, 4, 1, 130, 130, 192, 128), True),
+    ]
+    for label, shape, causal in edges:
+        for dtype in (torch.float32, torch.bfloat16):
+            say_check(label, dtype, check(label, *inputs(*shape, dtype), causal))
+
+    # the training shape: every layer of a training step launches both kernels
+    b, h, kv, d, l = TRAIN_BATCH, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, TRAIN_SEQ
+    q, k, v, do = inputs(b, h, kv, l, l, d, d, torch.bfloat16)
+    worst = check("train", q, k, v, do, True, rows=2)
+    say_check(f"train B={b} (2 rows checked)", torch.bfloat16, worst)
+    out, lse = flash_attention_fwd(q, k, v, True)
+    delta = _delta(out, do)
+    times = {"flash_attention_bwd_dq": time_ms(
+        lambda: flash_attention_bwd_dq(q, k, v, do, lse, delta, True), 5),
+        "flash_attention_bwd_dkv": time_ms(
+        lambda: flash_attention_bwd_dkv(q, k, v, do, lse, delta, True), 5)}
+    plain_ms = time_ms(lambda: [flash_attention_bwd_plain(
+        q[i:i + 2], k[i:i + 2], v[i:i + 2], out[i:i + 2], lse[i:i + 2], do[i:i + 2], True,
+        d**-0.5) for i in range(0, b, 2)], 2, warm=1)
+    qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=True)
+    lib_grads = torch.autograd.grad(lib_out, (qs, ks, vs), do, retain_graph=True)
+    need(all(bool(torch.isfinite(g).all()) for g in lib_grads), "SDPA backward: non-finite")
+    library_ms = time_ms(lambda: torch.autograd.grad(lib_out, (qs, ks, vs), do,
+                                                     retain_graph=True), 5)
+    shape = f"train B={b} H={h} KV={kv} L=S={l} d={d} causal bf16"
+    for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        nbytes, flops, rate = bwd_work(q, k, v, True, name.removeprefix("flash_attention_bwd_"))
+        b_ms, b_by = bound(nbytes, flops, rate)
+        results[name]["checks"].append(dict(
+            shape=shape, ms=times[name], plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=library_ms))
+        say(f"phase 7 {name} {shape}: ms {times[name]:.4f} bound_ms {b_ms:.4f} ({b_by}: "
+            f"{nbytes / 1e9:.3f} GB, {flops / 1e9:.1f} GFLOP) plain_ms (dQ, dK and dV in 2-row "
+            f"calls) {plain_ms:.4f} sdpa_bwd_ms (dQ, dK and dV) {library_ms:.4f}")
+    del q, k, v, do, out, lse, delta, qs, ks, vs, lib_out, lib_grads
+    torch.cuda.empty_cache()
+    # the same shape in fp32 on 2 rows, where 2e-4 leaves a wrong tile loop,
+    # causal skip, stride or head sum no room
+    say_check("train B=2 fp32", torch.float32,
+              check("train fp32", *inputs(2, h, kv, l, l, d, d, torch.float32), True))
+    torch.cuda.empty_cache()
+
+
+def planted_bwd(kind: str):
+    """A stand-in for ``flash_attention_bwd`` that still runs the kernels.
+    Faults: dK/dV summed over only the first query head of each group
+    (``first_head``), Delta taken as 0 (``delta``), or the last key tile's
+    dS dropped (``last_tile``: dQ without its share, dK zero there). Not a
+    fault: Delta from O recomputed in fp32 by the plain forward instead of
+    the forward's output in its own dtype (``fp32_delta``), which tells how
+    much of the bf16 gradients' drift is O's rounding."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    def bwd(q, k, v, out, lse, dout, causal=True, sm_scale=None):
+        delta = fa._delta(out, dout)
+        if kind == "delta":
+            delta = torch.zeros_like(delta)
+        elif kind == "fp32_delta":
+            scale = q.shape[-1] ** -0.5 if sm_scale is None else float(sm_scale)
+            out32, _ = fa.flash_attention_plain(q.float(), k.float(), v.float(), causal, scale)
+            delta = fa._delta(out32, dout)
+        dq = fa.flash_attention_bwd_dq(q, k, v, dout, lse, delta, causal, sm_scale)
+        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, dout, lse, delta, causal, sm_scale)
+        if kind == "first_head":
+            g = q.shape[1] // k.shape[1]
+            dk, dv = fa.flash_attention_bwd_dkv(q[:, ::g], k, v, dout[:, ::g], lse[:, ::g],
+                                                delta[:, ::g], causal, sm_scale)
+        elif kind == "last_tile":
+            s = k.shape[2] - 64
+            dq = fa.flash_attention_bwd_dq(q, k[:, :, :s], v[:, :, :s], dout, lse, delta, causal,
+                                           sm_scale)
+            dk = dk.clone()
+            dk[:, :, s:] = 0
+        return dq, dk, dv
+
+    return bwd
+
+
+def loss_grads(cfg, params, tokens):
+    """(names, gradients) of ``make_loss_fn(cfg)`` on ``tokens``."""
+    import torch
+
+    from repro_torch.models import transformer as tfm
+
+    names, leaves = zip(*params.named_parameters())
+    loss = tfm.make_loss_fn(cfg)(params, {"tokens": tokens})
+    return names, torch.autograd.grad(loss, leaves)
+
+
+def rel_gap(names, got, want) -> tuple[float, str]:
+    """Max over parameters of |got - want| / |want| (Frobenius norms), and
+    that parameter's name."""
+    gaps = [float((g.float() - w.float()).norm() / w.float().norm().clamp(min=1e-30))
+            for g, w in zip(got, want)]
+    i = max(range(len(gaps)), key=gaps.__getitem__)
+    return gaps[i], names[i]
+
+
+def bf16_readings(cfg, params, tokens):
+    """``rel_gap`` readings of the bf16 loss gradients: flash against naive,
+    and flash, flash with Delta from an fp32 O (``planted_bwd("fp32_delta")``)
+    and naive each against naive at fp32 copies of the same parameters.
+    Turns ``params`` to float32 in place; returns (readings, parameter
+    names, the fp32 naive gradients)."""
+    import dataclasses
+
+    from repro_torch.kernels import flash_attention as fa
+
+    grads, sound = {}, fa.flash_attention_bwd
+    for label, impl, bwd in (("flash", "flash", sound),
+                             ("flash with Delta from fp32 O", "flash", planted_bwd("fp32_delta")),
+                             ("naive", "naive", sound)):
+        fa.flash_attention_bwd = bwd
+        try:
+            names, grads[label] = loss_grads(dataclasses.replace(cfg, attn_impl=impl), params,
+                                             tokens)
+        finally:
+            fa.flash_attention_bwd = sound
+    params.float()
+    naive32 = loss_grads(dataclasses.replace(cfg, dtype="float32", attn_impl="naive"), params,
+                         tokens)[1]
+    readings = {"bf16 flash vs bf16 naive": rel_gap(names, grads["flash"], grads["naive"])}
+    readings.update({f"bf16 {k} vs fp32 naive": rel_gap(names, g, naive32)
+                     for k, g in grads.items()})
+    return readings, names, naive32
+
+
+def grad_gap(cfg, params, tokens) -> tuple[float, str]:
+    """``rel_gap`` of the loss gradients through flash against naive."""
+    import dataclasses
+
+    names, flash = loss_grads(dataclasses.replace(cfg, attn_impl="flash"), params, tokens)
+    _, naive = loss_grads(dataclasses.replace(cfg, attn_impl="naive"), params, tokens)
+    return rel_gap(names, flash, naive)
+
+
+def phase_train(cfg, results: dict):
+    """Training ``cfg`` (llama3.2-1b at full width and depth): one warm-up
+    step, then the timed steps of make_train_step; then its gradients
+    through flash against naive attention, with planted faults in the
+    backward."""
+    import dataclasses
+    import math
+
+    import torch
+
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.training.optimizer import OptConfig
+    from repro_torch.training.train_loop import TrainConfig, make_train_state, make_train_step
+
+    tcfg = TrainConfig(opt=OptConfig(lr=3e-4, warmup_steps=2, total_steps=10))
+    t = time.perf_counter()
+    state = make_train_state(cfg, tcfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                    global_batch=TRAIN_BATCH, seed=0), device="cuda")
+    batches = [pipe.batch(s) for s in range(1 + TRAIN_TIMED)]
+    step_fn = make_train_step(cfg, tcfg, None, None)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in state["params"].parameters())
+    say(f"phase 7 setup: {cfg.name} {cfg.n_layers} layers d_model {cfg.d_model} {cfg.dtype} "
+        f"remat {cfg.remat} attn {cfg.attn_impl}, {n_params} parameters, AdamW fp32 moments; "
+        f"{1 + TRAIN_TIMED} batches of {TRAIN_BATCH} x {TRAIN_SEQ} tokens; "
+        f"{time.perf_counter() - t:.1f} s")
+
+    # ---- the main path: counts zeroed just before, read after every step ----
+    wrappers = {"flash_attention_fwd": fa.flash_attention_fwd,
+                "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
+                "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv}
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    rows, seen = [], {k: 0 for k in wrappers}
+    for s, batch in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = {k: w.launches - seen[k] for k, w in wrappers.items()}
+        seen = {k: w.launches for k, w in wrappers.items()}
+        row = dict(step=s, seconds=dt, tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / dt,
+                   loss=float(metrics["loss"]), grad_norm=float(metrics["grad_norm"]),
+                   lr=float(metrics["lr"]), launches=counts)
+        rows.append(row)
+        say(f"phase 7 step {s}{' (warm-up)' if s == 0 else ''}: {dt:.4f} s "
+            f"({row['tokens_per_s']:.1f} tokens/s) loss {row['loss']:.6f} grad_norm "
+            f"{row['grad_norm']:.6f} lr {row['lr']:.6g} launches {json.dumps(counts)}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    med = statistics.median(r["seconds"] for r in rows[1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    say(f"phase 7 training: median step {med:.4f} s over {TRAIN_TIMED} timed steps "
+        f"({tokens / med:.1f} tokens/s; {6 * n_params * tokens / med / 1e12:.1f} TFLOP/s of "
+        f"6 N D), peak memory {peak_gb:.2f} GB")
+    want = {"flash_attention_fwd": 2 * cfg.n_layers, "flash_attention_bwd_dq": cfg.n_layers,
+            "flash_attention_bwd_dkv": cfg.n_layers}
+    for r in rows:
+        need(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]),
+             f"step {r['step']}: non-finite loss or grad norm")
+        need(r["launches"] == want, f"step {r['step']}: launches {r['launches']} != {want}")
+    first, last = rows[0]["loss"], rows[-1]["loss"]
+    need(abs(first - math.log(cfg.vocab)) <= 0.5,
+         f"first loss {first:.4f} is not within 0.5 of ln({cfg.vocab}) = {math.log(cfg.vocab):.4f}")
+    need(last < first, f"the loss did not go down: {first:.4f} -> {last:.4f}")
+    say(f"phase 7 checks: losses and grad norms finite; first loss {first:.4f} (ln V = "
+        f"{math.log(cfg.vocab):.4f}), last {last:.4f}; every step launched "
+        f"{json.dumps(rows[-1]['launches'])}")
+    for k in wrappers:
+        results.setdefault(k, {"launches": 0})
+        results[k]["launches"] = results[k].get("launches", 0) + seen[k]
+
+    # ---- gradients through flash against naive, on 2 rows ------------------
+    params = state["params"]
+    del state, batches
+    torch.cuda.empty_cache()
+    tokens2 = pipe.batch(0)["tokens"][:2]
+    readings, names, naive32 = bf16_readings(cfg, params, tokens2)  # params now fp32: the gate
+    say(f"phase 7 gradients, 2 x {TRAIN_SEQ} tokens, max over parameters of |g - g_ref| / "
+        "|g_ref| (printed, not gated): " + "; ".join(f"{k} {g:.4g} ({n})"
+                                                      for k, (g, n) in readings.items()))
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    gap, where = rel_gap(names, loss_grads(cfg32, params, tokens2)[1], naive32)
+    say(f"phase 7 gradients in fp32: flash vs naive {gap:.4g} ({where}; limit {GRAD_GAP})")
+    need(gap <= GRAD_GAP, f"flash gradients differ from naive by {gap:.4g}")
+    torch.cuda.empty_cache()
+    sound = fa.flash_attention_bwd
+    try:
+        for kind in ("first_head", "delta", "last_tile"):
+            fa.flash_attention_bwd = planted_bwd(kind)
+            fgap, fwhere = rel_gap(names, loss_grads(cfg32, params, tokens2)[1], naive32)
+            say(f"phase 7 planted fault {kind}: flash vs naive in fp32 {fgap:.4g} ({fwhere})")
+            need(fgap > GRAD_GAP, f"planted fault {kind} passes the gradient check")
+    finally:
+        fa.flash_attention_bwd = sound
+    del params, naive32
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found next to this script", file=sys.stderr)
@@ -1050,6 +1418,13 @@ def main() -> int:
         phase_serving(full, results)
         torch.cuda.empty_cache()
         phase_rag(full, index, results)
+        del full, index
+        torch.cuda.empty_cache()
+        from repro_torch.configs import get_config
+
+        train_cfg = dataclasses.replace(get_config("llama3.2-1b"), attn_impl="flash")
+        phase_flash_bwd(train_cfg, results)
+        phase_train(train_cfg, results)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
@@ -1067,6 +1442,10 @@ def main() -> int:
                           "src/repro/kernels/pairwise_tile.py:77", "prune_chunk"),
         "flash_attention_fwd": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                                 "src/repro/kernels/flash_attention.py:107", "rag_prefill"),
+        "flash_attention_bwd_dq": ("src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                                   "src/repro/kernels/flash_attention.py:261", "train"),
+        "flash_attention_bwd_dkv": ("src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                                    "src/repro/kernels/flash_attention.py:294", "train"),
     }
     kernels = []
     for name, (path, replaces, headline) in src.items():

@@ -1,7 +1,7 @@
 """Carry ``repro``'s state into the port, from numpy arrays under ``repro``'s
 field names: corpora (fp32 or int8 storage), indexes, segmented indexes,
-segment pools and model parameters (and model parameters back). Imports no
-JAX: every leaf goes through ``np.asarray``.
+segment pools, model parameters and train states (parameters and train
+states back, too). Imports no JAX: every leaf goes through ``np.asarray``.
 """
 
 from __future__ import annotations
@@ -105,15 +105,15 @@ def pool_from_arrays(pool, device) -> SegmentPool:
 
 
 def _param_paths(model: Transformer):
-    """(parameter, path in ``repro``'s tree, layer index or None): block
-    parameters ``layers.<i>.<rest>`` sit at ``("layers", *rest)[i]`` in
-    ``repro``'s layer-stacked tree."""
+    """(name, parameter, path in ``repro``'s tree, layer index or None):
+    block parameters ``layers.<i>.<rest>`` sit at ``("layers", *rest)[i]``
+    in ``repro``'s layer-stacked tree."""
     for name, p in model.named_parameters():
         parts = name.split(".")
         if parts[0] == "layers":
-            yield p, ("layers",) + tuple(parts[2:]), int(parts[1])
+            yield name, p, ("layers",) + tuple(parts[2:]), int(parts[1])
         else:
-            yield p, tuple(parts), None
+            yield name, p, tuple(parts), None
 
 
 def _tree_paths(tree, prefix=()):
@@ -124,52 +124,118 @@ def _tree_paths(tree, prefix=()):
             yield prefix + (key,)
 
 
+def _leaves_by_name(model: Transformer, tree: Mapping, what: str) -> dict:
+    """{parameter name: float32 numpy array} from a tree with ``repro``'s
+    parameter keys and layer-stacked leaves; shapes checked against the
+    model's."""
+    paths = list(_param_paths(model))
+    extra = set(_tree_paths(tree)) - {path for _, _, path, _ in paths}
+    if extra:
+        raise KeyError(f"{what}: leaves the {model.cfg.family} model lacks: {sorted(extra)}")
+    stacked: dict = {}
+    out = {}
+    for name, p, path, layer in paths:
+        if path not in stacked:
+            node = tree
+            for key in path:
+                node = node[key]
+            stacked[path] = np.asarray(node, np.float32)
+        a = stacked[path] if layer is None else stacked[path][layer]
+        if tuple(a.shape) != tuple(p.shape):
+            raise ValueError(f"{what}: {'.'.join(path)}: shape {a.shape}, the model wants "
+                             f"{tuple(p.shape)}")
+        out[name] = a
+    return out
+
+
 def model_params_from_numpy(cfg: ModelConfig, tree: Mapping, device) -> Transformer:
     """The port's parameters from ``repro``'s parameter tree (nested dicts,
     layer-stacked leaves (n_layers, ...), numpy or anything ``np.asarray``
     takes). bfloat16 leaves (``ml_dtypes.bfloat16``) go through float32, which
     holds every bfloat16 value exactly. ``device=None`` -> CUDA."""
     model = Transformer(cfg, resolve_device(device))
-    paths = list(_param_paths(model))
-    want = {path for _, path, _ in paths}
-    extra = set(_tree_paths(tree)) - want
-    if extra:
-        raise KeyError(f"model_params_from_numpy: leaves the {cfg.family} model lacks: "
-                       f"{sorted(extra)}")
-    leaves: dict = {}
+    leaves = _leaves_by_name(model, tree, "model_params_from_numpy")
     with torch.no_grad():
-        for p, path, layer in paths:
-            if path not in leaves:
-                node = tree
-                for key in path:
-                    node = node[key]
-                leaves[path] = np.asarray(node, np.float32)
-            a = leaves[path] if layer is None else leaves[path][layer]
-            if tuple(a.shape) != tuple(p.shape):
-                raise ValueError(f"{'.'.join(path)}: shape {a.shape}, the model wants "
-                                 f"{tuple(p.shape)}")
-            p.copy_(torch.tensor(a).to(p.dtype))
+        for name, p in model.named_parameters():
+            p.copy_(torch.tensor(leaves[name]).to(p.dtype))
     return model
+
+
+def _stacked_tree(model: Transformer, tensors: Mapping) -> dict:
+    """``repro``'s tree of one tensor per parameter (``tensors`` keyed by
+    parameter name): nested dicts, block leaves stacked over layers, dtypes
+    and device kept."""
+    tree: dict = {}
+    stacks: dict = {}
+    for name, _, path, layer in _param_paths(model):
+        t = tensors[name].detach()
+        if layer is None:
+            node = tree
+            for key in path[:-1]:
+                node = node.setdefault(key, {})
+            node[path[-1]] = t
+        else:
+            stacks.setdefault(path, []).append(t)
+    for path, ts in stacks.items():
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = torch.stack(ts)
+    return tree
+
+
+def _map_tree(fn, tree):
+    return {k: _map_tree(fn, v) if isinstance(v, Mapping) else fn(v) for k, v in tree.items()}
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    return t.float().cpu().numpy()
 
 
 def model_params_to_numpy(model: Transformer) -> dict:
     """``repro``'s parameter tree from the port's parameters: nested dicts,
     leaves stacked over layers, as float32 numpy arrays (exact for bfloat16;
     cast to ``model.cfg.dtype`` on the other side)."""
-    tree: dict = {}
-    stacks: dict = {}
-    for p, path, layer in _param_paths(model):
-        a = p.detach().float().cpu().numpy()
-        if layer is None:
-            node = tree
-            for key in path[:-1]:
-                node = node.setdefault(key, {})
-            node[path[-1]] = a
-        else:
-            stacks.setdefault(path, []).append(a)
-    for path, arrays in stacks.items():
-        node = tree
-        for key in path[:-1]:
-            node = node.setdefault(key, {})
-        node[path[-1]] = np.stack(arrays)
-    return tree
+    return _map_tree(_to_numpy, _stacked_tree(model, dict(model.named_parameters())))
+
+
+def train_state_to_tree(state: Mapping) -> dict:
+    """``repro``'s train-state tree, ``{"opt": {"m", "step", "v"}, "params"}``,
+    from the port's (``training.train_loop``): torch tensors in their own
+    dtypes, parameters and moments under ``repro``'s parameter keys, stacked
+    over layers."""
+    model = state["params"]
+    o = state["opt"]
+    return {
+        "opt": {"m": _stacked_tree(model, o["m"]), "step": o["step"].detach(),
+                "v": _stacked_tree(model, o["v"])},
+        "params": _stacked_tree(model, dict(model.named_parameters())),
+    }
+
+
+def train_state_to_numpy(state: Mapping) -> dict:
+    """``train_state_to_tree`` as numpy: float32 leaves (exact for bfloat16;
+    cast on the other side) and an int32 step."""
+    tree = train_state_to_tree(state)
+    out = _map_tree(_to_numpy, tree)
+    out["opt"]["step"] = np.asarray(tree["opt"]["step"].cpu().numpy(), np.int32)
+    return out
+
+
+def train_state_from_numpy(cfg: ModelConfig, tree: Mapping, device,
+                           moment_dtype: str = "float32") -> dict:
+    """The port's train state from ``repro``'s (``{"params": ..., "opt":
+    {"m", "v", "step"}}``, numpy leaves or anything ``np.asarray`` takes):
+    parameters in ``cfg.dtype``, moments in ``moment_dtype``, the step int32;
+    on ``device`` (``None`` -> CUDA)."""
+    model = model_params_from_numpy(cfg, tree["params"], device)
+    dev = model.device
+    dt = torch.bfloat16 if moment_dtype == "bfloat16" else torch.float32
+    opt_tree = tree["opt"]
+
+    def moments(key):
+        leaves = _leaves_by_name(model, opt_tree[key], f"train_state_from_numpy: opt.{key}")
+        return {n: torch.tensor(a).to(device=dev, dtype=dt) for n, a in leaves.items()}
+
+    step = torch.tensor(np.asarray(opt_tree["step"]).astype(np.int32), device=dev)
+    return {"params": model, "opt": {"m": moments("m"), "v": moments("v"), "step": step}}

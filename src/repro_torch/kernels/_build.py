@@ -22,7 +22,8 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("hybrid_distance.cu", "fused_topk.cu", "pairwise_tile.cu", "flash_attention.cu")
+SOURCES = ("hybrid_distance.cu", "fused_topk.cu", "pairwise_tile.cu", "flash_attention.cu",
+           "flash_attention_bwd.cu")
 HEADERS = ("common.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -48,11 +49,17 @@ _ARGTYPES = {  # every launch ends (..., int device, void* stream)
     + [_I, ctypes.c_float, _I, _I, _P],
     "flash_attention_smem_bytes": [_I, _I],
     "flash_attention_max_d": [],
+    "flash_attention_bwd_dq_launch": [_P] * 7 + [_I] * 7 + [_L] * 15
+    + [_I, ctypes.c_float, _I, _I, _P],
+    "flash_attention_bwd_dkv_launch": [_P] * 8 + [_I] * 7 + [_L] * 18
+    + [_I, ctypes.c_float, _I, _I, _P],
+    "flash_attention_bwd_smem_bytes": [_I, _I],
 }
 _RESTYPES = {
     "fused_topk_smem_bytes": ctypes.c_size_t,
     "pairwise_tile_smem_bytes": ctypes.c_size_t,
     "flash_attention_smem_bytes": ctypes.c_size_t,
+    "flash_attention_bwd_smem_bytes": ctypes.c_size_t,
 }
 MAX_SMEM_BYTES = 232_448  # per block on sm_90, opt-in dynamic shared memory
 

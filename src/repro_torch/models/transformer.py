@@ -1,8 +1,10 @@
 """Model assembly for the dense family (``repro/models/transformer.py``):
-init, forward, prefill and cached decode.
+init, forward (with ``repro``'s remat policies), the training loss, prefill
+and cached decode.
 
 ``repro`` scans over layer-stacked parameters; the port holds a
-``ModuleList`` of blocks and loops over it. The decode cache keeps
+``ModuleList`` of blocks and loops over it, and ``jax.checkpoint`` over the
+scan body becomes ``torch.utils.checkpoint`` around each block. The decode cache keeps
 ``repro``'s tree and layout, ``{"layers": {"k", "v": (n_layers, B, max_len,
 KV, hd)}}``, as one buffer that prefill fills and each decode step updates
 in place. The other families (moe, ssm, hybrid, vlm, audio) raise
@@ -11,8 +13,11 @@ in place. The other families (moe, ssm, hybrid, vlm, audio) raise
 
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
@@ -27,6 +32,9 @@ from repro_torch.models.layers import (
     rms_norm,
     unembed,
 )
+
+
+AUX_LOSS_COEF = 0.01
 
 
 def _dense_only(cfg: ModelConfig) -> None:
@@ -100,21 +108,87 @@ def _positions(l: int, device) -> torch.Tensor:
     return torch.arange(l, dtype=torch.int32, device=device)[None]
 
 
+def _save_weight_matmuls(ctx, op, *args, **kwargs):
+    """``checkpoint_dots_with_no_batch_dims``: keep the outputs of products
+    with no batch dimension (the weight matmuls: ``x @ w`` runs as ``mm``, a
+    projection einsum as a ``bmm`` over one batch), recompute everything
+    else (attention's batched score and value products among them)."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default) or (
+            op == torch.ops.aten.bmm.default and args[0].shape[0] == 1):
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, cfg: ModelConfig):
+    """``repro``'s ``_remat`` over one block: ``none`` keeps every
+    activation, ``full`` keeps only the block's input and recomputes the
+    block in the backward, ``dots`` keeps the weight matmuls' outputs too.
+    Without autograd (prefill, decode) the block just runs."""
+    if cfg.remat not in ("none", "full", "dots"):
+        raise ValueError(f"unknown remat policy {cfg.remat!r}")
+    if cfg.remat == "none":
+        return fn
+
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        if cfg.remat == "dots":
+            return ckpt.checkpoint(fn, *args, use_reentrant=False, context_fn=functools.partial(
+                ckpt.create_selective_checkpoint_contexts, _save_weight_matmuls))
+        return ckpt.checkpoint(fn, *args, use_reentrant=False)
+
+    return run
+
+
 def make_forward(cfg: ModelConfig):
     """Returns fn(params, tokens) -> (logits (B, L, V), aux_loss, None), as
-    ``repro``'s dense forward (the third slot is the MTP head's logits)."""
+    ``repro``'s dense forward (the third slot is the MTP head's logits).
+    Each block runs under ``cfg.remat`` when autograd records."""
     _dense_only(cfg)
 
     def fwd(params: Transformer, tokens: torch.Tensor):
         positions = _positions(tokens.shape[1], tokens.device)
         h = embed_tokens(params.embed, tokens)
         for blk in params.layers:
-            h, _ = _block_seq(blk, cfg, h, positions)
+            h = _remat(lambda x, blk=blk: _block_seq(blk, cfg, x, positions)[0], cfg)(h)
         h = rms_norm(params.final_norm, h)
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
         return unembed(params.embed, h, cfg), aux, None
 
     return fwd
+
+
+def _cross_entropy(logits, labels, mask):
+    """Mean next-token NLL over ``mask``, with an fp32 logsumexp."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels[..., None].long())[..., 0]
+    nll = (lse - gold) * mask
+    return nll.sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def make_loss_fn(cfg: ModelConfig):
+    """Returns fn(params, batch) -> scalar float32 loss, as ``repro``'s
+    ``make_loss_fn``: labels are the tokens rolled by -1, the last position
+    is masked, and the aux loss is added at ``AUX_LOSS_COEF``. (The MTP term
+    comes with the moe family.)"""
+    fwd = make_forward(cfg)
+
+    def loss_fn(params: Transformer, batch: dict) -> torch.Tensor:
+        if batch.get("frontend") is not None:
+            raise NotImplementedError("frontend embeddings come with the vlm and audio "
+                                      "families (ROADMAP Queue 1 item 10)")
+        tokens = batch["tokens"]
+        logits, aux, logits_mtp = fwd(params, tokens)
+        if logits_mtp is not None:
+            raise NotImplementedError("the MTP loss comes with the moe family "
+                                      "(ROADMAP Queue 1 item 10)")
+        labels = torch.roll(tokens, -1, dims=1)
+        mask = torch.ones(tokens.shape, dtype=torch.float32, device=tokens.device)
+        mask[:, -1] = 0.0
+        return _cross_entropy(logits, labels, mask) + AUX_LOSS_COEF * aux
+
+    return loss_fn
 
 
 def cache_shape(cfg: ModelConfig, batch: int, max_len: int) -> dict:

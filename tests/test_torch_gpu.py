@@ -216,3 +216,70 @@ def test_flash_kernel_matches_plain(cuda, case, dtype):
     np.testing.assert_allclose(out.cpu().float().numpy(), want_out.float().numpy(),
                                rtol=tol, atol=tol)
     np.testing.assert_allclose(lse.cpu().numpy(), want_lse.numpy(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("case", FLASH_CASES + [(2, 8, 8, 96, 96, 64, 64, True)])  # + g = 1
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_kernels_match_plain(cuda, case, dtype):
+    """dQ, dK and dV of the two backward kernels against the plain version
+    on the same (out, lse, dout); q, k, v in the model's (B, L, H, d) memory
+    and dout with strides of its own. fp32 at 2e-4 (the gradient tolerance of
+    tests/test_flash_attention.py:64); bf16 within one bf16 ulp of each
+    value (both sides sum in fp32 and round once) plus 2e-4 for the fp32
+    cancellation in dP - Delta (exact zeros at L = 1)."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd,
+        flash_attention_bwd_dkv,
+        flash_attention_bwd_dq,
+        flash_attention_bwd_plain,
+        flash_attention_fwd,
+    )
+
+    b, h, kv, l, s, dk, dv, causal = case
+    rng = np.random.default_rng(sum(case[:7]) + 1)
+    make = lambda *shape: torch.as_tensor(rng.normal(size=shape).astype(np.float32)).to(
+        device=cuda, dtype=dtype)
+    q = make(b, l, h, dk).transpose(1, 2)
+    k = make(b, s, kv, dk).transpose(1, 2)
+    v = make(b, s, kv, dv).transpose(1, 2)
+    dout = make(l, b, h, dv).permute(1, 2, 0, 3)  # strides of its own, the last dim contiguous
+    out, lse = flash_attention_fwd(q, k, v, causal)
+    want = flash_attention_bwd_plain(q, k, v, out, lse, dout, causal, dk**-0.5)
+    n_dq, n_dkv = flash_attention_bwd_dq.launches, flash_attention_bwd_dkv.launches
+    got = flash_attention_bwd(q, k, v, out, lse, dout, causal)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd_dq.launches == n_dq + 1
+    assert flash_attention_bwd_dkv.launches == n_dkv + 1
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == dtype and g.shape == w.shape, name
+        g, w = g.float().cpu(), w.float().cpu()
+        assert bool(torch.isfinite(g).all()), name
+        rtol = 2e-4 if dtype == torch.float32 else 2.0**-7
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=rtol, atol=2e-4, err_msg=name)
+
+
+def test_flash_bwd_wrappers_take_strided_stats(cuda):
+    """The per-kernel wrappers on views: every other query head (strided q,
+    dout, LSE and Delta) against the plain version, so the LSE and Delta
+    copies the wrappers make live until their kernels are enqueued."""
+    from repro_torch.kernels.flash_attention import (
+        _bwd_plain,
+        _delta,
+        flash_attention_bwd_dkv,
+        flash_attention_bwd_dq,
+        flash_attention_fwd,
+    )
+
+    rng = np.random.default_rng(5)
+    make = lambda *shape: torch.as_tensor(rng.normal(size=shape).astype(np.float32)).to(cuda)
+    q, k, v = (make(2, n, h, 64).transpose(1, 2) for n, h in ((130, 8), (130, 2), (130, 2)))
+    dout = make(2, 8, 130, 64)
+    out, lse = flash_attention_fwd(q, k, v, True)
+    delta = _delta(out, dout)
+    views = (q[:, ::2], k, v, dout[:, ::2], lse[:, ::2], delta[:, ::2])
+    want = _bwd_plain(*views, True, 64**-0.5)
+    got = (flash_attention_bwd_dq(*views, True),) + flash_attention_bwd_dkv(*views, True)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), rtol=2e-4, atol=2e-4,
+                                   err_msg=name)

@@ -233,13 +233,19 @@ def test_port_imports_no_jax():
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
-        "print(len([m for m in sys.modules if m.startswith('repro_torch')]))\n"
+        "print(' '.join(m for m in sys.modules if m.startswith('repro_torch')))\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          env=env, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 30
+    loaded = set(out.stdout.split())
+    assert len(loaded) >= 30
+    # the training slice's modules are among those imported
+    assert {f"repro_torch.{m}" for m in (
+        "training.optimizer", "training.train_loop", "training.grad_compression",
+        "data.pipeline", "runtime.fault_tolerance", "checkpoint.checkpoint", "launch.train",
+    )} <= loaded
 
 
 def test_chip_smoke_fails_without_cuda_or_repo(tmp_path):
