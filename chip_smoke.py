@@ -5,9 +5,11 @@
 
 Phases (each prints its own lines; any failure exits nonzero):
 
-  1. device and build: the card's name and power limit, then the five CUDA
+  1. device and build: the card's name and power limit, then the six CUDA
      sources built from ``src/repro_torch/kernels/csrc`` (one nvcc each, in
-     parallel, into the gitignored ``build/`` directory);
+     parallel, into the gitignored ``build/`` directory), and the registers,
+     spills and shared memory of the tensor-core backward kernels per
+     head-dim class (no spills allowed at d = 64);
   2. kernel checks: each kernel against its plain PyTorch version on the
      card, at the main path's shapes (Dd = 1024, the corpus caps, B x C of
      NN-Descent chunks and search rounds) plus edge cases (all-PAD rows,
@@ -45,19 +47,24 @@ Phases (each prints its own lines; any failure exits nonzero):
      remat full, random weights from a seed) with flash attention through
      make_train_step, on TokenPipeline batches of 8 x 2048 tokens, AdamW
      (lr 3e-4, 2 warm-up steps): first the two backward kernels against
-     their plain version at the training shape (bf16, timed beside the
-     plain version and the scaled_dot_product_attention backward; fp32 on 2
-     rows) and at edge shapes; then one warm-up step and 8 timed steps
-     (seconds, tokens/s, loss, grad norm, lr, peak memory, and exactly 32 /
-     16 / 16 forward / dQ / dK-dV launches per step), a first loss near
-     ln(vocab) and a last one below it; then the loss gradients through
-     flash against naive on 2 rows, with three planted faults in the
-     backward that must each fail that check;
+     their plain version at the training shape (bf16, the tensor-core
+     route: timed beside the plain version and the
+     scaled_dot_product_attention backward, whose kernels are named;
+     repeated launches bit-identical; fp32 on 2 rows, timed on the CUDA-core
+     route) and at edge shapes; then one warm-up step, profiled (16
+     launches of each tensor-core backward kernel by symbol, none of the
+     CUDA-core ones), and 8 timed steps (seconds, tokens/s, loss, grad norm,
+     lr, peak memory, and exactly 32 / 16 / 16 forward / dQ / dK-dV
+     launches per step), a first loss near ln(vocab) and a last one below
+     it; then the loss gradients through flash against naive on 2 rows,
+     with three planted faults in the backward that must each fail that
+     check;
   8. the kernels line: launches on each variant's path (phases 4 and 6 plus
      the fp32 pool's serving for the fp32 variants, phase 4 for
      pairwise_tile, the int8 pool's serving for the int8 variants, phases 6
      and 7 for flash_attention_fwd, phase 7 for the backward kernels),
-     errors, times and bounds at the shape the path runs most;
+     errors, times and bounds at the shape the path runs most (the
+     backward kernels with their route by dtype as ``variant``);
   9. the last line: {"ok": true, "device": {...}}.
 
 Imports nothing of JAX. Needs one CUDA card; exits nonzero without one.
@@ -253,10 +260,56 @@ def phase_device():
     from repro_torch.kernels import _build
 
     t = time.perf_counter()
-    _build.library()
-    used = [ln.strip() for ln in _build.build_log().splitlines() if "Used" in ln]
+    lib = _build.library()
+    log = _build.build_log()
+    used = [ln.strip() for ln in log.splitlines() if "Used" in ln]
     say(f"phase 1 build: {time.perf_counter() - t:.1f} s; ptxas: " + " | ".join(used))
+    for r in ptxas_resources(log):
+        if "flash_bwd_tc_" not in r["name"]:
+            continue
+        d = int(r["name"].split("ILi")[1].split("E")[0])  # the head-dim class
+        smem = lib.flash_attention_bwd_smem_bytes(d, d, 1)
+        say(f"phase 1 ptxas {r['kernel']}<{d}>: {r['registers']} registers, spill stores "
+            f"{r['spill_stores']} B, spill loads {r['spill_loads']} B, stack {r['stack']} B; "
+            f"dynamic shared memory at dk = dv = {d}: {smem} B")
+        if d == 64:  # the training shape's class
+            need(r["spill_stores"] == 0 and r["spill_loads"] == 0,
+                 f"{r['kernel']}<64> spills registers")
     return card
+
+
+def ptxas_resources(log: str) -> list[dict]:
+    """Per entry function of an ``nvcc -Xptxas -v`` log: its mangled name,
+    the kernel's plain name, registers, spill bytes and stack frame."""
+    out, cur = [], None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1]
+            kernel = next((w for w in ("flash_bwd_tc_dq_kernel", "flash_bwd_tc_dkv_kernel")
+                           if w in name), name)
+            cur = dict(name=name, kernel=kernel)
+            out.append(cur)
+        elif cur is not None and "spill stores" in ln:
+            nums = [int(w) for w in ln.replace(",", " ").split() if w.isdigit()]
+            cur.update(stack=nums[0], spill_stores=nums[1], spill_loads=nums[2])
+        elif cur is not None and "Used" in ln and "registers" in ln:
+            cur["registers"] = int(ln.split("Used")[1].split()[0])
+    return [r for r in out if "registers" in r and "spill_stores" in r]
+
+
+def cuda_kernels(prof) -> dict:
+    """{kernel name: (launches, device ms)} over a ``torch.profiler`` run."""
+    import torch
+
+    out = {}
+    for evt in prof.key_averages():
+        t = getattr(evt, "self_device_time_total", None)
+        if t is None:
+            t = evt.self_cuda_time_total
+        if evt.device_type == torch.autograd.DeviceType.CUDA and evt.count > 0:
+            n, ms = out.get(evt.key, (0, 0.0))
+            out[evt.key] = (n + evt.count, ms + t / 1e3)
+    return out
 
 
 def random_ids(n: int, b: int, c: int, pad_frac: float, gen):
@@ -1076,10 +1129,13 @@ def bwd_work(q, k, v, causal: bool, kernel: str) -> tuple[float, float, float]:
 
 def phase_flash_bwd(cfg, results: dict):
     """The two backward kernels against the plain version on the card: at
-    the training shape (bf16, timed beside the plain version and the SDPA
-    backward; fp32 on 2 rows) and at edge shapes in fp32 and bf16."""
+    the training shape (bf16 through the tensor-core kernels, timed beside
+    the plain version, the SDPA backward and the fp32 CUDA-core route on 2
+    rows; repeated launches bit-identical; fp32 on 2 rows) and at edge shapes
+    in fp32 and bf16."""
     import torch
     import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels.flash_attention import (
         _delta,
@@ -1145,6 +1201,9 @@ def phase_flash_bwd(cfg, results: dict):
         ("non-causal L=100 S=300 g=1", (2, 4, 4, 100, 300, 64, 64), False),
         ("g=1 L=S=200", (2, 4, 4, 200, 200, 64, 64), True),
         ("dk=192 dv=128 L=S=130", (2, 4, 1, 130, 130, 192, 128), True),
+        # bf16 rows of 40 bytes: 8-byte copies, columns padded to 32
+        ("dk=dv=20 L=S=70", (2, 4, 2, 70, 70, 20, 20), True),
+        ("dk=dv=128 L=S=130", (2, 4, 2, 130, 130, 128, 128), True),
     ]
     for label, shape, causal in edges:
         for dtype in (torch.float32, torch.bfloat16):
@@ -1157,6 +1216,15 @@ def phase_flash_bwd(cfg, results: dict):
     say_check(f"train B={b} (2 rows checked)", torch.bfloat16, worst)
     out, lse = flash_attention_fwd(q, k, v, True)
     delta = _delta(out, do)
+    # no atomics: a second launch gives the same bits
+    first = (flash_attention_bwd_dq(q, k, v, do, lse, delta, True),
+             *flash_attention_bwd_dkv(q, k, v, do, lse, delta, True))
+    again = (flash_attention_bwd_dq(q, k, v, do, lse, delta, True),
+             *flash_attention_bwd_dkv(q, k, v, do, lse, delta, True))
+    same = [bool(torch.equal(a, b_)) for a, b_ in zip(first, again)]
+    need(all(same), f"flash bwd: repeated bf16 launches differ (dq, dk, dv equal: {same})")
+    say("phase 7 flash bwd train bf16: two launches give bit-identical dq, dk and dv")
+    del first, again
     times = {"flash_attention_bwd_dq": time_ms(
         lambda: flash_attention_bwd_dq(q, k, v, do, lse, delta, True), 5),
         "flash_attention_bwd_dkv": time_ms(
@@ -1170,6 +1238,12 @@ def phase_flash_bwd(cfg, results: dict):
     need(all(bool(torch.isfinite(g).all()) for g in lib_grads), "SDPA backward: non-finite")
     library_ms = time_ms(lambda: torch.autograd.grad(lib_out, (qs, ks, vs), do,
                                                      retain_graph=True), 5)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.autograd.grad(lib_out, (qs, ks, vs), do, retain_graph=True)
+        torch.cuda.synchronize()
+    sdpa_kernels = sorted(cuda_kernels(prof).items(), key=lambda kv_: -kv_[1][1])
+    say("phase 7 sdpa backward kernels (name: launches, ms): " + "; ".join(
+        f"{n[:120]}: {c}, {ms:.4f}" for n, (c, ms) in sdpa_kernels))
     shape = f"train B={b} H={h} KV={kv} L=S={l} d={d} causal bf16"
     for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
         nbytes, flops, rate = bwd_work(q, k, v, True, name.removeprefix("flash_attention_bwd_"))
@@ -1178,14 +1252,29 @@ def phase_flash_bwd(cfg, results: dict):
             shape=shape, ms=times[name], plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
             library_ms=library_ms))
         say(f"phase 7 {name} {shape}: ms {times[name]:.4f} bound_ms {b_ms:.4f} ({b_by}: "
-            f"{nbytes / 1e9:.3f} GB, {flops / 1e9:.1f} GFLOP) plain_ms (dQ, dK and dV in 2-row "
-            f"calls) {plain_ms:.4f} sdpa_bwd_ms (dQ, dK and dV) {library_ms:.4f}")
+            f"{nbytes / 1e9:.3f} GB, {flops / 1e9:.1f} GFLOP; {flops / times[name] / 1e9:.1f} "
+            f"TFLOP/s) plain_ms (dQ, dK and dV in 2-row calls) {plain_ms:.4f} sdpa_bwd_ms "
+            f"(dQ, dK and dV) {library_ms:.4f}")
+    say(f"phase 7 flash bwd train bf16 pair: {sum(times.values()):.4f} ms (dQ + dK/dV) against "
+        f"sdpa_bwd_ms {library_ms:.4f}")
     del q, k, v, do, out, lse, delta, qs, ks, vs, lib_out, lib_grads
     torch.cuda.empty_cache()
     # the same shape in fp32 on 2 rows, where 2e-4 leaves a wrong tile loop,
-    # causal skip, stride or head sum no room
-    say_check("train B=2 fp32", torch.float32,
-              check("train fp32", *inputs(2, h, kv, l, l, d, d, torch.float32), True))
+    # causal skip, stride or head sum no room; then the fp32 (CUDA-core)
+    # route's time there
+    q, k, v, do = inputs(2, h, kv, l, l, d, d, torch.float32)
+    say_check("train B=2 fp32", torch.float32, check("train fp32", q, k, v, do, True))
+    out, lse = flash_attention_fwd(q, k, v, True)
+    delta = _delta(out, do)
+    for name, fn in (("flash_attention_bwd_dq", flash_attention_bwd_dq),
+                     ("flash_attention_bwd_dkv", flash_attention_bwd_dkv)):
+        nbytes, flops, rate = bwd_work(q, k, v, True, name.removeprefix("flash_attention_bwd_"))
+        b_ms, b_by = bound(nbytes, flops, rate)
+        ms = time_ms(lambda: fn(q, k, v, do, lse, delta, True), 3)
+        say(f"phase 7 {name} train B=2 H={h} KV={kv} L=S={l} d={d} causal fp32 (CUDA-core "
+            f"route): ms {ms:.4f} bound_ms {b_ms:.4f} ({b_by}; {flops / ms / 1e9:.1f} TFLOP/s); "
+            f"bf16 tensor-core route at B={b} {times[name]:.4f} ms, sdpa_bwd_ms {library_ms:.4f}")
+    del q, k, v, do, out, lse, delta
     torch.cuda.empty_cache()
 
 
@@ -1292,7 +1381,10 @@ def phase_train(cfg, results: dict):
     import dataclasses
     import math
 
+    from contextlib import nullcontext
+
     import torch
+    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.data.pipeline import DataConfig, TokenPipeline
     from repro_torch.kernels import flash_attention as fa
@@ -1323,10 +1415,15 @@ def phase_train(cfg, results: dict):
     rows, seen = [], {k: 0 for k in wrappers}
     for s, batch in enumerate(batches):
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, metrics = step_fn(state, batch)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
+        # the warm-up step runs under the profiler: which kernels a step runs
+        prof = profile(activities=[ProfilerActivity.CUDA]) if s == 0 else nullcontext()
+        with prof:
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, batch)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        if s == 0:
+            step_kernels = cuda_kernels(prof)
         counts = {k: w.launches - seen[k] for k, w in wrappers.items()}
         seen = {k: w.launches for k, w in wrappers.items()}
         row = dict(step=s, seconds=dt, tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / dt,
@@ -1352,6 +1449,14 @@ def phase_train(cfg, results: dict):
     need(abs(first - math.log(cfg.vocab)) <= 0.5,
          f"first loss {first:.4f} is not within 0.5 of ln({cfg.vocab}) = {math.log(cfg.vocab):.4f}")
     need(last < first, f"the loss did not go down: {first:.4f} -> {last:.4f}")
+    # by symbol: bf16 steps launch the tensor-core kernels, never the CUDA-core ones
+    by_symbol = {sym: sum(c for n, (c, _) in step_kernels.items() if sym in n)
+                 for sym in ("flash_bwd_tc_dq_kernel", "flash_bwd_tc_dkv_kernel",
+                             "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")}
+    say(f"phase 7 profiled warm-up step: kernel launches by symbol {json.dumps(by_symbol)}")
+    want_sym = {"flash_bwd_tc_dq_kernel": cfg.n_layers, "flash_bwd_tc_dkv_kernel": cfg.n_layers,
+                "flash_bwd_dq_kernel": 0, "flash_bwd_dkv_kernel": 0}
+    need(by_symbol == want_sym, f"profiled step: launches by symbol {by_symbol} != {want_sym}")
     say(f"phase 7 checks: losses and grad norms finite; first loss {first:.4f} (ln V = "
         f"{math.log(cfg.vocab):.4f}), last {last:.4f}; every step launched "
         f"{json.dumps(rows[-1]['launches'])}")
@@ -1442,11 +1547,14 @@ def main() -> int:
                           "src/repro/kernels/pairwise_tile.py:77", "prune_chunk"),
         "flash_attention_fwd": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                                 "src/repro/kernels/flash_attention.py:107", "rag_prefill"),
-        "flash_attention_bwd_dq": ("src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "flash_attention_bwd_dq": ("src/repro_torch/kernels/csrc/flash_attention_bwd_tc.cu",
                                    "src/repro/kernels/flash_attention.py:261", "train"),
-        "flash_attention_bwd_dkv": ("src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "flash_attention_bwd_dkv": ("src/repro_torch/kernels/csrc/flash_attention_bwd_tc.cu",
                                     "src/repro/kernels/flash_attention.py:294", "train"),
     }
+    # the backward's route by dtype; its numbers are the bf16 (main-path) route's
+    bwd_variant = ("bf16: tensor cores, mma.sync with P and dS split hi/lo "
+                   "(flash_attention_bwd_tc.cu); fp32: CUDA cores (flash_attention_bwd.cu)")
     kernels = []
     for name, (path, replaces, headline) in src.items():
         r = results[name]
@@ -1456,6 +1564,8 @@ def main() -> int:
             launches=r["launches"], max_abs_err=r["max_abs_err"], ms=chk["ms"],
             plain_ms=chk["plain_ms"], bound_ms=chk["bound_ms"], bound_by=chk["bound_by"],
             library_ms=chk.get("library_ms"), shape=chk["shape"]))
+        if name.startswith("flash_attention_bwd"):
+            kernels[-1]["variant"] = bwd_variant
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)  # name, power limit: as nvidia-smi prints them
     print(json.dumps({"ok": True, "device": {

@@ -17,22 +17,46 @@
 // Layout: as the forward's: q (B, H, L, dk), k (B, KV, S, dk), v (B, KV, S,
 // dv), dout (B, H, L, dv) and the gradients given by element strides (the
 // last dimension contiguous); lse and delta (B, H, L) float32, contiguous.
-// Query head h reads kv head h / (H / KV). Inputs and outputs are float32 or
-// bfloat16; every sum is float32 and each output is rounded once.
+// Query head h reads kv head h / (H / KV). Inputs, outputs and every sum
+// of this file's kernels are float32.
+//
+// Route by dtype, fixed at the C entry points below (not a fallback):
+// bfloat16 launches the tensor-core kernels of flash_attention_bwd_tc.cu
+// (mma.sync, P and dS split hi/lo); float32 launches the CUDA-core kernels
+// of this file, which serve the fp32 gates (rounding fp32 operands to TF32
+// or bf16 would break them). The kernels here are instantiated for float
+// only.
 //
 // Bound on the H100: operations. At the training shape (B 8, H 32, KV 8,
-// L = S = 2048, d 64, causal, bf16) dQ is ~2.1e11 flop over ~0.3 GB and
-// dK/dV ~2.7e11 flop, both far above the bf16 ridge. Design (simple first;
-// no tensor cores, TMA or mma.sync yet): 256 threads per block, 64-row tiles
+// L = S = 2048, d 64, causal) dQ is ~2.1e11 flop and dK/dV ~2.7e11 flop,
+// far above the fp32 ridge. Design (simple first; CUDA cores in fp32, no
+// TMA or mma.sync): 256 threads per block, 64-row tiles
 // staged in shared memory as float (rows padded to a float4 multiple); each
 // thread owns a 4 x 4 patch of the (64, 64) score tile and 4 rows x 4
 // columns per 64 of the accumulated gradient. No atomics: every block owns
 // its output rows, so a step is deterministic run to run.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
+
+// The bfloat16 route (flash_attention_bwd_tc.cu).
+size_t flash_bwd_tc_smem_bytes(int dk, int dv);
+int flash_bwd_tc_dq(const void* q, const void* k, const void* v, const void* dout,
+                    const float* lse, const float* delta, void* dq, int B, int H, int KV, int L,
+                    int S, int dk, int dv, long long q_sb, long long q_sh, long long q_sl,
+                    long long k_sb, long long k_sh, long long k_sl, long long v_sb,
+                    long long v_sh, long long v_sl, long long do_sb, long long do_sh,
+                    long long do_sl, long long dq_sb, long long dq_sh, long long dq_sl,
+                    int causal, float scale, int vec, void* stream);
+int flash_bwd_tc_dkv(const void* q, const void* k, const void* v, const void* dout,
+                     const float* lse, const float* delta, void* dk, void* dv, int B, int H,
+                     int KV, int L, int S, int dk_, int dv_, long long q_sb, long long q_sh,
+                     long long q_sl, long long k_sb, long long k_sh, long long k_sl,
+                     long long v_sb, long long v_sh, long long v_sl, long long do_sb,
+                     long long do_sh, long long do_sl, long long dk_sb, long long dk_sh,
+                     long long dk_sl, long long dv_sb, long long dv_sh, long long dv_sl,
+                     int causal, float scale, int vec, void* stream);
 
 namespace {
 
@@ -52,16 +76,11 @@ struct BwdParams {
 };
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
 template <>
 __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>  // round to nearest even, as torch's .to(torch.bfloat16)
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 inline __host__ __device__ size_t dq_smem_floats(int dk, int dv) {
   return size_t(kBQ) * (dk + kPad) + size_t(kBQ) * (dv + kPad) + size_t(kBK) * (dk + kPad) +
@@ -372,30 +391,39 @@ bool valid_shape(int H, int KV, int dk, int dv) {
 
 }  // namespace
 
-// The larger of the two kernels' dynamic shared memory, in bytes.
-extern "C" size_t flash_attention_bwd_smem_bytes(int dk, int dv) {
+// The larger of the two kernels' dynamic shared memory, in bytes, on the
+// route `dtype` takes (0 float32, 1 bfloat16).
+extern "C" size_t flash_attention_bwd_smem_bytes(int dk, int dv, int dtype) {
+  if (dtype == 1) return flash_bwd_tc_smem_bytes(dk, dv);
   const size_t a = dq_smem_floats(dk, dv), b = dkv_smem_floats(dk, dv);
   return (a > b ? a : b) * sizeof(float);
 }
 
-// dtype: 0 float32, 1 bfloat16. dk and dv are multiples of 4, at most kMaxD;
-// H is a multiple of KV. Strides are in elements; lse and delta contiguous.
+// dtype: 0 float32 (this file's kernels), 1 bfloat16 (the tensor-core
+// kernels). dk and dv are multiples of 4, at most kMaxD; H is a multiple of
+// KV. Strides are in elements; lse and delta contiguous. vec: the bytes per
+// row copy the bf16 kernels may use (16, 8 or 4; the wrapper reads it from
+// the pointers and strides).
 extern "C" int flash_attention_bwd_dq_launch(
     const void* q, const void* k, const void* v, const void* dout, const float* lse,
     const float* delta, void* dq, int B, int H, int KV, int L, int S, int dk, int dv,
     long long q_sb, long long q_sh, long long q_sl, long long k_sb, long long k_sh,
     long long k_sl, long long v_sb, long long v_sh, long long v_sl, long long do_sb,
     long long do_sh, long long do_sl, long long dq_sb, long long dq_sh, long long dq_sl,
-    int causal, float scale, int dtype, int device, void* stream) {
+    int causal, float scale, int dtype, int vec, int device, void* stream) {
   // the caller's device: this library's runtime keeps its own current device
   if (cudaError_t e = cudaSetDevice(device); e != cudaSuccess) return int(e);
   if (!valid_shape(H, KV, dk, dv)) return int(cudaErrorInvalidValue);
+  if (dtype == 1) {
+    return flash_bwd_tc_dq(q, k, v, dout, lse, delta, dq, B, H, KV, L, S, dk, dv, q_sb, q_sh,
+                           q_sl, k_sb, k_sh, k_sl, v_sb, v_sh, v_sl, do_sb, do_sh, do_sl, dq_sb,
+                           dq_sh, dq_sl, causal, scale, vec, stream);
+  }
+  if (dtype != 0) return int(cudaErrorInvalidValue);
   const BwdParams p{B, H, KV, L, S, dk, dv, q_sb, q_sh, q_sl, k_sb, k_sh, k_sl,
                     v_sb, v_sh, v_sl, do_sb, do_sh, do_sl, dq_sb, dq_sh, dq_sl,
                     0, 0, 0, causal, scale};
-  if (dtype == 1) return dispatch_dq<__nv_bfloat16>(q, k, v, dout, lse, delta, dq, p, stream);
-  if (dtype == 0) return dispatch_dq<float>(q, k, v, dout, lse, delta, dq, p, stream);
-  return int(cudaErrorInvalidValue);
+  return dispatch_dq<float>(q, k, v, dout, lse, delta, dq, p, stream);
 }
 
 extern "C" int flash_attention_bwd_dkv_launch(
@@ -405,15 +433,17 @@ extern "C" int flash_attention_bwd_dkv_launch(
     long long k_sl, long long v_sb, long long v_sh, long long v_sl, long long do_sb,
     long long do_sh, long long do_sl, long long dk_sb, long long dk_sh, long long dk_sl,
     long long dv_sb, long long dv_sh, long long dv_sl, int causal, float scale, int dtype,
-    int device, void* stream) {
+    int vec, int device, void* stream) {
   if (cudaError_t e = cudaSetDevice(device); e != cudaSuccess) return int(e);
   if (!valid_shape(H, KV, dk_, dv_)) return int(cudaErrorInvalidValue);
+  if (dtype == 1) {
+    return flash_bwd_tc_dkv(q, k, v, dout, lse, delta, dk, dv, B, H, KV, L, S, dk_, dv_, q_sb,
+                            q_sh, q_sl, k_sb, k_sh, k_sl, v_sb, v_sh, v_sl, do_sb, do_sh, do_sl,
+                            dk_sb, dk_sh, dk_sl, dv_sb, dv_sh, dv_sl, causal, scale, vec, stream);
+  }
+  if (dtype != 0) return int(cudaErrorInvalidValue);
   const BwdParams p{B, H, KV, L, S, dk_, dv_, q_sb, q_sh, q_sl, k_sb, k_sh, k_sl,
                     v_sb, v_sh, v_sl, do_sb, do_sh, do_sl, dk_sb, dk_sh, dk_sl,
                     dv_sb, dv_sh, dv_sl, causal, scale};
-  if (dtype == 1) {
-    return dispatch_dkv<__nv_bfloat16>(q, k, v, dout, lse, delta, dk, dv, p, stream);
-  }
-  if (dtype == 0) return dispatch_dkv<float>(q, k, v, dout, lse, delta, dk, dv, p, stream);
-  return int(cudaErrorInvalidValue);
+  return dispatch_dkv<float>(q, k, v, dout, lse, delta, dk, dv, p, stream);
 }

@@ -3,7 +3,11 @@
 Replaces ``repro/kernels/flash_attention.py``: the forward (``_flash_fwd``,
 body ``_fwd_kernel``) and the backward (``_flash_bwd``, bodies
 ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``). The CUDA kernels are
-``csrc/flash_attention.cu`` and ``csrc/flash_attention_bwd.cu``. The forward
+``csrc/flash_attention.cu`` and, for the backward, ``csrc/flash_attention_bwd.cu``
+(float32, CUDA cores) and ``csrc/flash_attention_bwd_tc.cu`` (bfloat16,
+tensor cores through ``mma.sync``, P and dS split hi/lo into two bf16
+operands so the products keep fp32-grade P and dS); the C entry points pick
+the route by dtype. The forward
 runs one block per (batch, head, 64 query rows) and streams 64-row K/V tiles
 through shared memory with the online-softmax recurrence in fp32, so the
 (L, S) score matrix never reaches device memory. The backward recomputes P
@@ -184,10 +188,31 @@ def _bwd_library(q, k, v):
     max_d = lib.flash_attention_max_d()
     _need(dk % 4 == 0 and dv % 4 == 0 and dk <= max_d and dv <= max_d,
           f"flash attention takes dk, dv multiples of 4 up to {max_d}, got {dk}, {dv}")
-    _need(lib.flash_attention_bwd_smem_bytes(dk, dv) <= _build.MAX_SMEM_BYTES,
+    _need(lib.flash_attention_bwd_smem_bytes(dk, dv, _DTYPES[q.dtype]) <= _build.MAX_SMEM_BYTES,
           "flash attention backward: head dims exceed shared memory")
     _need(b <= 65535 and h <= 65535, "flash attention: batch or heads exceed the grid")
     return lib
+
+
+def _row_bytes(t: torch.Tensor) -> int:
+    """The widest copy (16, 8, 4, 2 or 1 bytes) that divides the start and
+    the length of every row of ``t`` and the step between them."""
+    width = 16
+    for x in (t.data_ptr(), t.shape[-1] * t.element_size(),
+              *(s * t.element_size() for s in t.stride()[:-1])):
+        while x % width:
+            width //= 2
+    return width
+
+
+def _aligned_rows(q, k, v, dout):
+    """(q, k, v, dout, vec): ``vec`` is the bytes per copy the bf16 kernels
+    use for rows (16, or 8 or 4 where a row start is not 16-byte aligned,
+    e.g. d = 20); a tensor whose rows are not even 4-byte aligned is copied
+    to fresh memory first."""
+    ts = [t if _row_bytes(t) >= 4 else t.clone(memory_format=torch.contiguous_format)
+          for t in (q, k, v, dout)]
+    return (*ts, min(_row_bytes(t) for t in ts))
 
 
 def _bwd_args(q, k, v, dout):
@@ -216,10 +241,12 @@ def flash_attention_bwd_dq(q, k, v, dout, lse, delta, causal: bool = True,
     # held until the launch is enqueued: a freed temporary's memory could be
     # handed to the next allocation before the kernel reads it
     lse, delta = lse.contiguous(), delta.contiguous()
+    q, k, v, dout, vec = _aligned_rows(q, k, v, dout)
     rc = lib.flash_attention_bwd_dq_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dq.data_ptr(), *_bwd_args(q, k, v, dout),
-        *dq.stride()[:3], int(causal), scale, _DTYPES[q.dtype], *_build.device_and_stream(dq))
+        *dq.stride()[:3], int(causal), scale, _DTYPES[q.dtype], vec,
+        *_build.device_and_stream(dq))
     flash_attention_bwd_dq.launches += 1
     _build.check(rc, "flash_attention_bwd_dq")
     return dq
@@ -249,11 +276,12 @@ def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, causal: bool = True,
         return dkk.zero_(), dvv.zero_()
     lib = _bwd_library(q, k, v)
     lse, delta = lse.contiguous(), delta.contiguous()
+    q, k, v, dout, vec = _aligned_rows(q, k, v, dout)
     rc = lib.flash_attention_bwd_dkv_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dkk.data_ptr(), dvv.data_ptr(),
         *_bwd_args(q, k, v, dout), *dkk.stride()[:3], *dvv.stride()[:3], int(causal), scale,
-        _DTYPES[q.dtype], *_build.device_and_stream(dkk))
+        _DTYPES[q.dtype], vec, *_build.device_and_stream(dkk))
     flash_attention_bwd_dkv.launches += 1
     _build.check(rc, "flash_attention_bwd_dkv")
     return dkk, dvv

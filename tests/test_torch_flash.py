@@ -272,3 +272,83 @@ def test_plain_backward_gradcheck(causal):
               for s in ((1, 4, 5, 8), (1, 2, 7, 8), (1, 2, 7, 4))]
     assert torch.autograd.gradcheck(lambda a, b_, c: flash_attention(a, b_, c, causal)[0],
                                     leaves)
+
+
+def _tc_emulation(q, k, v, out, lse, dout, causal: bool, scale: float, split: bool):
+    """The bf16 tensor-core backward's arithmetic in plain PyTorch: bf16
+    operands, fp32 sums; P and dS enter dS K, P^T dO and dS^T Q as bf16
+    operands, either split (hi = bf16(x), lo = bf16(x - hi), two products
+    summed in fp32) or rounded once. Each output is rounded to bf16 once."""
+    b, h, l, _ = q.shape
+    kvh, s = k.shape[1], k.shape[2]
+    g = h // kvh
+    grouped = lambda t: t.float().reshape(b, kvh, g, l, t.shape[-1])
+    qg, dog, kf, vf = grouped(q), grouped(dout), k.float(), v.float()
+    p = torch.exp(torch.einsum("bkgld,bksd->bkgls", qg, kf) * scale
+                  - lse.reshape(b, kvh, g, l, 1))
+    if causal:
+        p = torch.where(torch.arange(l)[:, None] >= torch.arange(s), p, torch.zeros(()))
+    dp = torch.einsum("bkgld,bksd->bkgls", dog, vf)
+    delta = (dout.float() * out.float()).sum(-1).reshape(b, kvh, g, l, 1)
+    ds = p * (dp - delta) * scale
+
+    def operand(x):
+        hi = x.to(torch.bfloat16).float()
+        return (hi, (x - hi).to(torch.bfloat16).float()) if split else (hi,)
+
+    dq = sum(torch.einsum("bkgls,bksd->bkgld", a, kf) for a in operand(ds))
+    dk = sum(torch.einsum("bkgls,bkgld->bksd", a, qg) for a in operand(ds))
+    dv = sum(torch.einsum("bkgls,bkgld->bksd", a, dog) for a in operand(p))
+    return tuple(t.to(torch.bfloat16) for t in (dq.reshape(q.shape), dk, dv))
+
+
+@pytest.mark.parametrize("case", [
+    # (B, H, KV, L, S, dk, dv, causal)
+    (2, 8, 2, 333, 333, 64, 64, True),  # tails, g = 4
+    (2, 4, 2, 130, 130, 48, 32, True),  # dk != dv
+    (1, 4, 4, 100, 300, 32, 32, False),  # non-causal, S > L
+    (1, 4, 1, 1024, 1024, 64, 64, True),  # g = 4 over long causal rows
+])
+def test_tensor_core_numerics_hold_bf16_limit(case):
+    """The bf16 tensor-core kernels' numerics, emulated on the CPU, against
+    the fp32 plain version under chip_smoke.py's bf16 limit |g - w| <= 2e-4
+    + 2^-7 |w| (GRAD_TOL): with P and dS split hi/lo the reading stays at
+    most 1. The same emulation with P and dS rounded once to bf16 is printed
+    beside it, not asserted: it shows what the split buys."""
+    b, h, kv, l, s, dk, dv, causal = case
+    rng = np.random.default_rng(sum(case[:7]))
+    make = lambda *shape: torch.tensor(rng.normal(size=shape).astype(np.float32)).to(
+        torch.bfloat16)
+    q, k, v, dout = make(b, h, l, dk), make(b, kv, s, dk), make(b, kv, s, dv), make(b, h, l, dv)
+    scale = dk**-0.5
+    out, lse = flash_attention_plain(q, k, v, causal, scale)
+    want = flash_attention_bwd_plain(q, k, v, out, lse, dout, causal, scale)
+    readings = {}
+    for split in (True, False):
+        got = _tc_emulation(q, k, v, out, lse, dout, causal, scale, split)
+        readings[split] = {name: float(((g.float() - w.float()).abs()
+                                        / (2e-4 + 2.0**-7 * w.float().abs())).max())
+                           for name, g, w in zip(("dq", "dk", "dv"), got, want)}
+    print(f"{case}: reading of the bf16 limit, P and dS split hi/lo {readings[True]}; "
+          f"rounded once {readings[False]}")
+    assert max(readings[True].values()) <= 1, readings[True]
+
+
+def test_bf16_row_copy_width():
+    """The bytes per row copy the bf16 backward kernels are given: 16 for
+    rows of 64 bf16 in the model's layout, 8 for rows of 20 (40 bytes), 4
+    for a view starting 2 elements into its storage; a tensor whose rows are
+    not 4-byte aligned (odd row stride) is copied to fresh memory first."""
+    from repro_torch.kernels.flash_attention import _aligned_rows, _row_bytes
+
+    bf = torch.bfloat16
+    wide = torch.zeros(2, 70, 8, 64, dtype=bf).transpose(1, 2)
+    narrow = torch.zeros(2, 70, 8, 20, dtype=bf).transpose(1, 2)
+    shifted = torch.zeros(2 * 8 * 70 * 64 + 2, dtype=bf)[2:].view(2, 8, 70, 64)
+    odd = torch.zeros(2, 8, 70, 65, dtype=bf)[..., :64]  # row stride 65 elements
+    assert [_row_bytes(t) for t in (wide, narrow, shifted, odd)] == [16, 8, 4, 2]
+    got = _aligned_rows(wide, wide, wide, shifted)
+    assert got[4] == 4 and all(a is b for a, b in zip(got[:4], (wide, wide, wide, shifted)))
+    got = _aligned_rows(wide, wide, wide, odd)
+    assert got[4] == 16 and got[3] is not odd and torch.equal(got[3], odd)
+    assert got[3].is_contiguous()

@@ -218,12 +218,23 @@ def test_flash_kernel_matches_plain(cuda, case, dtype):
     np.testing.assert_allclose(lse.cpu().numpy(), want_lse.numpy(), rtol=tol, atol=tol)
 
 
-@pytest.mark.parametrize("case", FLASH_CASES + [(2, 8, 8, 96, 96, 64, 64, True)])  # + g = 1
+BWD_CASES = FLASH_CASES + [
+    (2, 8, 8, 96, 96, 64, 64, True),  # g = 1
+    (1, 4, 2, 70, 70, 20, 20, True),  # bf16 rows of 40 bytes: 8-byte copies, padded to 32
+    (1, 4, 2, 70, 70, 16, 16, True),  # one mma depth
+    (1, 4, 2, 130, 130, 128, 128, True),  # the widest head dims one warp holds
+    (2, 4, 2, 64, 64, 64, 64, True),  # exactly one tile
+    (1, 2, 1, 30, 500, 64, 64, False),  # non-causal, S >> L
+]
+
+
+@pytest.mark.parametrize("case", BWD_CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_bwd_kernels_match_plain(cuda, case, dtype):
-    """dQ, dK and dV of the two backward kernels against the plain version
-    on the same (out, lse, dout); q, k, v in the model's (B, L, H, d) memory
-    and dout with strides of its own. fp32 at 2e-4 (the gradient tolerance of
+    """dQ, dK and dV of the two backward kernels (bf16: the tensor-core
+    route; fp32: the CUDA-core route) against the plain version on the same
+    (out, lse, dout); q, k, v in the model's (B, L, H, d) memory and dout
+    with strides of its own. fp32 at 2e-4 (the gradient tolerance of
     tests/test_flash_attention.py:64); bf16 within one bf16 ulp of each
     value (both sides sum in fp32 and round once) plus 2e-4 for the fp32
     cancellation in dP - Delta (exact zeros at L = 1)."""
@@ -258,10 +269,12 @@ def test_flash_bwd_kernels_match_plain(cuda, case, dtype):
         np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=rtol, atol=2e-4, err_msg=name)
 
 
-def test_flash_bwd_wrappers_take_strided_stats(cuda):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_wrappers_take_strided_stats(cuda, dtype):
     """The per-kernel wrappers on views: every other query head (strided q,
     dout, LSE and Delta) against the plain version, so the LSE and Delta
-    copies the wrappers make live until their kernels are enqueued."""
+    copies the wrappers make live until their kernels are enqueued; in
+    both routes, at the tolerances of test_flash_bwd_kernels_match_plain."""
     from repro_torch.kernels.flash_attention import (
         _bwd_plain,
         _delta,
@@ -271,7 +284,8 @@ def test_flash_bwd_wrappers_take_strided_stats(cuda):
     )
 
     rng = np.random.default_rng(5)
-    make = lambda *shape: torch.as_tensor(rng.normal(size=shape).astype(np.float32)).to(cuda)
+    make = lambda *shape: torch.as_tensor(rng.normal(size=shape).astype(np.float32)).to(
+        device=cuda, dtype=dtype)
     q, k, v = (make(2, n, h, 64).transpose(1, 2) for n, h in ((130, 8), (130, 2), (130, 2)))
     dout = make(2, 8, 130, 64)
     out, lse = flash_attention_fwd(q, k, v, True)
@@ -280,6 +294,25 @@ def test_flash_bwd_wrappers_take_strided_stats(cuda):
     want = _bwd_plain(*views, True, 64**-0.5)
     got = (flash_attention_bwd_dq(*views, True),) + flash_attention_bwd_dkv(*views, True)
     torch.cuda.synchronize()
+    rtol = 2e-4 if dtype == torch.float32 else 2.0**-7
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
-        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), rtol=2e-4, atol=2e-4,
-                                   err_msg=name)
+        np.testing.assert_allclose(g.float().cpu().numpy(), w.float().cpu().numpy(), rtol=rtol,
+                                   atol=2e-4, err_msg=name)
+
+
+def test_flash_bwd_bf16_is_deterministic(cuda):
+    """Two launches of the bf16 backward at one shape give bit-identical
+    dQ, dK and dV: every block owns its output rows, no atomics."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd, flash_attention_fwd
+
+    rng = np.random.default_rng(7)
+    make = lambda *shape: torch.as_tensor(rng.normal(size=shape).astype(np.float32)).to(
+        device=cuda, dtype=torch.bfloat16)
+    q, k, v = make(2, 8, 333, 64), make(2, 2, 333, 64), make(2, 2, 333, 64)
+    dout = make(2, 8, 333, 64)
+    out, lse = flash_attention_fwd(q, k, v, True)
+    first = flash_attention_bwd(q, k, v, out, lse, dout, True)
+    again = flash_attention_bwd(q, k, v, out, lse, dout, True)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), first, again):
+        assert torch.equal(a, b), name
