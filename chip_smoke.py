@@ -5,11 +5,11 @@
 
 Phases (each prints its own lines; any failure exits nonzero):
 
-  1. device and build: the card's name and power limit, then the six CUDA
+  1. device and build: the card's name and power limit, then the seven CUDA
      sources built from ``src/repro_torch/kernels/csrc`` (one nvcc each, in
      parallel, into the gitignored ``build/`` directory), and the registers,
-     spills and shared memory of the tensor-core backward kernels per
-     head-dim class (no spills allowed at d = 64);
+     spills and shared memory of the tensor-core flash kernels (the forward
+     and the backward pair) per head-dim class (no spills allowed at d = 64);
   2. kernel checks: each kernel against its plain PyTorch version on the
      card, at the main path's shapes (Dd = 1024, the corpus caps, B x C of
      NN-Descent chunks and search rounds) plus edge cases (all-PAD rows,
@@ -37,34 +37,37 @@ Phases (each prints its own lines; any failure exits nonzero):
      through HybridSearchService over phase 4's 2^20-doc index: 64 requests
      of 4 retrieved docs x 256 context tokens + a 64-token prompt (prefill
      L = 1088), 64 tokens generated greedily. First the flash kernel against
-     its plain version at the RAG shape (bf16, and fp32 on 4 rows) and at
-     edge shapes, with its time, bound and the scaled_dot_product_attention
-     call's time; then the main path (retrieval, prefill and decode times,
-     16 flash launches per prefill), retrieval through the service against
-     direct search, finite prefill logits, and flash prefill against naive
-     prefill on 8 rows, with two planted faults that must fail that check;
+     its plain version at the RAG shape (bf16 through the tensor-core route,
+     two launches bit-identical, and fp32 on 4 rows) and at edge shapes, with
+     its time, bound and the scaled_dot_product_attention call's time; then
+     the main path (retrieval, prefill and decode times, 16 flash launches
+     per prefill), retrieval through the service against direct search,
+     finite prefill logits, and flash prefill against naive prefill on 8
+     rows, with two planted faults that must fail that check;
   7. training at full width: llama3.2-1b (16 layers, d_model 2048, bf16,
      remat full, random weights from a seed) with flash attention through
      make_train_step, on TokenPipeline batches of 8 x 2048 tokens, AdamW
-     (lr 3e-4, 2 warm-up steps): first the two backward kernels against
-     their plain version at the training shape (bf16, the tensor-core
-     route: timed beside the plain version and the
+     (lr 3e-4, 2 warm-up steps): first the forward kernel at the training
+     shape (bf16, checked on 2 rows, timed beside its plain version on 2
+     rows, the scaled_dot_product_attention forward and its bound), then the
+     two backward kernels against their plain version there (bf16, the
+     tensor-core route: timed beside the plain version and the
      scaled_dot_product_attention backward, whose kernels are named;
      repeated launches bit-identical; fp32 on 2 rows, timed on the CUDA-core
-     route) and at edge shapes; then one warm-up step, profiled (16
-     launches of each tensor-core backward kernel by symbol, none of the
-     CUDA-core ones), and 8 timed steps (seconds, tokens/s, loss, grad norm,
-     lr, peak memory, and exactly 32 / 16 / 16 forward / dQ / dK-dV
-     launches per step), a first loss near ln(vocab) and a last one below
-     it; then the loss gradients through flash against naive on 2 rows,
-     with three planted faults in the backward that must each fail that
-     check;
+     route) and at edge shapes; then one warm-up step, profiled (32
+     launches of the tensor-core forward and 16 of each tensor-core backward
+     kernel by symbol, none of the CUDA-core ones), and 8 timed steps
+     (seconds, tokens/s, loss, grad norm, lr, peak memory, and exactly 32 /
+     16 / 16 forward / dQ / dK-dV launches per step), a first loss near
+     ln(vocab) and a last one below it; then the loss gradients through
+     flash against naive on 2 rows, with three planted faults in the
+     backward that must each fail that check;
   8. the kernels line: launches on each variant's path (phases 4 and 6 plus
      the fp32 pool's serving for the fp32 variants, phase 4 for
      pairwise_tile, the int8 pool's serving for the int8 variants, phases 6
      and 7 for flash_attention_fwd, phase 7 for the backward kernels),
-     errors, times and bounds at the shape the path runs most (the
-     backward kernels with their route by dtype as ``variant``);
+     errors, times and bounds at the shape the path runs most (the flash
+     kernels with their route by dtype as ``variant``);
   9. the last line: {"ok": true, "device": {...}}.
 
 Imports nothing of JAX. Needs one CUDA card; exits nonzero without one.
@@ -74,6 +77,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -264,11 +268,20 @@ def phase_device():
     log = _build.build_log()
     used = [ln.strip() for ln in log.splitlines() if "Used" in ln]
     say(f"phase 1 build: {time.perf_counter() - t:.1f} s; ptxas: " + " | ".join(used))
+    # ptxas's performance advisories (C75xx: serialised wgmma, setmaxnreg
+    # ignored, ...) per tensor-core kernel and head-dim class
+    kernel_class = re.compile(r"(flash_(?:fwd|bwd)_tc_\w*?kernel)ILi(\d+)E")
+    advisories = sorted({f"{ln.split('(')[1].split(')')[0]} {m[1]}<{m[2]}>"
+                         for ln in log.splitlines() if "(C75" in ln
+                         for m in [kernel_class.search(ln)] if m})
+    say("phase 1 ptxas advisories: " + (", ".join(advisories) or "none"))
     for r in ptxas_resources(log):
-        if "flash_bwd_tc_" not in r["name"]:
+        if "flash_bwd_tc_" not in r["name"] and "flash_fwd_tc_" not in r["name"]:
             continue
         d = int(r["name"].split("ILi")[1].split("E")[0])  # the head-dim class
-        smem = lib.flash_attention_bwd_smem_bytes(d, d, 1)
+        smem_bytes = (lib.flash_attention_smem_bytes if r["kernel"] == "flash_fwd_tc_kernel"
+                      else lib.flash_attention_bwd_smem_bytes)
+        smem = smem_bytes(d, d, 1)
         say(f"phase 1 ptxas {r['kernel']}<{d}>: {r['registers']} registers, spill stores "
             f"{r['spill_stores']} B, spill loads {r['spill_loads']} B, stack {r['stack']} B; "
             f"dynamic shared memory at dk = dv = {d}: {smem} B")
@@ -285,8 +298,8 @@ def ptxas_resources(log: str) -> list[dict]:
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
             name = ln.split("'")[1]
-            kernel = next((w for w in ("flash_bwd_tc_dq_kernel", "flash_bwd_tc_dkv_kernel")
-                           if w in name), name)
+            kernel = next((w for w in ("flash_fwd_tc_kernel", "flash_bwd_tc_dq_kernel",
+                                       "flash_bwd_tc_dkv_kernel") if w in name), name)
             cur = dict(name=name, kernel=kernel)
             out.append(cur)
         elif cur is not None and "spill stores" in ln:
@@ -895,41 +908,47 @@ def flash_work(q, k, v, causal: bool) -> tuple[float, float, float]:
     return nbytes, flops, BF16_FLOP_PER_S if q.dtype == torch.bfloat16 else FP32_FLOP_PER_S
 
 
+def check_flash_fwd(results: dict, label: str, q, k, v, causal: bool, rows=None) -> float:
+    """The forward kernel vs its plain version on ``rows`` batch rows (all by
+    default), out and LSE within FLASH_TOL; returns the max |error|."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import flash_attention_fwd, flash_attention_plain
+
+    tol = FLASH_TOL[str(q.dtype).removeprefix("torch.")]
+    out, lse = flash_attention_fwd(q, k, v, causal)
+    sl = slice(None) if rows is None else slice(0, rows)
+    want_out, want_lse = flash_attention_plain(q[sl], k[sl], v[sl], causal, q.shape[-1] ** -0.5)
+    torch.cuda.synchronize()
+    err = 0.0
+    for got, want in ((out[sl].float(), want_out.float()), (lse[sl], want_lse)):
+        need(bool(torch.isfinite(got).all()), f"flash {label}: non-finite output")
+        diff = (got - want).abs()
+        need(bool((diff <= tol + tol * want.abs()).all()),
+             f"flash {label}: error {float(diff.max()):.3g} beyond {tol} + {tol}|x|")
+        err = max(err, float(diff.max()))
+    r = results.setdefault("flash_attention_fwd", {"max_abs_err": 0.0, "checks": []})
+    r["max_abs_err"] = max(r["max_abs_err"], err)
+    return err
+
+
 def phase_flash(cfg, results: dict):
     """The flash kernel against its plain version on the card: at the RAG
-    prefill shape (bf16, timed beside the plain version and SDPA; fp32 on 4
-    rows) and at edge shapes in fp32 and bf16."""
+    prefill shape (bf16, the tensor-core route: timed beside the plain
+    version and SDPA, two launches bit-identical; fp32 on 4 rows) and at edge
+    shapes in fp32 and bf16."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import flash_attention_fwd, flash_attention_plain
 
     gen = torch.Generator(device="cuda").manual_seed(13)
-    results.setdefault("flash_attention_fwd", {"max_abs_err": 0.0, "checks": []})
 
     def qkv(b, h, kv, l, s, dk, dv, dtype):
         """Random q, k, v in the model's (B, L, H, d) memory, (B, H, L, d) views."""
         mk = lambda n, heads, d: torch.randn((b, n, heads, d), generator=gen, device="cuda",
                                              dtype=torch.float32).to(dtype).transpose(1, 2)
         return mk(l, h, dk), mk(s, kv, dk), mk(s, kv, dv)
-
-    def check(label, q, k, v, causal, rows=None):
-        """Kernel vs plain on ``rows`` batch rows (all by default)."""
-        tol = FLASH_TOL[str(q.dtype).removeprefix("torch.")]
-        out, lse = flash_attention_fwd(q, k, v, causal)
-        sl = slice(None) if rows is None else slice(0, rows)
-        want_out, want_lse = flash_attention_plain(q[sl], k[sl], v[sl], causal, q.shape[-1] ** -0.5)
-        torch.cuda.synchronize()
-        err = 0.0
-        for got, want in ((out[sl].float(), want_out.float()), (lse[sl], want_lse)):
-            need(bool(torch.isfinite(got).all()), f"flash {label}: non-finite output")
-            diff = (got - want).abs()
-            need(bool((diff <= tol + tol * want.abs()).all()),
-                 f"flash {label}: error {float(diff.max()):.3g} beyond {tol} + {tol}|x|")
-            err = max(err, float(diff.max()))
-        results["flash_attention_fwd"]["max_abs_err"] = max(
-            results["flash_attention_fwd"]["max_abs_err"], err)
-        return err
 
     edges = [
         # label, (B, H, KV, L, S, dk, dv), causal
@@ -938,10 +957,16 @@ def phase_flash(cfg, results: dict):
         ("dk=48 dv=32", (2, 4, 2, 130, 130, 48, 32), True),
         ("non-causal L=100 S=300 g=1", (2, 4, 4, 100, 300, 64, 64), False),
         ("top-left causal L=96 S=160", (2, 8, 2, 96, 160, 64, 64), True),
+        # the tensor-core route's head-dim classes 128 and 256, MLA's dims,
+        # and rows of 40 bytes (TMA takes the wrapper's padded copy)
+        ("dk=dv=128 L=S=200", (1, 4, 2, 200, 200, 128, 128), True),
+        ("dk=dv=256 L=S=150", (1, 2, 1, 150, 150, 256, 256), True),
+        ("dk=192 dv=128 L=S=130", (2, 4, 1, 130, 130, 192, 128), True),
+        ("dk=dv=20 L=S=70", (2, 4, 2, 70, 70, 20, 20), True),
     ]
     for label, shape, causal in edges:
         for dtype in (torch.float32, torch.bfloat16):
-            err = check(label, *qkv(*shape, dtype), causal)
+            err = check_flash_fwd(results, label, *qkv(*shape, dtype), causal)
             say(f"phase 6 flash {label} {str(dtype)[6:]}: max_abs_err {err:.3g} "
                 f"(tol {FLASH_TOL[str(dtype)[6:]]})")
 
@@ -949,7 +974,13 @@ def phase_flash(cfg, results: dict):
     b, h, kv, d = RAG_REQUESTS, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     l = RAG_TOP_K * RAG_CTX + RAG_PROMPT
     q, k, v = qkv(b, h, kv, l, l, d, d, torch.bfloat16)
-    err = check("rag", q, k, v, True, rows=8)
+    err = check_flash_fwd(results, "rag", q, k, v, True, rows=8)
+    # no atomics: a second launch gives the same bits
+    first, again = flash_attention_fwd(q, k, v, True), flash_attention_fwd(q, k, v, True)
+    same = [bool(torch.equal(a, b_)) for a, b_ in zip(first, again)]
+    need(all(same), f"flash: repeated bf16 launches differ (out, lse equal: {same})")
+    say("phase 6 flash rag bf16: two launches give bit-identical out and lse")
+    del first, again
     ms = time_ms(lambda: flash_attention_fwd(q, k, v, True), 10)
     plain_ms = time_ms(lambda: [flash_attention_plain(q[i:i + 8], k[i:i + 8], v[i:i + 8], True,
                                                       d**-0.5) for i in range(0, b, 8)], 2, warm=1)
@@ -969,7 +1000,7 @@ def phase_flash(cfg, results: dict):
     del q, k, v, lib_out
     # the same shape in fp32 on 4 rows, where 1e-5 leaves a wrong tile loop,
     # causal skip or stride no room
-    err = check("rag fp32", *qkv(4, h, kv, l, l, d, d, torch.float32), True)
+    err = check_flash_fwd(results, "rag fp32", *qkv(4, h, kv, l, l, d, d, torch.float32), True)
     say(f"phase 6 flash rag B=4 H={h} KV={kv} L=S={l} d={d} causal float32: max_abs_err "
         f"{err:.3g} (tol {FLASH_TOL['float32']})")
     torch.cuda.empty_cache()
@@ -1143,6 +1174,7 @@ def phase_flash_bwd(cfg, results: dict):
         flash_attention_bwd_dq,
         flash_attention_bwd_plain,
         flash_attention_fwd,
+        flash_attention_plain,
     )
 
     gen = torch.Generator(device="cuda").manual_seed(14)
@@ -1212,6 +1244,24 @@ def phase_flash_bwd(cfg, results: dict):
     # the training shape: every layer of a training step launches both kernels
     b, h, kv, d, l = TRAIN_BATCH, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, TRAIN_SEQ
     q, k, v, do = inputs(b, h, kv, l, l, d, d, torch.bfloat16)
+    # first the forward there: every layer of a step runs it twice (remat)
+    err = check_flash_fwd(results, "train", q, k, v, True, rows=2)
+    fwd_ms = time_ms(lambda: flash_attention_fwd(q, k, v, True), 10)
+    fwd_plain_ms = time_ms(lambda: [flash_attention_plain(
+        q[i:i + 2], k[i:i + 2], v[i:i + 2], True, d**-0.5) for i in range(0, b, 2)], 2, warm=1)
+    sdpa_fwd = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+    need(bool(torch.isfinite(sdpa_fwd()).all()), "SDPA: non-finite output")
+    sdpa_fwd_ms = time_ms(sdpa_fwd, 10)
+    nbytes, flops, rate = flash_work(q, k, v, True)
+    b_ms, b_by = bound(nbytes, flops, rate)
+    shape = f"train B={b} H={h} KV={kv} L=S={l} d={d} causal bf16"
+    results["flash_attention_fwd"]["checks"].append(dict(
+        shape=shape, ms=fwd_ms, plain_ms=fwd_plain_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=sdpa_fwd_ms))
+    say(f"phase 7 flash_attention_fwd {shape}: max_abs_err (2 rows) {err:.3g} ms {fwd_ms:.4f} "
+        f"plain_ms (2-row calls) {fwd_plain_ms:.4f} bound_ms {b_ms:.4f} ({b_by}: "
+        f"{nbytes / 1e9:.3f} GB, {flops / 1e9:.1f} GFLOP; {flops / fwd_ms / 1e9:.1f} TFLOP/s) "
+        f"sdpa_ms {sdpa_fwd_ms:.4f}")
     worst = check("train", q, k, v, do, True, rows=2)
     say_check(f"train B={b} (2 rows checked)", torch.bfloat16, worst)
     out, lse = flash_attention_fwd(q, k, v, True)
@@ -1450,12 +1500,12 @@ def phase_train(cfg, results: dict):
          f"first loss {first:.4f} is not within 0.5 of ln({cfg.vocab}) = {math.log(cfg.vocab):.4f}")
     need(last < first, f"the loss did not go down: {first:.4f} -> {last:.4f}")
     # by symbol: bf16 steps launch the tensor-core kernels, never the CUDA-core ones
-    by_symbol = {sym: sum(c for n, (c, _) in step_kernels.items() if sym in n)
-                 for sym in ("flash_bwd_tc_dq_kernel", "flash_bwd_tc_dkv_kernel",
-                             "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")}
-    say(f"phase 7 profiled warm-up step: kernel launches by symbol {json.dumps(by_symbol)}")
-    want_sym = {"flash_bwd_tc_dq_kernel": cfg.n_layers, "flash_bwd_tc_dkv_kernel": cfg.n_layers,
+    want_sym = {"flash_fwd_tc_kernel": 2 * cfg.n_layers, "flash_bwd_tc_dq_kernel": cfg.n_layers,
+                "flash_bwd_tc_dkv_kernel": cfg.n_layers, "flash_fwd_kernel": 0,
                 "flash_bwd_dq_kernel": 0, "flash_bwd_dkv_kernel": 0}
+    by_symbol = {sym: sum(c for n, (c, _) in step_kernels.items() if sym in n)
+                 for sym in want_sym}
+    say(f"phase 7 profiled warm-up step: kernel launches by symbol {json.dumps(by_symbol)}")
     need(by_symbol == want_sym, f"profiled step: launches by symbol {by_symbol} != {want_sym}")
     say(f"phase 7 checks: losses and grad norms finite; first loss {first:.4f} (ln V = "
         f"{math.log(cfg.vocab):.4f}), last {last:.4f}; every step launched "
@@ -1545,16 +1595,21 @@ def main() -> int:
                             "src/repro/kernels/fused_topk.py:124", "serve_round"),
         "pairwise_tile": ("src/repro_torch/kernels/csrc/pairwise_tile.cu",
                           "src/repro/kernels/pairwise_tile.py:77", "prune_chunk"),
-        "flash_attention_fwd": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+        "flash_attention_fwd": ("src/repro_torch/kernels/csrc/flash_attention_tc.cu",
                                 "src/repro/kernels/flash_attention.py:107", "rag_prefill"),
         "flash_attention_bwd_dq": ("src/repro_torch/kernels/csrc/flash_attention_bwd_tc.cu",
                                    "src/repro/kernels/flash_attention.py:261", "train"),
         "flash_attention_bwd_dkv": ("src/repro_torch/kernels/csrc/flash_attention_bwd_tc.cu",
                                     "src/repro/kernels/flash_attention.py:294", "train"),
     }
-    # the backward's route by dtype; its numbers are the bf16 (main-path) route's
-    bwd_variant = ("bf16: tensor cores, mma.sync with P and dS split hi/lo "
-                   "(flash_attention_bwd_tc.cu); fp32: CUDA cores (flash_attention_bwd.cu)")
+    # the flash kernels' route by dtype; their numbers are the bf16 (main-path) route's
+    variants = {
+        "flash_attention_fwd": "bf16: tensor cores, wgmma fed by TMA with P split hi/lo "
+                               "(flash_attention_tc.cu); fp32: CUDA cores (flash_attention.cu)",
+        "flash_attention_bwd_dq": "bf16: tensor cores, mma.sync with P and dS split hi/lo "
+                                  "(flash_attention_bwd_tc.cu); fp32: CUDA cores "
+                                  "(flash_attention_bwd.cu)"}
+    variants["flash_attention_bwd_dkv"] = variants["flash_attention_bwd_dq"]
     kernels = []
     for name, (path, replaces, headline) in src.items():
         r = results[name]
@@ -1564,8 +1619,8 @@ def main() -> int:
             launches=r["launches"], max_abs_err=r["max_abs_err"], ms=chk["ms"],
             plain_ms=chk["plain_ms"], bound_ms=chk["bound_ms"], bound_by=chk["bound_by"],
             library_ms=chk.get("library_ms"), shape=chk["shape"]))
-        if name.startswith("flash_attention_bwd"):
-            kernels[-1]["variant"] = bwd_variant
+        if name in variants:
+            kernels[-1]["variant"] = variants[name]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)  # name, power limit: as nvidia-smi prints them
     print(json.dumps({"ok": True, "device": {

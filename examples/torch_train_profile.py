@@ -43,7 +43,7 @@ from torch_rag_profile import device_seconds  # noqa: E402
 BATCH, LENGTH, SEED, REPS = 8, 2048, 0, 3  # chip_smoke.py phase 7's batch
 # the backward by symbol: the bf16 tensor-core kernels (the training path)
 # and the fp32 CUDA-core ones
-GROUPS = (("flash_fwd", ("flash_fwd_kernel",)),
+GROUPS = (("flash_fwd", ("flash_fwd_tc_kernel", "flash_fwd_kernel")),
           ("flash_bwd_dq", ("flash_bwd_tc_dq_kernel", "flash_bwd_dq_kernel")),
           ("flash_bwd_dkv", ("flash_bwd_tc_dkv_kernel", "flash_bwd_dkv_kernel")),
           ("matmul", ("gemm", "xmma", "cutlass", "cublas", "nvjet", "sm90_")))

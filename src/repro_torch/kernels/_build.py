@@ -23,8 +23,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("hybrid_distance.cu", "fused_topk.cu", "pairwise_tile.cu", "flash_attention.cu",
-           "flash_attention_bwd.cu", "flash_attention_bwd_tc.cu")
-HEADERS = ("common.cuh", "mma.cuh")
+           "flash_attention_tc.cu", "flash_attention_bwd.cu", "flash_attention_bwd_tc.cu")
+HEADERS = ("common.cuh", "mma.cuh", "hopper.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 CFLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -47,7 +47,7 @@ _ARGTYPES = {  # every launch ends (..., int device, void* stream)
     "pairwise_tile_max_k": [],
     "flash_attention_fwd_launch": [_P] * 5 + [_I] * 7 + [_L] * 12
     + [_I, ctypes.c_float, _I, _I, _P],
-    "flash_attention_smem_bytes": [_I, _I],
+    "flash_attention_smem_bytes": [_I, _I, _I],
     "flash_attention_max_d": [],
     "flash_attention_bwd_dq_launch": [_P] * 7 + [_I] * 7 + [_L] * 15
     + [_I, ctypes.c_float, _I, _I, _I, _P],

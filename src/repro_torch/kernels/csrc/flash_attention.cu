@@ -1,4 +1,4 @@
-// Flash-attention forward: O = softmax(scale * Q K^T [+ mask]) V and the
+// Flash-attention forward, fp32 route: O = softmax(scale * Q K^T [+ mask]) V and the
 // row log-sum-exp, with GQA, an optional causal mask, and dk != dv.
 //
 // Replaces repro/kernels/flash_attention.py::_flash_fwd (_fwd_kernel). It
@@ -14,19 +14,23 @@
 // given by element strides (the last dimension contiguous), so the model's
 // (B, L, H, d) projections are read and written in place without a
 // transposed copy; lse (B, H, L) float32, contiguous. Query head h reads kv
-// head h / (H / KV). Inputs and output are float32 or bfloat16.
+// head h / (H / KV).
+//
+// Route: the C entry point dispatches by dtype, a fixed rule and not a
+// fallback. float32 runs this file's kernel on the CUDA cores (the fp32 gate
+// of 1e-5 needs fp32 products); bfloat16 runs the tensor-core kernel of
+// csrc/flash_attention_tc.cu (wgmma fed by TMA).
 //
 // Bound on the H100: operations. At the RAG prefill shape (B 64, H 32,
 // L = S = 1088, d 64, causal) the work is ~3.1e11 flop over ~0.72 GB, about
-// 430 flop per byte, above the bf16 ridge (~295). Design (simple first; no
-// tensor cores, TMA or mma.sync yet): one block of 256 threads per
+// 430 flop per byte, above the bf16 ridge (~295); in fp32 on the CUDA cores
+// (67 TFLOP/s) ~4.6 ms. Design: one block of 256 threads per
 // (b, h, 64 query rows). The query tile and each 64-row K/V tile are staged
 // in shared memory as float (rows padded to a float4 multiple). Each thread
 // owns 4 query rows x 4 key columns of the score tile and 4 rows x 4 output
 // columns per 64 of dv; the row max and sum live in registers and are reduced
 // across the 16 threads of a row group by warp shuffles.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
@@ -47,31 +51,18 @@ struct FlashParams {
   float scale;
 };
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>  // round to nearest even, as torch's .to(torch.bfloat16)
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
 inline __host__ __device__ size_t smem_floats(int dk, int dv) {
   return size_t(kBQ) * (dk + kPad) + size_t(kBK) * (dk + kPad) + size_t(kBK) * (dv + kPad) +
          size_t(kBQ) * (kBK + kPad);
 }
 
 // `rows` rows of width d starting at row0 of one head into shared memory
-// (row stride ld), as float; rows at or past `valid` are zero.
-template <typename T>
-__device__ __forceinline__ void load_tile(const T* __restrict__ src, long long sl, int row0,
+// (row stride ld); rows at or past `valid` are zero.
+__device__ __forceinline__ void load_tile(const float* __restrict__ src, long long sl, int row0,
                                           int valid, int d, float* dst, int ld, int rows) {
   for (int i = threadIdx.x; i < rows * d; i += kThreads) {
     const int r = i / d, c = i - r * d;
-    dst[r * ld + c] = (row0 + r < valid) ? to_f(src[(long long)(row0 + r) * sl + c]) : 0.f;
+    dst[r * ld + c] = (row0 + r < valid) ? src[(long long)(row0 + r) * sl + c] : 0.f;
   }
 }
 
@@ -83,10 +74,11 @@ __device__ __forceinline__ float dot4(float4 a, float4 b, float s) {
 }
 
 // G: column groups of 64 output columns per thread (dv <= 64 G).
-template <typename T, int G>
+template <int G>
 __global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                     T* __restrict__ o, float* __restrict__ lse, FlashParams p) {
+    flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
+                     FlashParams p) {
   extern __shared__ __align__(16) float smem[];
   const int ldk = p.dk + kPad, ldv = p.dv + kPad, ldp = kBK + kPad;
   float* sQ = smem;              // kBQ x ldk
@@ -98,9 +90,9 @@ __global__ void __launch_bounds__(kThreads)
   const int h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (p.H / p.KV);
   const int q0 = qt * kBQ;
-  const T* qh = q + b * p.q_sb + h * p.q_sh;
-  const T* kh = k + b * p.k_sb + kvh * p.k_sh;
-  const T* vh = v + b * p.v_sb + kvh * p.v_sh;
+  const float* qh = q + b * p.q_sb + h * p.q_sh;
+  const float* kh = k + b * p.k_sb + kvh * p.k_sh;
+  const float* vh = v + b * p.v_sb + kvh * p.v_sh;
 
   load_tile(qh, p.q_sl, q0, p.L, p.dk, sQ, ldk, kBQ);
 
@@ -213,23 +205,23 @@ __global__ void __launch_bounds__(kThreads)
     const int row = q0 + ty * 4 + i;
     if (row >= p.L) continue;
     const float lf = fmaxf(l[i], 1e-30f);
-    T* orow = o + b * p.o_sb + h * p.o_sh + (long long)row * p.o_sl;
+    float* orow = o + b * p.o_sb + h * p.o_sh + (long long)row * p.o_sl;
 #pragma unroll
     for (int g = 0; g < G; ++g) {
       const int c0 = g * 64 + tx * 4;
       if (c0 >= p.dv) continue;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) orow[c0 + e] = from_f<T>(acc[i][g * 4 + e] / lf);
+      for (int e = 0; e < 4; ++e) orow[c0 + e] = acc[i][g * 4 + e] / lf;
     }
     if (tx == 0) lse[((long long)b * p.H + h) * p.L + row] = m[i] + logf(lf);
   }
 }
 
-template <typename T, int G>
+template <int G>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            const FlashParams& p, void* stream) {
   const size_t smem = smem_floats(p.dk, p.dv) * sizeof(float);
-  auto kern = flash_fwd_kernel<T, G>;
+  auto kern = flash_fwd_kernel<G>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          int(smem));
@@ -237,33 +229,42 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
   }
   const dim3 grid((p.L + kBQ - 1) / kBQ, p.H, p.B);
   kern<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), lse, p);
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), lse, p);
   return int(cudaGetLastError());
 }
 
-template <typename T>
 int launch_g(const void* q, const void* k, const void* v, void* o, float* lse,
              const FlashParams& p, void* stream) {
   switch ((p.dv + 63) / 64) {
-    case 1: return launch<T, 1>(q, k, v, o, lse, p, stream);
-    case 2: return launch<T, 2>(q, k, v, o, lse, p, stream);
-    case 3: return launch<T, 3>(q, k, v, o, lse, p, stream);
-    case 4: return launch<T, 4>(q, k, v, o, lse, p, stream);
+    case 1: return launch<1>(q, k, v, o, lse, p, stream);
+    case 2: return launch<2>(q, k, v, o, lse, p, stream);
+    case 3: return launch<3>(q, k, v, o, lse, p, stream);
+    case 4: return launch<4>(q, k, v, o, lse, p, stream);
     default: return int(cudaErrorInvalidValue);
   }
 }
 
 }  // namespace
 
-extern "C" size_t flash_attention_smem_bytes(int dk, int dv) {
-  return smem_floats(dk, dv) * sizeof(float);
+// The tensor-core route (flash_attention_tc.cu).
+size_t flash_fwd_tc_smem_bytes(int dk, int dv);
+int flash_fwd_tc(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
+                 int KV, int L, int S, int dk, int dv, long long q_sb, long long q_sh,
+                 long long q_sl, long long k_sb, long long k_sh, long long k_sl, long long v_sb,
+                 long long v_sh, long long v_sl, long long o_sb, long long o_sh, long long o_sl,
+                 int causal, float scale, void* stream);
+
+// dtype: 0 float32, 1 bfloat16.
+extern "C" size_t flash_attention_smem_bytes(int dk, int dv, int dtype) {
+  return dtype == 1 ? flash_fwd_tc_smem_bytes(dk, dv) : smem_floats(dk, dv) * sizeof(float);
 }
 
 extern "C" int flash_attention_max_d() { return kMaxD; }
 
 // dtype: 0 float32, 1 bfloat16. dk and dv are multiples of 4, at most kMaxD;
-// H is a multiple of KV. Strides are in elements.
+// H is a multiple of KV. Strides are in elements; for bfloat16 the base
+// pointers and every stride but the last are 16-byte aligned (TMA).
 extern "C" int flash_attention_fwd_launch(
     const void* q, const void* k, const void* v, void* o, float* lse, int B, int H, int KV,
     int L, int S, int dk, int dv, long long q_sb, long long q_sh, long long q_sl,
@@ -277,7 +278,10 @@ extern "C" int flash_attention_fwd_launch(
   }
   const FlashParams p{B, H, KV, L, S, dk, dv, q_sb, q_sh, q_sl, k_sb, k_sh, k_sl,
                       v_sb, v_sh, v_sl, o_sb, o_sh, o_sl, causal, scale};
-  if (dtype == 1) return launch_g<__nv_bfloat16>(q, k, v, o, lse, p, stream);
-  if (dtype == 0) return launch_g<float>(q, k, v, o, lse, p, stream);
+  if (dtype == 1) {
+    return flash_fwd_tc(q, k, v, o, lse, B, H, KV, L, S, dk, dv, q_sb, q_sh, q_sl, k_sb, k_sh,
+                        k_sl, v_sb, v_sh, v_sl, o_sb, o_sh, o_sl, causal, scale, stream);
+  }
+  if (dtype == 0) return launch_g(q, k, v, o, lse, p, stream);
   return int(cudaErrorInvalidValue);
 }

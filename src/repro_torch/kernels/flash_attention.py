@@ -2,19 +2,20 @@
 
 Replaces ``repro/kernels/flash_attention.py``: the forward (``_flash_fwd``,
 body ``_fwd_kernel``) and the backward (``_flash_bwd``, bodies
-``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``). The CUDA kernels are
-``csrc/flash_attention.cu`` and, for the backward, ``csrc/flash_attention_bwd.cu``
-(float32, CUDA cores) and ``csrc/flash_attention_bwd_tc.cu`` (bfloat16,
-tensor cores through ``mma.sync``, P and dS split hi/lo into two bf16
-operands so the products keep fp32-grade P and dS); the C entry points pick
-the route by dtype. The forward
-runs one block per (batch, head, 64 query rows) and streams 64-row K/V tiles
-through shared memory with the online-softmax recurrence in fp32, so the
-(L, S) score matrix never reaches device memory. The backward recomputes P
-from the forward's LSE: one kernel per (batch, head, 64 query rows) for dQ,
-one per (batch, kv head, 64 key rows) for dK and dV, summed over the query
-heads of the group without atomics. GQA maps query head h to kv head
-h // (H / KV); dk != dv is allowed. Bound on the H100: operations.
+``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``). Each has two CUDA routes,
+picked by dtype at the C entry points: float32 on the CUDA cores
+(``csrc/flash_attention.cu``, ``csrc/flash_attention_bwd.cu``), bfloat16 on
+the tensor cores: the forward ``csrc/flash_attention_tc.cu`` (``wgmma`` fed
+by TMA; persistent blocks, one per SM, over (batch, head, 128 query rows)),
+the backward ``csrc/flash_attention_bwd_tc.cu`` (``mma.sync``). Both bf16
+routes split P (and dS) hi/lo into two bf16 operands, so the products keep
+fp32-grade P. The forward streams K/V tiles through shared memory with the
+online-softmax recurrence in fp32, so the (L, S) score matrix never reaches
+device memory. The backward recomputes P from the forward's LSE: one kernel
+per (batch, head, 64 query rows) for dQ, one per (batch, kv head, 64 key
+rows) for dK and dV, summed over the query heads of the group without
+atomics. GQA maps query head h to kv head h // (H / KV); dk != dv is
+allowed. Bound on the H100: operations.
 
 They compute what the Pallas kernels are meant to compute, with two
 differences of record (ROADMAP Queue 3), forward and backward alike: key
@@ -82,11 +83,27 @@ def _check(q, k, v) -> None:
         _need(t.stride(-1) == 1, f"{name}: the head dim must be contiguous")
 
 
+def _tma_ready(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself when TMA can read it (a 16-byte aligned start and every
+    stride but the last a multiple of 16 bytes, as in the model's (B, L, H,
+    d) memory for d a multiple of 8), else a copy in zero-padded contiguous
+    memory (e.g. d = 20)."""
+    esz = t.element_size()
+    if t.data_ptr() % 16 == 0 and all(s * esz % 16 == 0 for s in t.stride()[:-1]):
+        return t
+    d = t.shape[-1]
+    padded = torch.zeros((*t.shape[:-1], -(-d * esz // 16) * 16 // esz), dtype=t.dtype,
+                         device=t.device)
+    padded[..., :d] = t
+    return padded[..., :d]
+
+
 def flash_attention_fwd(q, k, v, causal: bool = True, sm_scale: float | None = None):
     """``(out, lse)`` as ``_flash_fwd`` returns them: out (B, H, L, dv) in
-    q.dtype, lse (B, H, L) float32. CUDA tensors launch the kernel; CPU
-    tensors take the plain version. On CUDA, ``out`` is a (B, H, L, dv) view
-    of (B, L, H, dv) memory, the layout the model's output projection reads."""
+    q.dtype, lse (B, H, L) float32. CUDA tensors launch the kernel (bf16 the
+    tensor-core one, fp32 the CUDA-core one); CPU tensors take the plain
+    version. On CUDA, ``out`` is a (B, H, L, dv) view of (B, L, H, dv)
+    memory, the layout the model's output projection reads."""
     scale = q.shape[-1] ** -0.5 if sm_scale is None else float(sm_scale)
     _check(q, k, v)
     dev = q.device
@@ -104,9 +121,11 @@ def flash_attention_fwd(q, k, v, causal: bool = True, sm_scale: float | None = N
     max_d = lib.flash_attention_max_d()
     _need(dk % 4 == 0 and dv % 4 == 0 and dk <= max_d and dv <= max_d,
           f"flash attention takes dk, dv multiples of 4 up to {max_d}, got {dk}, {dv}")
-    _need(lib.flash_attention_smem_bytes(dk, dv) <= _build.MAX_SMEM_BYTES,
+    _need(lib.flash_attention_smem_bytes(dk, dv, _DTYPES[q.dtype]) <= _build.MAX_SMEM_BYTES,
           "flash attention: head dims exceed shared memory")
     _need(b <= 65535 and h <= 65535, "flash attention: batch or heads exceed the grid")
+    if q.dtype == torch.bfloat16:  # held until the launch is enqueued
+        q, k, v = (_tma_ready(t) for t in (q, k, v))
     rc = lib.flash_attention_fwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
         b, h, kvh, l, s, dk, dv,

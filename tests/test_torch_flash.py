@@ -334,6 +334,102 @@ def test_tensor_core_numerics_hold_bf16_limit(case):
     assert max(readings[True].values()) <= 1, readings[True]
 
 
+def _tc_fwd_emulation(q, k, v, causal: bool, scale: float, split: bool):
+    """The bf16 tensor-core forward's arithmetic in plain PyTorch: S = Q K^T
+    of bf16 values summed in fp32; the online softmax in fp32 over key tiles
+    of the kernel's width (128 keys at d <= 64, else 64); P enters P V as
+    bf16 operands, split (hi = bf16(P), lo = bf16(P - hi), two products
+    summed in fp32) or rounded once; O = acc / l rounded to bf16 once, LSE =
+    m + log l in fp32."""
+    b, h, l, dk = q.shape
+    kvh, s, dv = k.shape[1], k.shape[2], v.shape[3]
+    g = h // kvh
+    bn = 128 if max(dk, dv) <= 64 else 64
+    qg, kf, vf = q.float().reshape(b, kvh, g, l, dk), k.float(), v.float()
+    m = torch.full((b, kvh, g, l, 1), NEG_INF)
+    lsum = torch.zeros((b, kvh, g, l, 1))
+    acc = torch.zeros((b, kvh, g, l, dv))
+    rows = torch.arange(l)[:, None]
+    for s0 in range(0, s, bn):
+        sc = torch.einsum("bkgld,bksd->bkgls", qg, kf[:, :, s0:s0 + bn])
+        if causal:
+            sc = torch.where(rows >= torch.arange(s0, min(s0 + bn, s)), sc, torch.full((), NEG_INF))
+        mx = torch.maximum(m, sc.amax(-1, keepdim=True))
+        alpha, p = torch.exp((m - mx) * scale), torch.exp((sc - mx) * scale)
+        lsum, acc, m = lsum * alpha + p.sum(-1, keepdim=True), acc * alpha, mx
+        hi = p.to(torch.bfloat16).float()
+        for a in ((hi, (p - hi).to(torch.bfloat16).float()) if split else (hi,)):
+            acc = acc + torch.einsum("bkgls,bksd->bkgld", a, vf[:, :, s0:s0 + bn])
+    lf = lsum.clamp_min(1e-30)
+    out = (acc / lf).to(torch.bfloat16).reshape(b, h, l, dv)
+    return out, (m * scale + torch.log(lf)).reshape(b, h, l)
+
+
+def _bf16_reading(got, want) -> float:
+    """max |got - want| / (tol + tol |want|) at FLASH_TOL's bf16 limit."""
+    tol = TOL["bfloat16"]
+    got, want = got.float(), want.float()
+    return float(((got - want).abs() / (tol + tol * want.abs())).max())
+
+
+@pytest.mark.parametrize("case", [
+    # (B, H, KV, L, S, dk, dv, causal, reference): L and S multiples of the
+    # Pallas block where repro's _flash_fwd is the reference, tails where
+    # the port's plain version is
+    (1, 8, 2, 256, 256, 64, 64, True, "pallas"),  # g = 4, two 128-key tiles
+    (1, 2, 2, 128, 128, 128, 128, True, "pallas"),  # class 128: 64-key tiles
+    (1, 4, 4, 128, 256, 32, 32, False, "pallas"),  # non-causal, S > L
+    (2, 8, 2, 333, 333, 64, 64, True, "plain"),  # tails, g = 4
+    (2, 4, 2, 130, 130, 48, 32, True, "plain"),  # dk != dv
+    (1, 4, 4, 100, 300, 32, 32, False, "plain"),  # non-causal, S > L, tails
+    (1, 2, 1, 150, 150, 256, 256, True, "plain"),  # class 256
+])
+def test_tensor_core_forward_numerics_hold_bf16_limit(case):
+    """The bf16 tensor-core forward's numerics, emulated on the CPU, against
+    repro's ``_flash_fwd`` in interpret mode (bf16 in, where its blocks
+    divide L and S) or the port's plain version (tails, where repro gives
+    NaN), both outputs in bf16: with P split hi/lo the reading of
+    chip_smoke.py's bf16 limit FLASH_TOL (2e-2 + 2e-2 |w|) is at most 1.
+    The same emulation with P rounded once to bf16 is printed beside it."""
+    b, h, kv, l, s, dk, dv, causal, reference = case
+    (q, k, v), (tq, tk, tv) = _qkv(b, h, kv, l, s, dk, dv, sum(case[:7]), "bfloat16")
+    scale = dk**-0.5
+    if reference == "pallas":
+        block = min(l, s, 128)
+        want = _flash_fwd(q, k, v, causal=causal, sm_scale=scale, block_q=block, block_k=block,
+                          interpret=True)
+        want_out, want_lse = (torch.tensor(np.asarray(w, np.float32)) for w in want)
+    else:
+        want_out, want_lse = flash_attention_plain(tq, tk, tv, causal, scale)
+    readings = {}
+    for split in (True, False):
+        out, lse = _tc_fwd_emulation(tq, tk, tv, causal, scale, split)
+        assert out.dtype == torch.bfloat16 and out.shape == (b, h, l, dv)
+        readings[split] = (_bf16_reading(out, want_out), _bf16_reading(lse, want_lse))
+    print(f"{case}: reading of the bf16 limit (out, lse), P split hi/lo {readings[True]}; "
+          f"P rounded once {readings[False]}")
+    assert max(readings[True]) <= 1, readings[True]
+
+
+def test_tma_ready_copies_only_unaligned():
+    """The bf16 forward's operands as TMA reads them: the model's (B, L, H,
+    d) views of d = 64 pass as they are; rows of 40 bytes (d = 20) and a
+    view starting 2 bytes into its storage are copied into zero-padded
+    memory whose strides are multiples of 16 bytes, with the same values."""
+    from repro_torch.kernels.flash_attention import _tma_ready
+
+    bf = torch.bfloat16
+    wide = torch.randn(2, 70, 8, 64).to(bf).transpose(1, 2)
+    narrow = torch.randn(2, 70, 8, 20).to(bf).transpose(1, 2)
+    shifted = torch.zeros(2 * 8 * 70 * 64 + 1, dtype=bf)[1:].view(2, 8, 70, 64)
+    assert _tma_ready(wide) is wide
+    for t in (narrow, shifted):
+        got = _tma_ready(t)
+        assert got is not t and torch.equal(got, t)
+        assert got.data_ptr() % 16 == 0 and all(st * 2 % 16 == 0 for st in got.stride()[:-1])
+    assert _tma_ready(narrow).stride()[-2] == 24
+
+
 def test_bf16_row_copy_width():
     """The bytes per row copy the bf16 backward kernels are given: 16 for
     rows of 64 bf16 in the model's layout, 8 for rows of 20 (40 bytes), 4

@@ -190,14 +190,23 @@ FLASH_CASES = [
     (1, 4, 4, 100, 300, 32, 32, False),  # non-causal, S > L
     (1, 2, 1, 70, 70, 192, 128, True),  # MLA's head dims: two column groups
 ]
+# the bf16 tensor-core forward's head-dim classes, tiles and TMA's edges
+FLASH_TC_CASES = [
+    (2, 4, 2, 256, 256, 64, 64, True),  # whole 128-row blocks and 128-key tiles
+    (1, 4, 2, 200, 200, 128, 128, True),  # class 128: 64-key tiles, two column blocks
+    (1, 2, 1, 150, 150, 256, 256, True),  # class 256: four column blocks
+    (1, 2, 1, 30, 500, 64, 64, False),  # non-causal, S >> L, a partial last tile
+    (1, 4, 2, 70, 70, 20, 20, True),  # rows of 40 bytes: the wrapper's padded copy
+]
 
 
-@pytest.mark.parametrize("case", FLASH_CASES)
+@pytest.mark.parametrize("case", FLASH_CASES + FLASH_TC_CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_matches_plain(cuda, case, dtype):
     """Out and LSE against the plain version, with the tolerances of
     tests/test_flash_attention.py:40 (1e-5 fp32, 2e-2 bf16); q, k, v in the
-    model's (B, L, H, d) memory, read by stride."""
+    model's (B, L, H, d) memory, read by stride (bf16: the tensor-core
+    route, fp32: the CUDA-core route)."""
     from repro_torch.kernels.flash_attention import flash_attention_fwd, flash_attention_plain
 
     b, h, kv, l, s, dk, dv, causal = case
@@ -216,6 +225,36 @@ def test_flash_kernel_matches_plain(cuda, case, dtype):
     np.testing.assert_allclose(out.cpu().float().numpy(), want_out.float().numpy(),
                                rtol=tol, atol=tol)
     np.testing.assert_allclose(lse.cpu().numpy(), want_lse.numpy(), rtol=tol, atol=tol)
+
+
+def test_flash_fwd_bf16_is_deterministic_and_counts_one_launch(cuda):
+    """Two bf16 forward launches give bit-identical out and LSE (every block
+    owns its rows, no atomics), each call adds one launch, and a view whose
+    start is not 16-byte aligned (TMA's rule) takes the wrapper's padded
+    copy and the same kernel."""
+    from repro_torch.kernels.flash_attention import flash_attention_fwd, flash_attention_plain
+
+    rng = np.random.default_rng(11)
+    make = lambda *shape: torch.as_tensor(rng.normal(size=shape).astype(np.float32)).to(
+        device=cuda, dtype=torch.bfloat16)
+    q, k, v = make(2, 333, 8, 64).transpose(1, 2), make(2, 333, 2, 64), make(2, 333, 2, 64)
+    k, v = k.transpose(1, 2), v.transpose(1, 2)
+    before = flash_attention_fwd.launches
+    first = flash_attention_fwd(q, k, v, True)
+    again = flash_attention_fwd(q, k, v, True)
+    torch.cuda.synchronize()
+    assert flash_attention_fwd.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    shifted = torch.empty(q.numel() + 1, dtype=q.dtype, device=cuda)[1:].view(2, 8, 333, 64)
+    shifted.copy_(q)
+    assert shifted.data_ptr() % 16 != 0
+    got = flash_attention_fwd(shifted, k, v, True)
+    want = flash_attention_plain(q, k, v, True, 64**-0.5)
+    torch.cuda.synchronize()
+    assert flash_attention_fwd.launches == before + 3
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.float().cpu().numpy(), w.float().cpu().numpy(),
+                                   rtol=2e-2, atol=2e-2)
 
 
 BWD_CASES = FLASH_CASES + [
