@@ -9,19 +9,28 @@ Phases (each prints its own lines; any failure exits nonzero):
      sources built from ``src/repro_torch/kernels/csrc`` (one nvcc each, in
      parallel, into the gitignored ``build/`` directory), and the registers,
      spills and shared memory of the tensor-core flash kernels (the forward
-     and the backward pair) per head-dim class (no spills allowed at d = 64);
+     and the backward pair) per head-dim class (no spills allowed at d = 64)
+     and of every fused top-k kernel (no spills allowed);
   2. kernel checks: each kernel against its plain PyTorch version on the
      card, at the main path's shapes (Dd = 1024, the corpus caps, B x C of
-     NN-Descent chunks and search rounds) plus edge cases (all-PAD rows,
-     k > live, planted ties); the int8 variants over an int8 segment of
-     2^18 rows at the shapes a served 32-row bucket gives them and at a
+     NN-Descent and refinement chunks and inits, search rounds, and the
+     fp32 served rounds over a 2^18-row segment) plus edge cases (all-PAD
+     rows, k > live, planted ties); the int8 variants over an int8 segment
+     of 2^18 rows at the shapes a served 32-row bucket gives them and at a
      large shape, with a zero row and a row at +-127 among the candidates;
-     max-abs-error, agreement up to ties, times and bounds;
+     max-abs-error, agreement up to ties, times (CUDA events, and for the
+     fused top-k the kernels' device time under torch.profiler, which a
+     host-bound call's event timing hides) and bounds;
   3. small end-to-end: N = 4096 docs with the KG, built and searched once
      through the kernels and once through the plain versions;
   4. full width: make_corpus at N = 2^20, d_dense = 1024, build_index with
      the default BuildConfig (no KG: the dense (E, E) entity adjacency would
-     be ~1 TB), search 1024 queries under six fusion specs, QPS and recall;
+     be ~1 TB), its fused top-k launches by build stage, search 1024 queries
+     under six fusion specs, QPS and recall; then one descent round chunk
+     and one refinement round chunk as the build hands them to the fused
+     top-k (built by knn_graph._descent_round_chunk from this graph), their
+     live pairs and unique rows, checked and timed beside phase 2's uniform
+     ids;
   5. serving at full width: the same corpus as four sealed segments of 2^18
      (build_pool_segment + append_segment, one fp32 group) and its int8
      twin, each served through HybridSearchService (default ServiceConfig)
@@ -75,6 +84,7 @@ Imports nothing of JAX. Needs one CUDA card; exits nonzero without one.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import re
@@ -162,6 +172,29 @@ def time_ms(fn, reps: int, warm: int = 2) -> float:
         fn()
     b.record()
     torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def device_ms(fn, reps: int = 20, hold_s: float = 0.02) -> float:
+    """Device milliseconds per call with the host out of the timed span, which
+    the event timing of a host-bound call is not: the calls are enqueued
+    behind a sleep kernel of ~``hold_s`` (torch.cuda._sleep), so the card runs
+    them back to back. It needs no torch.profiler session before the phases
+    that time the host (4 and 5)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(hold_s * 2e9))  # cycles; the H100's SM clock peaks below 2 GHz
+    t = time.perf_counter()
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    enqueue_s = time.perf_counter() - t
+    torch.cuda.synchronize()
+    need(enqueue_s < hold_s / 2, f"device_ms: enqueueing took {enqueue_s:.4f} s, past the hold")
     return a.elapsed_time(b) / reps
 
 
@@ -288,6 +321,21 @@ def phase_device():
         if d == 64:  # the training shape's class
             need(r["spill_stores"] == 0 and r["spill_loads"] == 0,
                  f"{r['kernel']}<64> spills registers")
+    # the fused top-k kernels, both storage views: the one-pass form's dynamic
+    # shared memory at the serving (B 32, C 24) and refinement (B 2048, C
+    # 152) shapes, Dd 1024 and the corpus's 32 / 16 ELL slots
+    smem = {f"B={b} C={c}": lib.fused_topk_smem_bytes(b, 1024, 32, 16, c)
+            for b, c in ((32, 24), (2048, 152))}
+    for r in ptxas_resources(log):
+        m = re.search(r"(fused_topk_[a-z_]*kernel)(?:IN2rt(\d+)(CorpusView\w*?)E)?", r["name"])
+        if m is None:
+            continue
+        view = f"<{m[3][:int(m[2])]}>" if m[2] else ""
+        say(f"phase 1 ptxas {m[1]}{view}: {r['registers']} registers, spill stores "
+            f"{r['spill_stores']} B, spill loads {r['spill_loads']} B, stack {r['stack']} B, "
+            f"static shared memory {r.get('smem', 0)} B"
+            + (f"; dynamic shared memory {smem}" if m[1] == "fused_topk_kernel" else ""))
+        need(r["spill_stores"] == 0 and r["spill_loads"] == 0, f"{m[1]}{view} spills registers")
     return card
 
 
@@ -307,6 +355,8 @@ def ptxas_resources(log: str) -> list[dict]:
             cur.update(stack=nums[0], spill_stores=nums[1], spill_loads=nums[2])
         elif cur is not None and "Used" in ln and "registers" in ln:
             cur["registers"] = int(ln.split("Used")[1].split()[0])
+            m = re.search(r"(\d+) bytes smem", ln)
+            cur["smem"] = int(m[1]) if m else 0
     return [r for r in out if "registers" in r and "spill_stores" in r]
 
 
@@ -333,6 +383,94 @@ def random_ids(n: int, b: int, c: int, pad_frac: float, gen):
     return ids.masked_fill(pad, -1)
 
 
+def real_descent_chunk(corpus, knn_ids, k: int, weights=None, start: int = 0, seed: int = 17):
+    """The (queries, ids) one NN-Descent round hands ``fused_topk`` for the
+    node chunk at ``start`` of graph ``knn_ids``, built by
+    ``knn_graph._descent_round_chunk`` itself (two-hop ids plus
+    ``extra_random`` random ids, deduped, self and current neighbours
+    removed): its call is caught on the way in. k = 32 and no weights give a
+    descent round's chunk; k = 12 with single-path weights a refinement
+    round's (``build_pipeline._path_refinement``)."""
+    import torch
+
+    from repro_torch.core import knn_graph
+    from repro_torch.core.knn_graph import KnnConfig
+    from repro_torch.core.usms import weighted_query
+    from repro_torch.kernels import ops
+
+    cfg = KnnConfig(k=k)
+    e = min(start + cfg.node_chunk, corpus.n)
+    dev = knn_ids.device
+    nbr = knn_ids[:, :k].contiguous()
+    q = corpus[start:e] if weights is None else weighted_query(corpus[start:e], weights)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rand = torch.randint(0, corpus.n, (e - start, cfg.extra_random), generator=gen, device=dev,
+                         dtype=torch.int32)
+    node_ids = torch.arange(start, e, dtype=torch.int32, device=dev)
+    seen, sound = {}, ops.fused_topk_vs_ids
+
+    def catch(q_, corpus_, ids, k_, **kw):
+        seen["ids"] = ids.to(torch.int32).contiguous()
+        return sound(q_, corpus_, ids, k_, **kw)
+
+    ops.fused_topk_vs_ids = catch
+    try:
+        knn_graph._descent_round_chunk(corpus, nbr, q, node_ids, nbr[start:e],
+                                       torch.zeros(nbr[start:e].shape, device=dev), rand, cfg)
+    finally:
+        ops.fused_topk_vs_ids = sound
+    return q, seen["ids"]
+
+
+def pair_stats(ids, n: int) -> tuple[int, int]:
+    """(live pairs, unique rows) of an id matrix: what a launch must read."""
+    import torch
+
+    live = ids[(ids >= 0) & (ids < n)]
+    return int(live.numel()), int(torch.unique(live).numel())
+
+
+def record_check(results: dict, phase: str, name: str, shape: str, err: float, ms: float,
+                 plain_ms: float, nbytes: float, flops: float, dev_ms=None) -> None:
+    """A kernel's reading at one shape into ``results`` and the log."""
+    b_ms, b_by = bound(nbytes, flops)
+    results.setdefault(name, {"max_abs_err": 0.0, "checks": []})
+    results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
+    results[name]["checks"].append(dict(shape=shape, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                        bound_by=b_by, device_ms=dev_ms))
+    say(f"{phase} {name} {shape}: max_abs_err {err:.3g} ms {ms:.4f}"
+        + ("" if dev_ms is None else f" device_ms {dev_ms:.4f}")
+        + f" plain_ms {plain_ms:.4f} bound_ms {b_ms:.4f} ({b_by})")
+
+
+def plant_edges(ids, n: int):
+    """Edge rows of a (B >= 4, C) id matrix: 0 all PAD, 1 three live ids (k >
+    live), 2 one id everywhere (ties: lowest position first), 3 one id at
+    even positions (ties among live ids)."""
+    import torch
+
+    ids[0] = -1
+    ids[1, :3] = torch.tensor([11, 22, 33], dtype=torch.int32, device=ids.device)
+    ids[1, 3:] = -1
+    ids[2] = 12345 % n
+    ids[3, ::2] = 777 % n
+    return ids
+
+
+def check_edges(p_k, s_k, k: int, what: str) -> None:
+    """The kernel's picks on plant_edges' rows (bias 0 on rows 2 and 3)."""
+    import torch
+
+    from repro_torch.kernels.ref import NEG
+
+    need(bool((p_k[0] == -1).all()) and bool((s_k[0] == NEG).all()), f"{what}: all-PAD row")
+    need(bool((p_k[1, 3:] == -1).all()) and bool((p_k[1, :3] >= 0).all()), f"{what}: k > live")
+    need(torch.equal(p_k[2], torch.arange(k, device=p_k.device, dtype=torch.int32)),
+         f"{what}: planted ties, lowest position first")
+    tied = p_k[3][p_k[3] % 2 == 0]  # the repeated id sits at even positions
+    need(torch.equal(tied, torch.sort(tied).values), f"{what}: planted ties, order")
+
+
 def phase_kernels(corpus, queries, results: dict):
     """Each kernel vs its plain version on the card."""
     import torch
@@ -352,53 +490,54 @@ def phase_kernels(corpus, queries, results: dict):
         corpus.dense[s:e], SparseVec(corpus.learned.idx[s:e], corpus.learned.val[s:e]),
         SparseVec(corpus.lexical.idx[s:e], corpus.lexical.val[s:e]))
 
-    def record(name, shape, err, ms, plain_ms, nbytes, flops):
-        b_ms, b_by = bound(nbytes, flops)
-        results.setdefault(name, {"max_abs_err": 0.0, "checks": []})
-        results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
-        results[name]["checks"].append(dict(shape=shape, ms=ms, plain_ms=plain_ms,
-                                            bound_ms=b_ms, bound_by=b_by))
-        say(f"phase 2 {name} {shape}: max_abs_err {err:.3g} ms {ms:.4f} plain_ms "
-            f"{plain_ms:.4f} bound_ms {b_ms:.4f} ({b_by})")
+    def record(name, shape, err, ms, plain_ms, nbytes, flops, dev_ms=None):
+        record_check(results, "phase 2", name, shape, err, ms, plain_ms, nbytes, flops, dev_ms)
 
-    # --- fused_topk: NN-Descent chunk, descent init, search round + edges ---
+    # --- fused_topk: descent chunk and init, refinement round and init, search
+    # round, served rounds (+ edges) -------------------------------------------
+    from repro_torch.core.build_pipeline import SINGLE_PATH_WEIGHTS
+
     sp = SearchParams()
-    cases = [
-        ("descent_chunk", rows(0, 2048), random_ids(n, 2048, 32 * 32 + 8, 0.3, gen), 32, None),
-        ("descent_init", rows(0, 2048), random_ids(n, 2048, 32, 0.0, gen), 32, None),
-        ("search_round", qw, random_ids(n, N_QUERIES, 16, 0.2, gen), 16,
-         torch.rand((N_QUERIES, 16), generator=gen, device="cuda")),
+    seg = rows(0, N_SEGMENT)  # a served segment's rows
+    serve_c = sp.expand * (BuildConfig().prune.degree + BuildConfig().prune.keyword_degree)
+    refine_q = weighted_query(rows(0, 2048), SINGLE_PATH_WEIGHTS[0])
+    rand = lambda b, c: torch.rand((b, c), generator=gen, device="cuda")
+    cases = [  # label, queries, corpus, ids, k, bias
+        ("descent_chunk", rows(0, 2048), corpus, random_ids(n, 2048, 32 * 32 + 8, 0.3, gen), 32,
+         None),
+        ("descent_init", rows(0, 2048), corpus, random_ids(n, 2048, 32, 0.0, gen), 32, None),
+        ("refine_round", refine_q, corpus, random_ids(n, 2048, 12 * 12 + 8, 0.15, gen), 12, None),
+        ("refine_init", refine_q, corpus, random_ids(n, 2048, 12, 0.0, gen), 12, None),
+        ("search_round", qw, corpus, random_ids(n, N_QUERIES, 16, 0.2, gen), 16,
+         rand(N_QUERIES, 16)),
+        ("serve_round", qw[0:32], seg, random_ids(N_SEGMENT, 32, serve_c, 0.2, gen),
+         min(sp.pool_size, serve_c), rand(32, serve_c)),
+        ("serve_twin", qw[0:32], seg, random_ids(N_SEGMENT, 32, serve_c, 0.5, gen),
+         min(sp.kw_pool_size, serve_c), rand(32, serve_c)),
     ]
-    for label, q, ids, k, bias in cases:
+    for label, q, cor, ids, k, bias in cases:
         b = ids.shape[0]
-        if label == "search_round":  # edge rows: all PAD, k > live, planted ties
-            ids[0] = -1
-            ids[1, :3] = torch.tensor([11, 22, 33], dtype=torch.int32, device="cuda")
-            ids[1, 3:] = -1
-            ids[2] = 12345 % n
-            ids[3, ::2] = 777 % n
+        edges = bias is not None  # the search and serving rounds carry the edge rows
+        if edges:
+            plant_edges(ids, cor.n)
             bias[2:4] = 0.0
-        s_k, p_k = fused_topk(q, corpus, ids, k, bias)
-        s_p, p_p = fused_topk_plain(q, corpus, ids, k, bias)
-        full = hybrid_distance_plain(q, corpus, ids)
+        s_k, p_k = fused_topk(q, cor, ids, k, bias)
+        s_p, p_p = fused_topk_plain(q, cor, ids, k, bias)
+        full = hybrid_distance_plain(q, cor, ids)
         if bias is not None:
             full = full + bias
         full = torch.where(ids >= 0, full, torch.full_like(full, NEG))
         err = topk_agree(s_k, p_k, s_p, p_p, full, TOL)
-        if label == "search_round":
-            need(bool((p_k[0] == -1).all()) and bool((s_k[0] == NEG).all()), "all-PAD row")
-            need(bool((p_k[1, 3:] == -1).all()) and bool((p_k[1, :3] >= 0).all()), "k > live")
-            need(torch.equal(p_k[2], torch.arange(k, device="cuda", dtype=torch.int32)),
-                 "planted ties: lowest position first")
-            tied = p_k[3][p_k[3] % 2 == 0]  # the repeated id sits at even positions
-            need(torch.equal(tied, torch.sort(tied).values), "planted ties: order")
-        reps = 5 if label == "descent_chunk" else 20
-        ms = time_ms(lambda: fused_topk(q, corpus, ids, k, bias), reps)
-        plain_ms = time_ms(lambda: fused_topk_plain(q, corpus, ids, k, bias), 2, warm=1)
-        nbytes, flops = scoring_work(q, corpus, ids, b * k * 8,
+        if edges:
+            check_edges(p_k, s_k, k, f"fused_topk {label}")
+        reps = 5 if b * ids.shape[1] > 2**20 else 20
+        ms = time_ms(lambda: fused_topk(q, cor, ids, k, bias), reps)
+        dev = device_ms(lambda: fused_topk(q, cor, ids, k, bias), reps)
+        plain_ms = time_ms(lambda: fused_topk_plain(q, cor, ids, k, bias), 2, warm=1)
+        nbytes, flops = scoring_work(q, cor, ids, b * k * 8,
                                      0 if bias is None else bias.numel() * 4)
         record("fused_topk", f"{label} B={b} C={ids.shape[1]} k={k}"
-               f"{' bias' if bias is not None else ''}", err, ms, plain_ms, nbytes, flops)
+               f"{' bias' if bias is not None else ''}", err, ms, plain_ms, nbytes, flops, dev)
         torch.cuda.empty_cache()
 
     # --- hybrid_distance: self scores over N, entry scoring, final re-score ---
@@ -467,11 +606,7 @@ def phase_kernels(corpus, queries, results: dict):
 
     def plant(ids):
         """Edge rows: all PAD, k > live, planted ties, the zero and +-127 rows."""
-        ids[0] = -1
-        ids[1, :3] = torch.tensor([11, 22, 33], dtype=torch.int32, device="cuda")
-        ids[1, 3:] = -1
-        ids[2] = 12345 % nq
-        ids[3, ::2] = 777 % nq
+        plant_edges(ids, nq)
         ids[4, :2] = torch.tensor([0, 1], dtype=torch.int32, device="cuda")
         return ids
 
@@ -481,7 +616,6 @@ def phase_kernels(corpus, queries, results: dict):
     # points; the final re-score stacks the three single-path queries
     # (B = 96) over the 64 + 16 pooled ids (C = 80)
     sb = 32
-    serve_c = sp.expand * (BuildConfig().prune.degree + BuildConfig().prune.keyword_degree)
     bias_for = lambda b, c: torch.rand((b, c), generator=gen, device="cuda")
     cases = [
         ("serve_round", qw[0:sb], plant(random_ids(nq, sb, serve_c, 0.2, gen)),
@@ -504,18 +638,15 @@ def phase_kernels(corpus, queries, results: dict):
         full = torch.where(ids >= 0, full, torch.full_like(full, NEG))
         err = topk_agree(s_k, p_k, s_p, p_p, full, TOL)
         if label != "large":
-            need(bool((p_k[0] == -1).all()) and bool((s_k[0] == NEG).all()), "int8: all-PAD row")
-            need(bool((p_k[1, 3:] == -1).all()) and bool((p_k[1, :3] >= 0).all()), "int8: k > live")
-            need(torch.equal(p_k[2], torch.arange(k, device="cuda", dtype=torch.int32)),
-                 "int8: planted ties, lowest position first")
-            tied = p_k[3][p_k[3] % 2 == 0]
-            need(torch.equal(tied, torch.sort(tied).values), "int8: planted ties, order")
-        ms = time_ms(lambda: fused_topk_int8(q, cq, ids, k, bias), 5 if b > 256 else 20)
+            check_edges(p_k, s_k, k, f"fused_topk_int8 {label}")
+        reps = 5 if b > 256 else 20
+        ms = time_ms(lambda: fused_topk_int8(q, cq, ids, k, bias), reps)
+        dev = device_ms(lambda: fused_topk_int8(q, cq, ids, k, bias), reps)
         plain_ms = time_ms(lambda: fused_topk_int8_plain(q, cq, ids, k, bias), 2, warm=1)
         nbytes, flops = scoring_work(q, cq, ids, b * k * 8,
                                      0 if bias is None else bias.numel() * 4)
         record("fused_topk_int8", f"{label} B={b} C={ids.shape[1]} k={k}"
-               f"{' bias' if bias is not None else ''}", err, ms, plain_ms, nbytes, flops)
+               f"{' bias' if bias is not None else ''}", err, ms, plain_ms, nbytes, flops, dev)
         torch.cuda.empty_cache()
 
     cases = [
@@ -539,6 +670,47 @@ def phase_kernels(corpus, queries, results: dict):
         record("hybrid_distance_int8", f"{label} B={ids.shape[0]} C={ids.shape[1]}", err, ms,
                plain_ms, nbytes, flops)
         torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def stage_counter(wrapper):
+    """{stage (C of its launches): launches of ``wrapper``} over the build
+    inside the block: the build pipeline's descent init and round functions
+    are wrapped to count, refinement apart from the descent."""
+    from repro_torch.core import build_pipeline as bp
+
+    counts: dict = {}
+    inside: list = []
+    sound = {name: getattr(bp, name) for name in ("_descent_init", "_descent_rounds",
+                                                   "_path_refinement")}
+
+    def counted(name, fn):
+        def run(corpus, weights, nbr_ids, *args, **kw):
+            before = wrapper.launches
+            try:
+                return fn(corpus, weights, nbr_ids, *args, **kw)
+            finally:
+                cfg = args[1] if name == "_descent_rounds" else None  # (scores, cfg, rounds)
+                c = nbr_ids.shape[1] if cfg is None else cfg.k * cfg.k + cfg.extra_random
+                key = f"{'refinement' if inside else 'descent'} {name.split('_')[-1]} (C={c})"
+                counts[key] = counts.get(key, 0) + wrapper.launches - before
+        return run
+
+    def refinement(*args, **kw):
+        inside.append(True)
+        try:
+            return sound["_path_refinement"](*args, **kw)
+        finally:
+            inside.pop()
+
+    bp._descent_init = counted("_descent_init", sound["_descent_init"])
+    bp._descent_rounds = counted("_descent_rounds", sound["_descent_rounds"])
+    bp._path_refinement = refinement
+    try:
+        yield counts
+    finally:
+        for name, fn in sound.items():
+            setattr(bp, name, fn)
 
 
 def phase_small_e2e():
@@ -621,7 +793,8 @@ def phase_full(corpus_bundle, results: dict):
         w.launches = 0
     report = {}
     t = time.perf_counter()
-    index = build_index(c.docs, report=report)
+    with stage_counter(fused_topk) as by_stage:
+        index = build_index(c.docs, report=report)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t
     build_launches = {k: w.launches for k, w in wrappers.items()}
@@ -644,6 +817,37 @@ def phase_full(corpus_bundle, results: dict):
     say(f"phase 4 main-path launches: {json.dumps(launches)} (build "
         f"{json.dumps(build_launches)}, then 7 searches: a 64-query warm-up and six "
         f"1024-query specs)")
+    say(f"phase 4 fused_topk launches by build stage (C of each launch): {json.dumps(by_stage)}")
+    need(sum(by_stage.values()) == build_launches["fused_topk"],
+         "fused_topk: the build's launches by stage do not add up")
+
+    # ---- the build's own fused_topk launches: one descent round chunk and
+    # one refinement round chunk of this graph, beside phase 2's uniform ids
+    from repro_torch.core.build_pipeline import SINGLE_PATH_WEIGHTS
+    from repro_torch.kernels.fused_topk import fused_topk_plain
+    from repro_torch.kernels.hybrid_distance import hybrid_distance_plain
+    from repro_torch.kernels.ref import NEG
+
+    for label, k, w in (("real_descent_chunk", 32, None),
+                        ("real_refine_round", 12, SINGLE_PATH_WEIGHTS[0])):
+        q, ids = real_descent_chunk(c.docs, report["knn_ids"], k, w)
+        live, uniq = pair_stats(ids, n)
+        s_k, p_k = fused_topk(q, c.docs, ids, k)
+        s_p, p_p = fused_topk_plain(q, c.docs, ids, k)
+        full = hybrid_distance_plain(q, c.docs, ids)
+        full = torch.where(ids >= 0, full, torch.full_like(full, NEG))
+        err = topk_agree(s_k, p_k, s_p, p_p, full, TOL)
+        del full
+        ms = time_ms(lambda: fused_topk(q, c.docs, ids, k), 5)
+        dev = device_ms(lambda: fused_topk(q, c.docs, ids, k), 5)
+        plain_ms = time_ms(lambda: fused_topk_plain(q, c.docs, ids, k), 2, warm=1)
+        nbytes, flops = scoring_work(q, c.docs, ids, ids.shape[0] * k * 8)
+        say(f"phase 4 {label}: live pairs {live}, unique rows {uniq}, pairs per unique row "
+            f"{live / max(uniq, 1):.3f}")
+        record_check(results, "phase 4", "fused_topk",
+                     f"{label} B={ids.shape[0]} C={ids.shape[1]} k={k}", err, ms, plain_ms,
+                     nbytes, flops, dev)
+        torch.cuda.empty_cache()
 
     # ---- structure ---------------------------------------------------------
     sem = index.semantic_edges
@@ -1621,6 +1825,8 @@ def main() -> int:
             library_ms=chk.get("library_ms"), shape=chk["shape"]))
         if name in variants:
             kernels[-1]["variant"] = variants[name]
+        if chk.get("device_ms") is not None:  # host-bound shapes: the kernels' own time
+            kernels[-1]["device_ms"] = chk["device_ms"]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)  # name, power limit: as nvidia-smi prints them
     print(json.dumps({"ok": True, "device": {

@@ -38,10 +38,12 @@ _ARGTYPES = {  # every launch ends (..., int device, void* stream)
     "hybrid_distance_q8_launch": [_P] * 5 + [_I] * 4 + [_P] * 6 + [_L, _I, _I, _I]
     + [_P, _I, _P, _I, _P],
     "fused_topk_launch": [_P] * 5 + [_I] * 4 + [_P] * 5 + [_L, _I, _I, _I]
-    + [_P, _P, _I, _I, _P, _P, _I, _P],
+    + [_P, _P, _I, _I, _P, _P, _P, _I, _P],
     "fused_topk_q8_launch": [_P] * 5 + [_I] * 4 + [_P] * 6 + [_L, _I, _I, _I]
-    + [_P, _P, _I, _I, _P, _P, _I, _P],
-    "fused_topk_smem_bytes": [_I, _I, _I, _I],
+    + [_P, _P, _I, _I, _P, _P, _P, _I, _P],
+    "fused_topk_smem_bytes": [_I] * 5,
+    "fused_topk_workspace_bytes": [_I, _I, _L],
+    "fused_topk_ordered_max_dd": [],
     "pairwise_tile_launch": [_P] * 5 + [_L, _I, _I, _I] + [_P, _I, _I, _P, _I, _P],
     "pairwise_tile_smem_bytes": [_I, _I, _I],
     "pairwise_tile_max_k": [],
@@ -57,6 +59,7 @@ _ARGTYPES = {  # every launch ends (..., int device, void* stream)
 }
 _RESTYPES = {
     "fused_topk_smem_bytes": ctypes.c_size_t,
+    "fused_topk_workspace_bytes": ctypes.c_size_t,
     "pairwise_tile_smem_bytes": ctypes.c_size_t,
     "flash_attention_smem_bytes": ctypes.c_size_t,
     "flash_attention_bwd_smem_bytes": ctypes.c_size_t,

@@ -182,6 +182,116 @@ def test_int8_pool_service_matches_plain(cuda):
     assert (rk.ids != rp.ids).float().mean().item() <= 0.01
 
 
+def _topk_case(seed, b, c, n=600, dd=64, pad=0.2, quant=False):
+    """Queries, corpus, ids with an all-PAD row, a row with three live ids, a
+    row of one repeated id and a row repeating an id at even positions (bias
+    zero on the tie rows)."""
+    from repro_torch.core.usms import quantize_corpus
+
+    rng = np.random.default_rng(seed)
+    q, corpus = _fused(rng, b, dd=dd, ps=7, pf=4), _fused(rng, n, dd=dd)
+    ids = rng.integers(0, n, size=(b, c)).astype(np.int32)
+    ids[rng.random(ids.shape) < pad] = -1
+    ids[0] = -1
+    ids[1] = -1
+    ids[1, :3] = [11, 22, 33]
+    ids[2] = 17
+    ids[3, ::2] = 29
+    bias = rng.normal(size=ids.shape).astype(np.float32)
+    bias[2:4] = 0.0
+    if quant:
+        corpus = quantize_corpus(corpus)
+    return q, corpus, torch.as_tensor(ids), torch.as_tensor(bias)
+
+
+def _check_topk(got, want, k, c):
+    """Scores to TOL, the same empty slots, positions equal except across
+    ties, the edge rows of _topk_case exact."""
+    gs, gp = (t.cpu() for t in got)
+    ws, wp = want
+    np.testing.assert_allclose(gs.numpy(), ws.numpy(), rtol=1e-5, atol=TOL)
+    assert torch.equal(gp < 0, wp < 0)
+    assert bool(((gs - ws).abs()[gp != wp] <= TOL).all())
+    assert bool((gp[0] == -1).all()) and bool((gs[0] == -1e30).all())
+    live = min(k, 3)
+    assert bool((gp[1, :live] >= 0).all()) and bool((gp[1, live:] == -1).all())
+    n = min(k, c)  # row 2: one id everywhere, so the lowest positions first
+    assert torch.equal(gp[2, :n], torch.arange(n, dtype=torch.int32))
+    assert bool((gp[2, n:] == -1).all())
+    tied = gp[3][gp[3] % 2 == 0]
+    assert torch.equal(tied, torch.sort(tied).values)
+
+
+TOPK_CASES = [  # (B, C, k, corpus rows)
+    (12, 72, 10, 600),  # one key a lane
+    (12, 72, 24, 10_000),  # three tiles of the ordered form's scan
+    (12, 100, 64, 600),  # two keys a lane
+    (12, 100, 80, 600),  # k > 64: the arg-max rounds
+    (9, 30, 40, 600),  # k > C
+    (10, 33, 33, 600),  # k = C
+    (300, 40, 16, 600),  # B > 264: 4 warps a one-pass block
+]
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["fp32", "int8"])
+@pytest.mark.parametrize("ordered", [False, True], ids=["one_pass", "ordered"])
+@pytest.mark.parametrize("case", TOPK_CASES)
+def test_fused_topk_both_forms_match_plain(cuda, monkeypatch, case, ordered, quant):
+    """Both forms of the kernel against the plain version at small sizes, the
+    ordered form forced by the path constant."""
+    from repro_torch.kernels import fused_topk as ft
+
+    b, c, k, n = case
+    q, corpus, ids, bias = _topk_case(sum(case), b, c, n=n, quant=quant)
+    monkeypatch.setattr(ft, "ORDERED_MIN_PAIRS", 0 if ordered else 2**62)
+    wrap, plain = ((ft.fused_topk_int8, ft.fused_topk_int8_plain) if quant
+                   else (ft.fused_topk, ft.fused_topk_plain))
+    for bias_t in (None, bias):
+        want = plain(q, corpus, ids, k, bias_t)
+        before = wrap.launches
+        got = wrap(q.to(cuda), corpus.to(cuda), ids.to(cuda), k,
+                   None if bias_t is None else bias_t.to(cuda))
+        torch.cuda.synchronize()
+        assert wrap.launches == before + 1
+        _check_topk(got, want, k, c)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["fp32", "int8"])
+@pytest.mark.parametrize("shape", [(2048, 152, 12), (2048, 12, 12), (32, 24, 24), (32, 24, 16),
+                                   (1024, 16, 16), (2048, 1032, 32)],
+                         ids=["refine_round", "refine_init", "serve_round", "serve_twin",
+                              "search_round", "descent_chunk"])
+def test_fused_topk_main_path_shapes(cuda, shape, quant):
+    """The refinement, served, search and descent shapes (B, C, k) as the
+    wrapper routes them (the descent chunk ordered, the rest in one pass), at
+    Dd 1024 over 2^14 rows."""
+    from repro_torch.kernels import fused_topk as ft
+
+    b, c, k = shape
+    q, corpus, ids, bias = _topk_case(b + c + k, b, c, n=2**14, dd=1024, quant=quant)
+    wrap, plain = ((ft.fused_topk_int8, ft.fused_topk_int8_plain) if quant
+                   else (ft.fused_topk, ft.fused_topk_plain))
+    qc, cc, ic, bc = q.to(cuda), corpus.to(cuda), ids.to(cuda), bias.to(cuda)
+    rows = slice(0, min(b, 64))  # the plain version on the CPU: the first rows
+    want = plain(q[rows], corpus, ids[rows].contiguous(), k, bias[rows].contiguous())
+    got = wrap(qc, cc, ic, k, bc)
+    _check_topk([t[rows] for t in got], want, k, c)
+
+
+@pytest.mark.parametrize("ordered", [False, True], ids=["one_pass", "ordered"])
+def test_fused_topk_is_deterministic(cuda, monkeypatch, ordered):
+    """Two launches give bit-identical scores and positions in either form
+    (the counting sort orders the pairs of one id by atomics, but each score
+    is one warp's fixed-order sum)."""
+    from repro_torch.kernels import fused_topk as ft
+
+    q, corpus, ids, bias = _topk_case(5, 64, 200)
+    monkeypatch.setattr(ft, "ORDERED_MIN_PAIRS", 0 if ordered else 2**62)
+    args = (q.to(cuda), corpus.to(cuda), ids.to(cuda), 32, bias.to(cuda))
+    a, b = ft.fused_topk(*args), ft.fused_topk(*args)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
 FLASH_CASES = [
     # (B, H, KV, L, S, dk, dv, causal)
     (2, 8, 2, 333, 333, 64, 64, True),  # L not a multiple of any tile, g = 4
