@@ -10,7 +10,8 @@ Phases (each prints its own lines; any failure exits nonzero):
      parallel, into the gitignored ``build/`` directory), and the registers,
      spills and shared memory of the tensor-core flash kernels (the forward
      and the backward pair) per head-dim class (no spills allowed at d = 64)
-     and of every fused top-k kernel (no spills allowed);
+     and of every fused top-k, pair-tile and hybrid-distance kernel (no
+     spills allowed), with the pair tiles' blocks an SM;
   2. kernel checks: each kernel against its plain PyTorch version on the
      card, at the main path's shapes (Dd = 1024, the corpus caps, B x C of
      NN-Descent and refinement chunks and inits, search rounds, and the
@@ -18,9 +19,12 @@ Phases (each prints its own lines; any failure exits nonzero):
      rows, k > live, planted ties); the int8 variants over an int8 segment
      of 2^18 rows at the shapes a served 32-row bucket gives them and at a
      large shape, with a zero row and a row at +-127 among the candidates;
-     max-abs-error, agreement up to ties, times (CUDA events, and for the
-     fused top-k the kernels' device time under torch.profiler, which a
-     host-bound call's event timing hides) and bounds;
+     max-abs-error, agreement up to ties, two launches bit-identical, times
+     (CUDA events, and the kernels' device time with the host out of the
+     timed span, which a host-bound call's event timing hides) and bounds;
+     the hybrid distance also at a per-path norm launch (B 65,536, C 1) and
+     the fp32 served shapes; the pair tiles bounded at the TF32 rate (3
+     products per fp32 product, the 3xTF32 route);
   3. small end-to-end: N = 4096 docs with the KG, built and searched once
      through the kernels and once through the plain versions;
   4. full width: make_corpus at N = 2^20, d_dense = 1024, build_index with
@@ -30,7 +34,10 @@ Phases (each prints its own lines; any failure exits nonzero):
      and one refinement round chunk as the build hands them to the fused
      top-k (built by knn_graph._descent_round_chunk from this graph), their
      live pairs and unique rows, checked and timed beside phase 2's uniform
-     ids;
+     ids; the first prune chunk's pair tiles (knn_ids[0:1024], clamped) with
+     its unique rows and bounds; and the build's first 16 prune chunks
+     (pruning._prune_chunk, caught during the build) replayed, bare and under
+     torch.profiler: wall time, device busy time and pairwise_tile's share;
   5. serving at full width: the same corpus as four sealed segments of 2^18
      (build_pool_segment + append_segment, one fp32 group) and its int8
      twin, each served through HybridSearchService (default ServiceConfig)
@@ -100,10 +107,12 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_FLOP_PER_S = 67e12  # H100 SXM fp32, outside the tensor cores
 BF16_FLOP_PER_S = 989e12  # H100 SXM bf16, tensor cores, dense
+TF32_FLOP_PER_S = 495e12  # H100 SXM tf32, tensor cores, dense
 TOL = 1e-4  # fp32 sums of ~1000 products in another order than the plain version
 N_FULL = 2**20
 N_QUERIES = 1024
 N_SEGMENT = 2**18  # phase 5: the 2^20 corpus as four sealed segments
+PROFILED_CHUNKS = 16  # phase 4: prune chunks replayed under torch.profiler
 RECALL_GAP = 0.02  # int8 three-path recall@10 must stay within this of fp32 (ROADMAP Queue 1)
 # int8-stored brute-force top-10 overlap with fp32's: sound 0.9996, planted
 # scale faults 0.0009 and 0.9769 on an H100 at 2^20 (PERF.md, Findings PR 12)
@@ -225,6 +234,18 @@ def scoring_work(q, corpus, ids, out_bytes: int, extra_in: int = 0):
     return nbytes, flops
 
 
+def tile_work(corpus, ids):
+    """Bytes of a pair-tile launch (each unique row read once, the ids, the
+    (C, K, K) output) and its fp32 flops (2 K^2 Dd a node; the tensor-core
+    route issues each product three times, 3xTF32)."""
+    import torch
+
+    c, k = ids.shape
+    uniq = int(torch.unique(ids).numel())
+    nbytes = uniq * row_bytes(corpus) + ids.numel() * 4 + c * k * k * 4
+    return nbytes, 2.0 * corpus.dense.shape[1] * c * k * k
+
+
 # ---------------------------------------------------------------------------
 # agreement checks
 # ---------------------------------------------------------------------------
@@ -336,6 +357,27 @@ def phase_device():
             f"static shared memory {r.get('smem', 0)} B"
             + (f"; dynamic shared memory {smem}" if m[1] == "fused_topk_kernel" else ""))
         need(r["spill_stores"] == 0 and r["spill_loads"] == 0, f"{m[1]}{view} spills registers")
+    # the pair tiles (T: 8-column blocks a warp, 2 for K <= 32, 8 for K <= 64)
+    # and both forms of the distance kernel over both storage views
+    per_sm = lib.pairwise_tile_blocks_per_sm(32, 1024, 32, 16, 0)
+    need(per_sm > 0, "pairwise_tile: no block fits an SM")
+    for r in ptxas_resources(log):
+        m = (re.search(r"(pairwise_tile_kernel)ILi(\d+)E", r["name"])
+             or re.search(r"(hybrid_distance_(?:warp_)?kernel)IN2rt(\d+)(CorpusView\w*?)E",
+                          r["name"]))
+        if m is None:
+            continue
+        what = (f"{m[1]}<{m[2]}>" if m[1] == "pairwise_tile_kernel"
+                else f"{m[1]}<{m[3][:int(m[2])]}>")
+        extra = ""
+        if m[1] == "pairwise_tile_kernel" and m[2] == "2":
+            extra = (f"; dynamic shared memory at K = 32, Dd 1024, 32 / 16 slots "
+                     f"{lib.pairwise_tile_smem_bytes(32, 1024, 32, 16)} B, {per_sm} blocks an SM")
+        say(f"phase 1 ptxas {what}: {r['registers']} registers, spill stores "
+            f"{r['spill_stores']} B, spill loads {r['spill_loads']} B, stack {r['stack']} B, "
+            f"static shared memory "
+            f"{r.get('smem', 0)} B{extra}")
+        need(r["spill_stores"] == 0 and r["spill_loads"] == 0, f"{what} spills registers")
     return card
 
 
@@ -431,9 +473,10 @@ def pair_stats(ids, n: int) -> tuple[int, int]:
 
 
 def record_check(results: dict, phase: str, name: str, shape: str, err: float, ms: float,
-                 plain_ms: float, nbytes: float, flops: float, dev_ms=None) -> None:
+                 plain_ms: float, nbytes: float, flops: float, dev_ms=None,
+                 flop_rate: float = FP32_FLOP_PER_S) -> None:
     """A kernel's reading at one shape into ``results`` and the log."""
-    b_ms, b_by = bound(nbytes, flops)
+    b_ms, b_by = bound(nbytes, flops, flop_rate)
     results.setdefault(name, {"max_abs_err": 0.0, "checks": []})
     results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
     results[name]["checks"].append(dict(shape=shape, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
@@ -528,6 +571,9 @@ def phase_kernels(corpus, queries, results: dict):
             full = full + bias
         full = torch.where(ids >= 0, full, torch.full_like(full, NEG))
         err = topk_agree(s_k, p_k, s_p, p_p, full, TOL)
+        again = fused_topk(q, cor, ids, k, bias)
+        need(torch.equal(again[0], s_k) and torch.equal(again[1], p_k),
+             f"fused_topk {label}: two launches differ")
         if edges:
             check_edges(p_k, s_k, k, f"fused_topk {label}")
         reps = 5 if b * ids.shape[1] > 2**20 else 20
@@ -547,26 +593,38 @@ def phase_kernels(corpus, queries, results: dict):
         *(SparseVec(torch.cat([sv.idx] * 3), torch.cat([sv.val] * 3))
           for sv in (q.learned, q.lexical)))
     rescore_q = stack3(qw)
+    norm_rows = 65536  # build_pipeline._NORM_CHUNK: one of the build's 48 per-path norm launches
     cases = [
         ("self_scores", corpus, self_ids),
+        ("path_norm", weighted_query(rows(0, norm_rows), SINGLE_PATH_WEIGHTS[0]),
+         self_ids[:norm_rows].contiguous()),
         ("entry_scoring", qw, random_ids(n, N_QUERIES, 16, 0.0, gen)),
         ("final_rescore", rescore_q, random_ids(n, 3 * N_QUERIES, sp.pool_size + sp.kw_pool_size,
                                                 0.3, gen)),
+        ("serve_entry", qw[0:32], random_ids(N_SEGMENT, 32, BuildConfig().n_entry, 0.0, gen)),
+        ("serve_rescore", stack3(qw[0:32]), random_ids(N_SEGMENT, 96, sp.pool_size
+                                                       + sp.kw_pool_size, 0.3, gen)),
     ]
     for label, q, ids in cases:
-        out_k = hybrid_distance(q, corpus, ids)
-        out_p = hybrid_distance_plain(q, corpus, ids)
+        cor = seg if label.startswith("serve") else corpus
+        out_k = hybrid_distance(q, cor, ids)
+        out_p = torch.cat([hybrid_distance_plain(q[s:s + 65536], cor, ids[s:s + 65536])
+                           for s in range(0, ids.shape[0], 65536)])
         need(torch.equal(torch.isinf(out_k), ids < 0), f"hybrid_distance {label}: -inf mask")
+        need(torch.equal(hybrid_distance(q, cor, ids), out_k),
+             f"hybrid_distance {label}: two launches differ")
         live = ids >= 0
         err = float((out_k - out_p).abs()[live].max().item())
         need(err <= TOL, f"hybrid_distance {label}: error {err}")
-        ms = time_ms(lambda: hybrid_distance(q, corpus, ids), 5 if label == "self_scores" else 20)
-        plain_ms = time_ms(lambda: hybrid_distance_plain(q, corpus, ids), 2, warm=1)
-        nbytes, flops = scoring_work(q, corpus, ids, ids.numel() * 4)
+        reps = 5 if label == "self_scores" else 20
+        ms = time_ms(lambda: hybrid_distance(q, cor, ids), reps)
+        dev = device_ms(lambda: hybrid_distance(q, cor, ids), reps)
+        plain_ms = time_ms(lambda: hybrid_distance_plain(q, cor, ids), 2, warm=1)
+        nbytes, flops = scoring_work(q, cor, ids, ids.numel() * 4)
         if label == "self_scores":  # query rows are the corpus rows: read once
             nbytes -= q.n * row_bytes(q)
         record("hybrid_distance", f"{label} B={ids.shape[0]} C={ids.shape[1]}", err, ms,
-               plain_ms, nbytes, flops)
+               plain_ms, nbytes, flops, dev)
         torch.cuda.empty_cache()
 
     # --- pairwise_tile: one RNG-IP prune chunk -----------------------------
@@ -577,12 +635,13 @@ def phase_kernels(corpus, queries, results: dict):
     err = float((out_k - out_p).abs().max().item())
     need(err <= TOL, f"pairwise_tile: error {err}")
     need(torch.equal(out_k[0, 5], out_k[0, 6]), "pairwise_tile: identical rows differ")
+    need(torch.equal(pairwise_tile(corpus, ids), out_k), "pairwise_tile: two launches differ")
     ms = time_ms(lambda: pairwise_tile(corpus, ids), 10)
+    dev = device_ms(lambda: pairwise_tile(corpus, ids), 10)
     plain_ms = time_ms(lambda: pairwise_tile_plain(corpus, ids), 2, warm=1)
-    uniq = int(torch.unique(ids).numel())
-    nbytes = uniq * row_bytes(corpus) + ids.numel() * 4 + ids.shape[0] * 32 * 32 * 4
-    flops = 2.0 * corpus.dense.shape[1] * ids.shape[0] * 32 * 32
-    record("pairwise_tile", "prune_chunk C=1024 K=32", err, ms, plain_ms, nbytes, flops)
+    nbytes, flops = tile_work(corpus, ids)
+    record_check(results, "phase 2", "pairwise_tile", "prune_chunk C=1024 K=32", err, ms,
+                 plain_ms, nbytes, 3 * flops, dev, TF32_FLOP_PER_S)
     torch.cuda.empty_cache()
 
     # --- int8 variants over one sealed segment's storage ---------------------
@@ -661,14 +720,18 @@ def phase_kernels(corpus, queries, results: dict):
         out_k = hybrid_distance_int8(q, cq, ids)
         out_p = hybrid_distance_int8_plain(q, cq, ids)
         need(torch.equal(torch.isinf(out_k), ids < 0), f"hybrid_distance_int8 {label}: -inf mask")
+        need(torch.equal(hybrid_distance_int8(q, cq, ids), out_k),
+             f"hybrid_distance_int8 {label}: two launches differ")
         live = ids >= 0
         err = float((out_k - out_p).abs()[live].max().item())
         need(err <= TOL, f"hybrid_distance_int8 {label}: error {err}")
-        ms = time_ms(lambda: hybrid_distance_int8(q, cq, ids), 5 if ids.shape[0] > 256 else 20)
+        reps = 5 if ids.shape[0] > 256 else 20
+        ms = time_ms(lambda: hybrid_distance_int8(q, cq, ids), reps)
+        dev = device_ms(lambda: hybrid_distance_int8(q, cq, ids), reps)
         plain_ms = time_ms(lambda: hybrid_distance_int8_plain(q, cq, ids), 2, warm=1)
         nbytes, flops = scoring_work(q, cq, ids, ids.numel() * 4)
         record("hybrid_distance_int8", f"{label} B={ids.shape[0]} C={ids.shape[1]}", err, ms,
-               plain_ms, nbytes, flops)
+               plain_ms, nbytes, flops, dev)
         torch.cuda.empty_cache()
 
 
@@ -711,6 +774,28 @@ def stage_counter(wrapper):
     finally:
         for name, fn in sound.items():
             setattr(bp, name, fn)
+
+
+@contextlib.contextmanager
+def prune_chunks_caught(count: int):
+    """The arguments of the first ``count`` ``pruning._prune_chunk`` calls
+    the build inside the block makes (``_prune_all``'s node chunks, in
+    order), to replay them later; the calls themselves run as they are."""
+    from repro_torch.core import pruning
+
+    caught: list = []
+    sound = pruning._prune_chunk
+
+    def catch(*args, **kw):
+        if len(caught) < count:
+            caught.append((args, kw))
+        return sound(*args, **kw)
+
+    pruning._prune_chunk = catch
+    try:
+        yield caught
+    finally:
+        pruning._prune_chunk = sound
 
 
 def phase_small_e2e():
@@ -793,7 +878,7 @@ def phase_full(corpus_bundle, results: dict):
         w.launches = 0
     report = {}
     t = time.perf_counter()
-    with stage_counter(fused_topk) as by_stage:
+    with stage_counter(fused_topk) as by_stage, prune_chunks_caught(PROFILED_CHUNKS) as chunks:
         index = build_index(c.docs, report=report)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t
@@ -848,6 +933,63 @@ def phase_full(corpus_bundle, results: dict):
                      f"{label} B={ids.shape[0]} C={ids.shape[1]} k={k}", err, ms, plain_ms,
                      nbytes, flops, dev)
         torch.cuda.empty_cache()
+
+    # ---- the build's own pairwise_tile launches: its first prune chunk,
+    # beside phase 2's uniform ids; then 16 consecutive prune chunks replayed
+    # under torch.profiler: is the kernel on the prune stage's critical path?
+    from repro_torch.core import pruning
+    from repro_torch.kernels.pairwise_tile import pairwise_tile_plain
+
+    ids = report["knn_ids"][0:1024].clamp(0, n - 1).to(torch.int32).contiguous()  # ops.py's clamp
+    live, uniq = pair_stats(ids, n)
+    out_k = pairwise_tile(c.docs, ids)
+    err = float((out_k - pairwise_tile_plain(c.docs, ids)).abs().max().item())
+    need(err <= TOL, f"pairwise_tile real prune chunk: error {err}")
+    need(torch.equal(pairwise_tile(c.docs, ids), out_k), "pairwise_tile real prune chunk: two "
+         "launches differ")
+    ms = time_ms(lambda: pairwise_tile(c.docs, ids), 10)
+    dev = device_ms(lambda: pairwise_tile(c.docs, ids), 10)
+    plain_ms = time_ms(lambda: pairwise_tile_plain(c.docs, ids), 2, warm=1)
+    nbytes, flops = tile_work(c.docs, ids)
+    say(f"phase 4 real_prune_chunk: {live} slots, unique rows {uniq}, slots per unique row "
+        f"{live / max(uniq, 1):.3f}; bound by bytes {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms, "
+        f"by fp32 operations {flops / FP32_FLOP_PER_S * 1e3:.4f} ms, by 3xTF32 operations "
+        f"{3 * flops / TF32_FLOP_PER_S * 1e3:.4f} ms")
+    record_check(results, "phase 4", "pairwise_tile", "real_prune_chunk C=1024 K=32", err, ms,
+                 plain_ms, nbytes, 3 * flops, dev, TF32_FLOP_PER_S)
+    need(len(chunks) == PROFILED_CHUNKS, f"caught {len(chunks)} prune chunks")
+
+    def replay():
+        for args, kw in chunks:
+            pruning._prune_chunk(*args, **kw)
+
+    replay()  # warm
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    replay()
+    torch.cuda.synchronize()
+    bare_s = time.perf_counter() - t
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        replay()
+        torch.cuda.synchronize()
+        prof_s = time.perf_counter() - t
+    kern = cuda_kernels(prof)
+    busy = sum(ms for _, ms in kern.values())
+    tiles = [v for k, v in kern.items() if "pairwise_tile" in k]
+    need(len(tiles) > 0 and busy > 0, "phase 4: the profile shows no pairwise_tile kernel")
+    tile_n, tile_ms = sum(v[0] for v in tiles), sum(v[1] for v in tiles)
+    top = sorted(kern.items(), key=lambda kv: -kv[1][1])[:4]
+    say(f"phase 4 prune chunks, {PROFILED_CHUNKS} consecutive replayed: wall {bare_s * 1e3:.2f} ms "
+        f"({bare_s * 1e3 / PROFILED_CHUNKS:.3f} a chunk; the build's prune stage "
+        f"{st['prune'] * 1e3 / -(-n // 1024):.3f} a chunk), {prof_s * 1e3:.2f} ms profiled; device "
+        f"busy {busy:.3f} ms ({busy / (prof_s * 1e3):.3f} of the profiled wall, "
+        f"{sum(v[0] for v in kern.values())} launches); pairwise_tile {tile_n} launches "
+        f"{tile_ms:.3f} ms = {tile_ms / busy:.3f} of busy; top kernels: "
+        + "; ".join(f"{k[:48]} {v[0]}x {v[1]:.3f} ms" for k, v in top))
+    del chunks[:]
+    torch.cuda.empty_cache()
 
     # ---- structure ---------------------------------------------------------
     sem = index.semantic_edges

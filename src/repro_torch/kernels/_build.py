@@ -34,9 +34,9 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _ARGTYPES = {  # every launch ends (..., int device, void* stream)
     "hybrid_distance_launch": [_P] * 5 + [_I] * 4 + [_P] * 5 + [_L, _I, _I, _I]
-    + [_P, _I, _P, _I, _P],
+    + [_P, _I, _I, _P, _I, _P],
     "hybrid_distance_q8_launch": [_P] * 5 + [_I] * 4 + [_P] * 6 + [_L, _I, _I, _I]
-    + [_P, _I, _P, _I, _P],
+    + [_P, _I, _I, _P, _I, _P],
     "fused_topk_launch": [_P] * 5 + [_I] * 4 + [_P] * 5 + [_L, _I, _I, _I]
     + [_P, _P, _I, _I, _P, _P, _P, _I, _P],
     "fused_topk_q8_launch": [_P] * 5 + [_I] * 4 + [_P] * 6 + [_L, _I, _I, _I]
@@ -44,9 +44,10 @@ _ARGTYPES = {  # every launch ends (..., int device, void* stream)
     "fused_topk_smem_bytes": [_I] * 5,
     "fused_topk_workspace_bytes": [_I, _I, _L],
     "fused_topk_ordered_max_dd": [],
-    "pairwise_tile_launch": [_P] * 5 + [_L, _I, _I, _I] + [_P, _I, _I, _P, _I, _P],
-    "pairwise_tile_smem_bytes": [_I, _I, _I],
+    "pairwise_tile_launch": [_P] * 5 + [_L, _I, _I, _I, _I] + [_P, _I, _I, _P, _I, _P],
+    "pairwise_tile_smem_bytes": [_I, _I, _I, _I],
     "pairwise_tile_max_k": [],
+    "pairwise_tile_blocks_per_sm": [_I] * 5,
     "flash_attention_fwd_launch": [_P] * 5 + [_I] * 7 + [_L] * 12
     + [_I, ctypes.c_float, _I, _I, _P],
     "flash_attention_smem_bytes": [_I, _I, _I],

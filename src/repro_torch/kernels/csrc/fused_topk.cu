@@ -53,15 +53,15 @@
 
 namespace {
 
+using rt::kFull;
+using rt::kNoPos;  // with -inf: the key every candidate beats
 using rt::kWarp;
-constexpr unsigned kFull = 0xffffffffu;
-constexpr int kNoPos = 0x7fffffff;  // with -inf: the key every candidate beats
+using rt::QueryArgs;
 constexpr int kMaxM = 2;            // keys per lane of the running top-k
 // one pass: a block per query row, its warps taking the row's candidates
 constexpr int kOnePassMaxWarps = 32;  // small launches: a warp per candidate
 constexpr int kOnePassWarps = 4;      // launches of more than kSmallRows query rows
 constexpr int kSmallRows = 264;       // two blocks per SM of the H100's 132
-constexpr int kOnePassVec = 4;        // 16-byte loads a lane in flight per row (Dd 1024: 2 steps)
 // ordered
 constexpr int kPrepWarps = 8;         // query ELL rows sorted, a warp each
 constexpr int kCountThreads = 256;    // histogram and scatter, grid-stride over B x C
@@ -290,174 +290,6 @@ __host__ __device__ constexpr size_t select_smem_bytes(int warps) {
   return size_t(warps) * kWarp * kMaxM * 8 + 16;
 }
 
-// ---- the query row ----------------------------------------------------------
-
-// Sort the live entries of one query ELL row ascending by id into sid/sval
-// with one warp; returns the live count. P <= 32: a bitonic sort over the
-// lanes; wider rows: a rank sort over the warp's lanes.
-__device__ __forceinline__ int warp_sort_ell(const int* idx, const float* val, int P, int* sid,
-                                             float* sval, int lane) {
-  if (P <= kWarp) {
-    int key = lane < P ? idx[lane] : -1;
-    float v = lane < P ? val[lane] : 0.f;
-    const int n = __popc(__ballot_sync(kFull, key >= 0));
-    if (key < 0) key = kNoPos;
-#pragma unroll
-    for (int size = 2; size <= kWarp; size <<= 1)
-#pragma unroll
-      for (int d = size >> 1; d > 0; d >>= 1) {
-        const int ok = __shfl_xor_sync(kFull, key, d);
-        const float ov = __shfl_xor_sync(kFull, v, d);
-        const bool up = (lane & size) == 0;
-        const bool take_min = ((lane & d) == 0) == up;
-        if (take_min ? ok < key : ok > key) { key = ok; v = ov; }
-      }
-    if (lane < n) { sid[lane] = key; sval[lane] = v; }
-    __syncwarp();
-    return n;
-  }
-  rt::rank_sort_row(idx, val, P, sid, sval, lane, kWarp);
-  int n = 0;
-  for (int p = lane; p < P; p += kWarp) n += idx[p] >= 0;
-  n = __reduce_add_sync(kFull, n);
-  __syncwarp();
-  return n;
-}
-
-struct QueryArgs {
-  const float* dense;
-  const int* si;
-  const float* sv;
-  const int* fi;
-  const float* fv;
-  int dd, psq, pfq;
-};
-
-// ---- the one-pass row scorer ----------------------------------------------------
-
-// Lane-partial dense dot of corpus row `row` with the query in shared memory:
-// kOnePassVec 16-byte loads a lane issued before any is used.
-__device__ __forceinline__ float dense_partial(const rt::CorpusView& c, const float* qd,
-                                              long long row, int lane) {
-  float d = 0.f;
-  if (c.vec) {
-    const int n4 = c.dd >> 2;
-    const float4* c4 = reinterpret_cast<const float4*>(c.dense + size_t(row) * c.dd);
-    const float4* q4 = reinterpret_cast<const float4*>(qd);
-    for (int base = 0; base < n4; base += kOnePassVec * kWarp) {
-      float4 a[kOnePassVec];
-#pragma unroll
-      for (int u = 0; u < kOnePassVec; ++u) {
-        const int i = base + u * kWarp + lane;
-        a[u] = i < n4 ? __ldg(c4 + i) : make_float4(0.f, 0.f, 0.f, 0.f);
-      }
-#pragma unroll
-      for (int u = 0; u < kOnePassVec; ++u) {
-        const int i = base + u * kWarp + lane;
-        if (i < n4) {
-          const float4 b = q4[i];
-          d += a[u].x * b.x + a[u].y * b.y + a[u].z * b.z + a[u].w * b.w;
-        }
-      }
-    }
-  } else {
-    const float* crow = c.dense + size_t(row) * c.dd;
-    for (int i = lane; i < c.dd; i += kWarp) d += __ldg(crow + i) * qd[i];
-  }
-  return d;
-}
-
-__device__ __forceinline__ float dense_partial(const rt::CorpusViewQ8& c, const float* qd,
-                                              long long row, int lane) {
-  constexpr int U = 4;  // 16 int8 values a load: Dd = 1024 is 2 loads a lane
-  float d = 0.f;
-  if (c.vec) {
-    const int n16 = c.dd >> 4;
-    const int4* c16 = reinterpret_cast<const int4*>(c.dense + size_t(row) * c.dd);
-    const float4* q4 = reinterpret_cast<const float4*>(qd);
-    for (int base = 0; base < n16; base += U * kWarp) {
-      int4 a[U];
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const int i = base + u * kWarp + lane;
-        a[u] = i < n16 ? __ldg(c16 + i) : make_int4(0, 0, 0, 0);
-      }
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const int i = base + u * kWarp + lane;
-        if (i < n16)
-          d += rt::dot4_i8(a[u].x, q4[4 * i]) + rt::dot4_i8(a[u].y, q4[4 * i + 1]) +
-               rt::dot4_i8(a[u].z, q4[4 * i + 2]) + rt::dot4_i8(a[u].w, q4[4 * i + 3]);
-      }
-    }
-  } else {
-    const int8_t* crow = c.dense + size_t(row) * c.dd;
-    for (int i = lane; i < c.dd; i += kWarp) d += float(__ldg(crow + i)) * qd[i];
-  }
-  return d;
-}
-
-__device__ __forceinline__ float row_scale(const rt::CorpusView&, long long) { return 1.f; }
-__device__ __forceinline__ float row_scale(const rt::CorpusViewQ8& c, long long row) {
-  return __ldg(c.scale + row);
-}
-__device__ __forceinline__ float finish(const rt::CorpusView&, float d, float) { return d; }
-__device__ __forceinline__ float finish(const rt::CorpusViewQ8&, float d, float s) {
-  return d * s;  // once per row, after the warp reduction (hybrid_distance.py:69)
-}
-
-__device__ __forceinline__ float ell_val(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float ell_val(const __half* p) { return __half2float(*p); }
-
-// ELL slots past a warp's width (rows wider than 32): lane p takes p + 32, ...
-template <typename T>
-__device__ float ell_tail(const int* ci, const T* cv, int P, const int* qid, const float* qval,
-                          int nq, long long row, int lane) {
-  float s = 0.f;
-  for (int p = lane + kWarp; p < P; p += kWarp) {
-    const size_t o = size_t(row) * P + p;
-    const int x = __ldg(ci + o);
-    if (x >= 0) {
-      const int j = rt::find_sorted(qid, nq, x);
-      if (j >= 0) s += ell_val(cv + o) * qval[j];
-    }
-  }
-  return s;
-}
-
-// Hybrid score (dense + learned) + lexical of live corpus row `row` against
-// the query in shared memory; every lane returns it. Every load of the row
-// is issued before any result is used: lane p's ELL id and value of both
-// paths (a value loaded only on a match would be one more latency in the
-// chain), the scale, then the dense words; the lookups in the query's
-// sorted ids run while those loads are in flight.
-template <typename View>
-__device__ __forceinline__ float score_row(const View& c, const rt::QueryCache& q, long long row,
-                                           int lane) {
-  const size_t os = size_t(row) * c.ps + lane, of = size_t(row) * c.pf + lane;
-  const int sid = lane < c.ps ? __ldg(c.si + os) : -1;
-  const float sv = lane < c.ps ? ell_val(c.sv + os) : 0.f;
-  const int fid = lane < c.pf ? __ldg(c.fi + of) : -1;
-  const float fv = lane < c.pf ? ell_val(c.fv + of) : 0.f;
-  const float sc = row_scale(c, row);
-  float d = dense_partial(c, q.dense, row, lane);
-  float s = 0.f, f = 0.f;
-  if (sid >= 0) {
-    const int j = rt::find_sorted(q.sid, q.counts[0], sid);
-    if (j >= 0) s = sv * q.sval[j];
-  }
-  if (fid >= 0) {
-    const int j = rt::find_sorted(q.fid, q.counts[1], fid);
-    if (j >= 0) f = fv * q.fval[j];
-  }
-  s += ell_tail(c.si, c.sv, c.ps, q.sid, q.sval, q.counts[0], row, lane);
-  f += ell_tail(c.fi, c.fv, c.pf, q.fid, q.fval, q.counts[1], row, lane);
-  d = finish(c, rt::warp_sum(d), sc);
-  s = rt::warp_sum(s);
-  f = rt::warp_sum(f);
-  return (d + s) + f;
-}
-
 // ---- one pass: one block per query row ---------------------------------------
 
 template <typename View>
@@ -472,19 +304,7 @@ __global__ void __launch_bounds__(kOnePassMaxWarps * kWarp) fused_topk_kernel(
   float* scores = reinterpret_cast<float*>(smem + rt::query_cache_bytes(qa.dd, qa.psq, qa.pfq));
   float* lists = scores + ((C + 3) & ~3);
 
-  const float* qrow = qa.dense + size_t(b) * qa.dd;
-  for (int i = threadIdx.x; i < qa.dd; i += blockDim.x) q.dense[i] = qrow[i];
-  if (warp == 0) {
-    const int n = warp_sort_ell(qa.si + size_t(b) * qa.psq, qa.sv + size_t(b) * qa.psq, qa.psq,
-                                q.sid, q.sval, lane);
-    if (lane == 0) q.counts[0] = n;
-  }
-  if (warp == (nwarps > 1 ? 1 : 0)) {
-    const int n = warp_sort_ell(qa.fi + size_t(b) * qa.pfq, qa.fv + size_t(b) * qa.pfq, qa.pfq,
-                                q.fid, q.fval, lane);
-    if (lane == 0) q.counts[1] = n;
-  }
-  __syncthreads();
+  rt::stage_query(q, qa, b);
 
   const int* idrow = ids + size_t(b) * C;
   const float* brow = bias == nullptr ? nullptr : bias + size_t(b) * C;
@@ -492,7 +312,7 @@ __global__ void __launch_bounds__(kOnePassMaxWarps * kWarp) fused_topk_kernel(
     const int id = idrow[c];
     float v = rt::kNeg;
     if (id >= 0 && id < corpus.n) {
-      v = score_row(corpus, q, id, lane);
+      v = rt::score_row(corpus, q, id, lane);
       if (brow != nullptr) v += brow[c];
     }
     if (lane == 0) scores[c] = v;
@@ -554,9 +374,9 @@ __global__ void __launch_bounds__(kPrepWarps * kWarp) fused_topk_prep_kernel(Que
   const int b = blockIdx.x * kPrepWarps + threadIdx.x / kWarp;
   if (b >= B) return;
   const size_t o = size_t(b) * kMaxSlots;
-  const int ns = warp_sort_ell(qa.si + size_t(b) * qa.psq, qa.sv + size_t(b) * qa.psq, qa.psq,
+  const int ns = rt::warp_sort_ell(qa.si + size_t(b) * qa.psq, qa.sv + size_t(b) * qa.psq, qa.psq,
                                w.qsid + o, w.qsval + o, lane);
-  const int nf = warp_sort_ell(qa.fi + size_t(b) * qa.pfq, qa.fv + size_t(b) * qa.pfq, qa.pfq,
+  const int nf = rt::warp_sort_ell(qa.fi + size_t(b) * qa.pfq, qa.fv + size_t(b) * qa.pfq, qa.pfq,
                                w.qfid + o, w.qfval + o, lane);
   if (lane == 0) { w.qn[2 * b] = ns; w.qn[2 * b + 1] = nf; }
 }
@@ -721,9 +541,9 @@ struct HeldRow<rt::CorpusViewQ8> {
       d[u] = i < n16 ? __ldcs(c16 + i) : make_int4(0, 0, 0, 0);
     }
     si = lane < c.ps ? __ldg(c.si + size_t(row) * c.ps + lane) : -1;
-    sv = lane < c.ps ? ell_val(c.sv + size_t(row) * c.ps + lane) : 0.f;
+    sv = lane < c.ps ? rt::ell_val(c.sv + size_t(row) * c.ps + lane) : 0.f;
     fi = lane < c.pf ? __ldg(c.fi + size_t(row) * c.pf + lane) : -1;
-    fv = lane < c.pf ? ell_val(c.fv + size_t(row) * c.pf + lane) : 0.f;
+    fv = lane < c.pf ? rt::ell_val(c.fv + size_t(row) * c.pf + lane) : 0.f;
     scale = __ldg(c.scale + row);
   }
   __device__ __forceinline__ float dot(const float* q, int dd, int lane) const {
@@ -745,24 +565,6 @@ struct HeldRow<rt::CorpusViewQ8> {
     return acc;
   }
 };
-
-// Lane's slot (key, val) against a sorted id list held one per lane (qid,
-// qval; n live): a binary search over shuffles, every lane taking part.
-__device__ __forceinline__ float lane_match(int key, float val, int qid, float qval, int n) {
-  int lo = 0, hi = n;
-#pragma unroll
-  for (int it = 0; it < 6; ++it) {  // n <= 32
-    const int mid = (lo + hi) >> 1;
-    const int x = __shfl_sync(kFull, qid, mid & (kWarp - 1));
-    if (lo < hi) {
-      if (x < key) lo = mid + 1;
-      else hi = mid;
-    }
-  }
-  const int x = __shfl_sync(kFull, qid, lo & (kWarp - 1));
-  const float xv = __shfl_sync(kFull, qval, lo & (kWarp - 1));
-  return (key >= 0 && lo < n && x == key) ? val * xv : 0.f;
-}
 
 // Scoring: warp w takes sorted pairs [w P, (w + 1) P); the row stays in its
 // registers while the id repeats, and each pair's query row comes from L2.
@@ -790,9 +592,9 @@ __global__ void __launch_bounds__(kScoreWarps * kWarp) fused_topk_score_kernel(
     const int qf = lane < nf ? w.qfid[qo] : kNoPos;
     const float qfv = lane < nf ? w.qfval[qo] : 0.f;
     float d = row.dot(qa.dense + size_t(b) * qa.dd, qa.dd, lane);
-    float s = lane_match(row.si, row.sv, qs, qsv, ns);
-    float f = lane_match(row.fi, row.fv, qf, qfv, nf);
-    d = finish(corpus, rt::warp_sum(d), row.scale);
+    float s = rt::lane_match(row.si, row.sv, qs, qsv, ns);
+    float f = rt::lane_match(row.fi, row.fv, qf, qfv, nf);
+    d = rt::finish(corpus, rt::warp_sum(d), row.scale);
     s = rt::warp_sum(s);
     f = rt::warp_sum(f);
     const float out = (d + s) + f;

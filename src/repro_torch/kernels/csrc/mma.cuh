@@ -1,6 +1,6 @@
 // Warp-level tensor-core helpers for sm_80+ (used on sm_90a): ldmatrix,
-// mma.sync m16n8k16 bf16 x bf16 -> fp32, cp.async, and the fragment layouts
-// that tie them together.
+// mma.sync m16n8k16 bf16 x bf16 -> fp32 and m16n8k8 tf32 x tf32 -> fp32,
+// cp.async, and the fragment layouts that tie them together.
 //
 // Fragments of mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32, for lane
 // l of the warp, g = l / 4 and t = l % 4 (PTX ISA, "Matrix fragments for
@@ -78,6 +78,48 @@ __device__ __forceinline__ const __nv_bfloat16* bt_addr(const __nv_bfloat16* t, 
 __device__ __forceinline__ const __nv_bfloat16* b_addr(const __nv_bfloat16* t, int ld, int r0,
                                                        int c0, int lane) {
   return t + (r0 + ((lane >> 3) & 1) * 8 + (lane & 7)) * ld + c0 + ((lane >> 4) & 1) * 8;
+}
+
+// Two 8 x 8 b16 matrices (lanes 0-15 give the row addresses), as x4.
+__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_u32(p)));
+}
+
+// Fragments of mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 for lane l,
+// g = l / 4, t = l % 4 (PTX ISA, "Matrix fragments for mma.m16n8k8"):
+//   A (16 x 8, row-major), 4 x b32: a[0] (g, t)  a[1] (g+8, t)  a[2] (g, t+4)
+//     a[3] (g+8, t+4)
+//   B (8 x 8, k x n), 2 x b32: b[0] (k = t, n = g)  b[1] (k = t+4, n = g)
+//   C/D as m16n8k16's.
+// An fp32 tile in shared memory read by ldmatrix (.b16, no .trans) gives
+// exactly these: an 8 x 8 b16 matrix is 8 rows of 4 floats, and lane l
+// receives word l % 4 of row l / 4. So A is ldmatrix_x4 of the 16 x 8 block
+// (rows 0-7 | 8-15) x (columns 0-3 | 4-7), and B, for a tile X stored n x k
+// (B = X^T, as in a Gram matrix X X^T), ldmatrix_x2 of rows n0..n0+7, columns
+// k0..k0+3 | k0+4..k0+7.
+
+// x as a TF32 pair: hi = x rounded to TF32's 10 mantissa bits (half an ulp
+// added to the bits, then the low 13 bits cleared: two integer operations;
+// cvt.rna.tf32.f32 does the same but at a fraction of the rate) and lo = x -
+// hi, exact in fp32, which the MMA reads to TF32 (truncating). A product
+// issued three times into one fp32 accumulator (lo hi, hi lo, hi hi;
+// 3xTF32) keeps ~fp32 operands: what it drops, lo lo and lo's truncation, is
+// ~2^-20 of the product.
+__device__ __forceinline__ void split_tf32(uint32_t x, uint32_t& hi, uint32_t& lo) {
+  hi = (x + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(__uint_as_float(x) - __uint_as_float(hi));
+}
+
+// d += a b over one m16n8k8 block, tf32 operands, fp32 accumulation.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // Two floats as bf16x2, the first in the low half (the lower column).

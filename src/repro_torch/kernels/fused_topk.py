@@ -28,20 +28,19 @@ hold ``(NEG, PAD_IDX)``.
 
 from __future__ import annotations
 
-import weakref
-
 import torch
 
 from repro_torch.core.usms import FusedVectors, QuantizedFusedVectors
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels.hybrid_distance import (
+    _args,
+    _device,
     _need,
     check_fused,
     check_ids,
     check_quantized,
     corpus_args,
     query_args,
-    tensors_device,
 )
 from repro_torch.kernels.ref import NEG as NEG  # re-export: callers mask on it
 
@@ -74,31 +73,6 @@ def fused_topk_int8_plain(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain version over int8 storage (``fused_topk_quant_ref``)."""
     return ref.fused_topk_quant_ref(q, corpus.take(ids), ids, bias, k)
-
-
-# Operands already checked, by the identity of their tensors: a search or a
-# build hands the same query and corpus tensors to many launches, and the
-# checks cost more host time than a small launch takes on the card.
-_checked: dict = {}
-
-
-def _args(fv, check, args) -> tuple:
-    """(``args(fv)``, device) of an operand, checked once per set of tensors."""
-    ts = fv.tensors()
-    key = (args, id(ts[0]))
-    hit = _checked.get(key)
-    if (hit is not None and len(hit[0]) == len(ts)
-            and all(r() is t and t.data_ptr() == p for r, t, p in zip(hit[0], ts, hit[1]))):
-        return hit[2]
-    devs = {t.device for t in ts}
-    _need(len(devs) == 1, f"tensors lie on several devices: {sorted(map(str, devs))}")
-    check(fv)
-    out = (args(fv), devs.pop())
-    if len(_checked) >= 64:
-        _checked.clear()
-    refs = tuple(weakref.ref(t) for t in ts)
-    _checked[key] = (refs, tuple(t.data_ptr() for t in ts), out)
-    return out
 
 
 def _launch(fn_name: str, q: FusedVectors, corpus, ids: torch.Tensor, k: int,
@@ -152,15 +126,6 @@ def _ordered_fits(lib, q: FusedVectors, corpus, vec: int) -> bool:
     dd = q.dense.shape[1]
     return (max(widths) <= ORDERED_MAX_SLOTS and vec == 1 and dd % 4 == 0
             and dd <= lib.fused_topk_ordered_max_dd() and q.dense.data_ptr() % 16 == 0)
-
-
-def _device(q, corpus, ids, bias) -> str:
-    """"cpu" (the plain version), "cuda" (the kernel), or raise."""
-    if ids.device.type == "cuda":
-        return "cuda"  # the launch checks that every operand lies there
-    dev = tensors_device(q, corpus, ids, bias)
-    _need(dev.type == "cpu", f"no kernel for device {dev}")
-    return "cpu"
 
 
 def fused_topk(

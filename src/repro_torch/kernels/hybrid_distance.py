@@ -8,10 +8,22 @@ views: it gathers candidate rows by id inside the kernel, so the
 ``(B, C, Dd)`` gathered copy that ``repro`` builds with ``corpus.take``
 never exists, and it intersects ELL rows by binary search over the query's
 sorted ids instead of Pq x Pc compares. Bound on the H100: bytes (one dense
-row per live candidate: Dd floats, or Dd int8 values + a 4-byte scale); the
-design streams each row once with coalesced 16-byte loads, one warp per
-candidate. The int8 form multiplies the warp-reduced dense sum by the row
-scale (DESIGN.md §13) and reads fp16 ELL values as fp16.
+row per live candidate: Dd floats, or Dd int8 values + a 4-byte scale).
+Every row is scored by the row scorer ``fused_topk`` shares (a warp a row,
+every load of the row in flight before any lookup), in one of two forms
+picked here by C (``SMALL_C_MAX``):
+
+* the warp form (C <= SMALL_C_MAX, every main-path launch: the build's
+  self scores and per-path norms at C = 1, entry scoring at C = 16, the
+  final re-score at C = 80): a warp holds one query row in registers, its
+  ELL rows sorted across its lanes, and scores that row's candidates; no
+  shared memory, no block barrier;
+* the block form (larger C, or operands the warp form does not take): a
+  block stages one query row in shared memory for its warps.
+
+The int8 form multiplies the warp-reduced dense sum by the row scale
+(DESIGN.md §13) and reads fp16 ELL values as fp16. Each score is one warp's
+fixed-order sum: the same bits on every launch, in either form.
 
 Each wrapper launches its kernel for CUDA tensors and takes its plain version
 for CPU tensors; there is no fallback between them.
@@ -19,10 +31,22 @@ for CPU tensors; there is no fallback between them.
 
 from __future__ import annotations
 
+import weakref
+
 import torch
 
 from repro_torch.core.usms import FusedVectors, QuantizedFusedVectors
 from repro_torch.kernels import _build, ref
+
+# C at or below which a launch takes the warp form (where the operands fit
+# it: Dd <= 1024 floats in 16-byte rows, query ELL widths <= 32). Every main
+# path's launch is at or below it: the self scores and per-path norms (C =
+# 1), entry scoring (C = 16) and the final re-score (C = 80), where the warp
+# form ran 0.2835 ms and the block form 0.3153 on an H100
+# (examples/torch_pairwise_tile_ablation.py).
+SMALL_C_MAX = 128
+WARP_FORM_MAX_DD = 1024  # csrc/hybrid_distance.cu: rt::kQueryWords 16-byte words a lane
+WARP_FORM_MAX_SLOTS = 32  # a lane per query ELL slot
 
 
 def hybrid_distance_plain(q: FusedVectors, corpus: FusedVectors, ids: torch.Tensor) -> torch.Tensor:
@@ -143,6 +167,8 @@ def query_args(q: FusedVectors) -> list:
 
 
 def check_query_corpus(q: FusedVectors, corpus, ids: torch.Tensor) -> None:
+    """Every operand check of a launch at once (the wrappers make them once
+    per set of operand tensors, ``_args``)."""
     b = q.dense.shape[0]
     check_fused(q, "q", b)
     if isinstance(corpus, QuantizedFusedVectors):
@@ -156,17 +182,72 @@ def check_query_corpus(q: FusedVectors, corpus, ids: torch.Tensor) -> None:
     _need(ids.shape[1] < 2**31 and b < 2**31, "B and C must fit in int32")
 
 
+# Operands already checked, by the identity of their tensors: a search or a
+# build hands the same query and corpus tensors to many launches, and the
+# checks cost more host time than a small launch takes on the card.
+_checked: dict = {}
+
+
+def _args(fv, check, args) -> tuple:
+    """(``args(fv)``, device) of an operand, checked once per set of tensors."""
+    ts = fv.tensors()
+    key = (args, id(ts[0]))
+    hit = _checked.get(key)
+    if (hit is not None and len(hit[0]) == len(ts)
+            and all(r() is t and t.data_ptr() == p for r, t, p in zip(hit[0], ts, hit[1]))):
+        return hit[2]
+    devs = {t.device for t in ts}
+    _need(len(devs) == 1, f"tensors lie on several devices: {sorted(map(str, devs))}")
+    check(fv)
+    out = (args(fv), devs.pop())
+    if len(_checked) >= 64:
+        _checked.clear()
+    refs = tuple(weakref.ref(t) for t in ts)
+    _checked[key] = (refs, tuple(t.data_ptr() for t in ts), out)
+    return out
+
+
+def _device(q, corpus, ids, bias=None) -> str:
+    """"cpu" (the plain version), "cuda" (the kernel), or raise."""
+    if ids.device.type == "cuda":
+        return "cuda"  # the launch checks that every operand lies there
+    dev = tensors_device(q, corpus, ids, bias)
+    _need(dev.type == "cpu", f"no kernel for device {dev}")
+    return "cpu"
+
+
+def _warp_form(qa: list, ca: list, c: int) -> bool:
+    qd, dd, psq, pfq, vec = qa[0], qa[6], qa[7], qa[8], ca[-1]
+    return (c <= SMALL_C_MAX and vec == 1 and dd % 4 == 0 and dd <= WARP_FORM_MAX_DD
+            and qd % 16 == 0 and max(psq, pfq) <= WARP_FORM_MAX_SLOTS)
+
+
+def warp_form(q: FusedVectors, corpus, c: int) -> bool:
+    """Whether a launch of C candidates per query row takes the warp form:
+    C <= SMALL_C_MAX and the operands fit it (16-byte query and corpus rows,
+    Dd <= 1024, query ELL widths <= 32)."""
+    return _warp_form(query_args(q), corpus_args(corpus), c)
+
+
 def _launch(fn_name: str, q: FusedVectors, corpus, ids: torch.Tensor) -> torch.Tensor:
-    check_query_corpus(q, corpus, ids)
-    b, c = ids.shape
+    quant = isinstance(corpus, QuantizedFusedVectors)
+    qa, qdev = _args(q, lambda f: check_fused(f, "q"), query_args)
+    ca, cdev = _args(corpus, (lambda f: check_quantized(f, "corpus")) if quant
+                     else (lambda f: check_fused(f, "corpus")), corpus_args)
+    b, dd, psq, pfq = qa[5:9]
+    check_ids(ids, b)
+    c = ids.shape[1]
+    _need(qdev == cdev == ids.device, "q, corpus and ids must lie on one device")
+    _need((corpus.dense_q if quant else corpus.dense).shape[1] == dd,
+          "query and corpus dense widths differ")
+    _need(c < 2**31 and b < 2**31, "B and C must fit in int32")
     out = torch.empty((b, c), dtype=torch.float32, device=ids.device)
     if b == 0 or c == 0:
         return out
     lib = _build.library()
-    (qd, qsi, qsv, qfi, qfv, _, dd, psq, pfq) = query_args(q)
     rc = getattr(lib, fn_name)(
-        qd, qsi, qsv, qfi, qfv, b, dd, psq, pfq, *corpus_args(corpus),
-        ids.data_ptr(), c, out.data_ptr(), *_build.device_and_stream(out),
+        *qa[:5], b, dd, psq, pfq, *ca, ids.data_ptr(), c, int(_warp_form(qa, ca, c)),
+        out.data_ptr(), *_build.device_and_stream(out),
     )
     _build.check(rc, fn_name)
     return out
@@ -176,10 +257,8 @@ def hybrid_distance(q: FusedVectors, corpus: FusedVectors, ids: torch.Tensor) ->
     """(B, C) float32 scores of query b against corpus rows ``ids[b, c]``;
     PAD ids score -inf. CUDA tensors launch the kernel; CPU tensors take the
     plain version."""
-    dev = tensors_device(q, corpus, ids)
-    if dev.type == "cpu":
+    if _device(q, corpus, ids) == "cpu":
         return hybrid_distance_plain(q, corpus, ids)
-    _need(dev.type == "cuda", f"no kernel for device {dev}")
     _need(isinstance(corpus, FusedVectors), "hybrid_distance takes fp32 storage")
     out = _launch("hybrid_distance_launch", q, corpus, ids)
     hybrid_distance.launches += 1
@@ -192,10 +271,8 @@ def hybrid_distance_int8(
     """``hybrid_distance`` over int8 storage (the ``has_scale`` variant): the
     same contract, the dense dot multiplied by the row scale. CUDA tensors
     launch the kernel; CPU tensors take the plain version."""
-    dev = tensors_device(q, corpus, ids)
-    if dev.type == "cpu":
+    if _device(q, corpus, ids) == "cpu":
         return hybrid_distance_int8_plain(q, corpus, ids)
-    _need(dev.type == "cuda", f"no kernel for device {dev}")
     _need(isinstance(corpus, QuantizedFusedVectors), "hybrid_distance_int8 takes int8 storage")
     out = _launch("hybrid_distance_q8_launch", q, corpus, ids)
     hybrid_distance_int8.launches += 1

@@ -2,12 +2,17 @@
 + plain version.
 
 Replaces ``repro/kernels/pairwise_tile.py::pairwise_tile_pallas``. The CUDA
-kernel is ``csrc/pairwise_tile.cu``: one block per node loads the node's K
-candidate rows once, by id (no gathered ``(C, K, Dd)`` copy and no
-row-major + nnz-major double layout), tiles the dense K x K products over
-Dd through shared memory, and intersects each pair's ELL rows by binary
-search over rank-sorted ids. Bound on the H100: bytes (~16 flop per byte
-at K = 32, Dd = 1024, below the fp32 ridge). Masking stays with the caller.
+kernel is ``csrc/pairwise_tile.cu``: persistent blocks walk the nodes, each
+node's K candidate rows loaded once, by id (no gathered ``(C, K, Dd)`` copy
+and no row-major + nnz-major double layout), through a ring of
+``cp.async`` stages over Dd; the dense K x K Gram runs on the tensor cores in
+3xTF32 (each operand split hi + lo, three TF32 products into an fp32 sum:
+fp32-grade results), each ELL row is sorted once by a warp, and a warp per
+row intersects it with the others by binary search over the sorted ids, the
+columns' sums reduced in a fixed order (identical rows give identical
+outputs; repeated launches the same bits). Bound on the H100: bytes on
+uniform ids, operations on a real prune chunk's shared hub rows. Masking
+stays with the caller.
 """
 
 from __future__ import annotations
@@ -42,13 +47,15 @@ def pairwise_tile(corpus: FusedVectors, ids: torch.Tensor) -> torch.Tensor:
     lib = _build.library()
     _need(k <= lib.pairwise_tile_max_k(), f"pairwise_tile takes K <= {lib.pairwise_tile_max_k()}")
     ps, pf = corpus.learned.idx.shape[1], corpus.lexical.idx.shape[1]
-    _need(lib.pairwise_tile_smem_bytes(k, ps, pf) <= _build.MAX_SMEM_BYTES,
+    dd = corpus.dense.shape[1]
+    _need(lib.pairwise_tile_smem_bytes(k, dd, ps, pf) <= _build.MAX_SMEM_BYTES,
           "pairwise_tile: K and nnz caps exceed shared memory")
+    vec = int(dd % 4 == 0 and corpus.dense.data_ptr() % 16 == 0)  # 16-byte row copies
     rc = lib.pairwise_tile_launch(
         corpus.dense.data_ptr(), corpus.learned.idx.data_ptr(), corpus.learned.val.data_ptr(),
         corpus.lexical.idx.data_ptr(), corpus.lexical.val.data_ptr(),
-        corpus.n, corpus.dense.shape[1], ps, pf,
-        ids.data_ptr(), nodes, k, out.data_ptr(), *_build.device_and_stream(out),
+        corpus.n, dd, ps, pf, vec, ids.data_ptr(), nodes, k, out.data_ptr(),
+        *_build.device_and_stream(out),
     )
     pairwise_tile.launches += 1
     _build.check(rc, "pairwise_tile")

@@ -292,6 +292,95 @@ def test_fused_topk_is_deterministic(cuda, monkeypatch, ordered):
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
 
 
+
+HD_CASES = [  # (B, C, corpus rows, Dd)
+    (7, 1, 300, 64),  # the self-score / path-norm shape, few rows: split 1
+    (40, 16, 300, 64),  # entry scoring: a query row's candidates over several warps
+    (9, 80, 300, 64),  # the final re-score's C
+    (600, 3, 5000, 1024),  # Dd 1024: every register word of the warp form
+]
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["fp32", "int8"])
+@pytest.mark.parametrize("warp", [False, True], ids=["block_form", "warp_form"])
+@pytest.mark.parametrize("case", HD_CASES)
+def test_hybrid_distance_both_forms_match_plain(cuda, monkeypatch, case, warp, quant):
+    """Both forms of the distance kernel, each forced by the shape constant,
+    against the plain version: PAD and out-of-range ids at -inf, an all-PAD
+    row, planted repeats; two launches bit-identical."""
+    from repro_torch.core.usms import quantize_corpus
+    from repro_torch.kernels import hybrid_distance as hd
+
+    b, c, n, dd = case
+    rng = np.random.default_rng(sum(case))
+    q, corpus = _fused(rng, b, dd=dd, ps=7, pf=4), _fused(rng, n, dd=dd, ps=32, pf=16)
+    ids = rng.integers(0, n, size=(b, c)).astype(np.int32)
+    ids[rng.random(ids.shape) < 0.2] = -1
+    ids[0] = -1
+    ids[1, 0] = n  # out of range: never read, -inf
+    if c > 2:
+        ids[2, 1:] = ids[2, 0]
+    if quant:
+        corpus = quantize_corpus(corpus)
+    tid = torch.as_tensor(ids)
+    monkeypatch.setattr(hd, "SMALL_C_MAX", 2**30 if warp else 0)
+    wrap, plain = ((hd.hybrid_distance_int8, hd.hybrid_distance_int8_plain) if quant
+                   else (hd.hybrid_distance, hd.hybrid_distance_plain))
+    qc, cc, ic = q.to(cuda), corpus.to(cuda), tid.to(cuda)
+    assert hd.warp_form(qc, cc, c) == warp
+    want = plain(q, corpus, tid.clamp(max=n - 1))
+    want = torch.where((tid >= 0) & (tid < n), want, torch.full_like(want, float("-inf")))
+    before = wrap.launches
+    got = wrap(qc, cc, ic)
+    again = wrap(qc, cc, ic)
+    torch.cuda.synchronize()
+    assert wrap.launches == before + 2
+    assert torch.equal(got, again)
+    got = got.cpu()
+    assert torch.equal(torch.isinf(got), torch.isinf(want))
+    live = torch.isfinite(want)
+    np.testing.assert_allclose(got[live].numpy(), want[live].numpy(), rtol=1e-5, atol=TOL)
+    if c > 2:
+        assert bool((got[2, 1:] == got[2, 0]).all())
+
+
+@pytest.mark.parametrize("k", [1, 12, 32, 64])
+# 16-byte copies; the main width; 4-byte copies and a ragged last stage
+@pytest.mark.parametrize("dd", [64, 1024, 42])
+def test_pairwise_tile_matches_plain(cuda, k, dd):
+    """The pair tiles against the plain version at every K class, with
+    planted identical rows (identical output rows, bit for bit), an all-PAD
+    ELL row and a row repeated across nodes; two launches bit-identical."""
+    from repro_torch.kernels.pairwise_tile import pairwise_tile, pairwise_tile_plain
+
+    rng = np.random.default_rng(k + dd)
+    n = 400
+    corpus = _fused(rng, n, dd=dd, ps=32, pf=16)
+    corpus.learned.idx[3] = -1  # an all-PAD row on both paths
+    corpus.learned.val[3] = 0.0
+    corpus.lexical.idx[3] = -1
+    corpus.lexical.val[3] = 0.0
+    nodes = 300  # more nodes than some grids hold: blocks walk several
+    ids = rng.integers(0, n, size=(nodes, k)).astype(np.int32)
+    ids[:, 0] = 3
+    if k > 6:
+        ids[0, 6] = ids[0, 5]
+        ids[7, k - 1] = ids[7, 0]
+    tid = torch.as_tensor(ids)
+    want = pairwise_tile_plain(corpus, tid)
+    cc, ic = corpus.to(cuda), tid.to(cuda)
+    before = pairwise_tile.launches
+    got, again = pairwise_tile(cc, ic), pairwise_tile(cc, ic)
+    torch.cuda.synchronize()
+    assert pairwise_tile.launches == before + 2
+    assert torch.equal(got, again)
+    got = got.cpu()
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=TOL)
+    if k > 6:
+        assert torch.equal(got[0, 5], got[0, 6])
+        assert torch.equal(got[7, 0], got[7, k - 1])
+
+
 FLASH_CASES = [
     # (B, H, KV, L, S, dk, dv, causal)
     (2, 8, 2, 333, 333, 64, 64, True),  # L not a multiple of any tile, g = 4
