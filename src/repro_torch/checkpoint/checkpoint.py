@@ -77,12 +77,19 @@ def save_checkpoint(directory: str | os.PathLike, step: int, tree: Any, *, keep:
     arrays or scalars) as ``<directory>/step_<step>``; keep the last ``keep``
     committed steps. ``extra``: JSON-serializable metadata merged into the
     manifest, committed with the leaves."""
+    tree = _as_tree(tree)
+    save_flat(directory, step, _treedef(tree), _flatten(tree), keep=keep, extra=extra)
+
+
+def save_flat(directory: str | os.PathLike, step: int, treedef: str,
+              flat: list[tuple[str, Any]], *, keep: int = 3, extra: Optional[dict] = None):
+    """Write (path, leaf) pairs, already in ``jax.tree_util`` order, under
+    the given treedef string: the layout ``save_checkpoint`` writes, for
+    trees that are not dicts (``index_io``'s indexes and pools)."""
     directory = pathlib.Path(directory)
     directory.mkdir(parents=True, exist_ok=True)
-    tree = _as_tree(tree)
-    flat = _flatten(tree)
     tmp = pathlib.Path(tempfile.mkdtemp(dir=directory, prefix=".tmp_"))
-    manifest = {"step": int(step), "treedef": _treedef(tree), "paths": [p for p, _ in flat],
+    manifest = {"step": int(step), "treedef": treedef, "paths": [p for p, _ in flat],
                 "leaves": []}
     if extra:
         manifest.update(extra)
@@ -120,7 +127,7 @@ def latest_step(directory: str | os.PathLike) -> Optional[int]:
     return steps[-1] if steps else None
 
 
-def _load_leaf(path: pathlib.Path, meta: dict) -> torch.Tensor:
+def load_leaf(path: pathlib.Path, meta: dict) -> torch.Tensor:
     arr = np.load(path)
     if meta["dtype"] == "bfloat16" and arr.dtype == np.uint16:
         return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
@@ -157,7 +164,7 @@ def restore_checkpoint(directory: str | os.PathLike, step: int, target_tree: Any
         raise ValueError("checkpoint paths differ from the target's")
     leaves = []
     for i, (path, tgt) in enumerate(flat_t):
-        t = _load_leaf(directory / f"leaf_{i}.npy", manifest["leaves"][i])
+        t = load_leaf(directory / f"leaf_{i}.npy", manifest["leaves"][i])
         expected = tuple(np.shape(tgt))
         if tuple(t.shape) != expected:
             raise ValueError(f"leaf {i} ({path}): checkpoint shape {tuple(t.shape)} != target "

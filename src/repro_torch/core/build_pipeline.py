@@ -14,6 +14,11 @@ batched tensors; the heavy work of every chunk is one kernel launch:
       ids = arange(N)[:, None];
   4. logical edges: host-side numpy.
 
+``insert`` (paper §4.1 "Updates") runs the same stages over a batch of new
+docs: a search probe of the existing index, NN-Descent among the new nodes,
+the merge, self scores, one prune chunk over the new nodes, and the
+back-link pass that gives old nodes edges to them.
+
 Random draws: torch cannot reproduce ``jax.random``, so the builder takes a
 ``torch.Generator`` and, optionally, precomputed draws (``BuildDraws``), which
 lets a test feed in the draws ``repro`` made.
@@ -29,13 +34,16 @@ import numpy as np
 import torch
 
 from repro_torch.core import knn_graph, pruning
+from repro_torch.core.fusion import FusionSpec
 from repro_torch.core.index import BuildConfig, HybridIndex
-from repro_torch.core.knn_graph import KnnConfig
+from repro_torch.core.knn_graph import KnnConfig, _merge_topk, new_node_reverse
 from repro_torch.core.logical_edges import LogicalEdges, build_logical_edges
-from repro_torch.core.usms import FusedVectors, PathWeights, weighted_query
+from repro_torch.core.search import SearchParams, search
+from repro_torch.core.usms import PAD_IDX, FusedVectors, PathWeights, cat_fused, weighted_query
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import topk_desc
+from repro_torch.runtime import dispatch
 
 SINGLE_PATH_WEIGHTS = (
     PathWeights.make(1.0, 0.0, 0.0),
@@ -145,7 +153,14 @@ def nn_descent(
     rounds: Sequence[torch.Tensor] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused NN-Descent over the corpus. Returns (nbr_ids (N, K), scores
-    (N, K)) sorted by hybrid score, descending per row."""
+    (N, K)) sorted by hybrid score, descending per row. Counts as two
+    dispatches (the init and the round loop), as ``repro``'s does."""
+    dispatch.tick()
+    dispatch.tick()
+    return _nn_descent(corpus, cfg, generator, init_graph=init_graph, rounds=rounds)
+
+
+def _nn_descent(corpus, cfg, generator, *, init_graph=None, rounds=None):
     n, dev = corpus.n, corpus.device
     init = _on(init_graph, dev) if init_graph is not None else knn_graph._init_graph(
         n, cfg.k, generator, dev)
@@ -284,10 +299,13 @@ def build_graph(
     draws: BuildDraws | None = None,
     stage_seconds: dict | None = None,
 ) -> GraphArrays:
-    """All graph stages (Algorithm 1 steps 1-3 + entry points)."""
+    """All graph stages (Algorithm 1 steps 1-3 + entry points): one
+    dispatch, ``corpus.n`` build rows."""
+    dispatch.tick()
+    dispatch.build_rows_tick(corpus.n)
     draws = draws or BuildDraws()
     clock = _Stages(stage_seconds, corpus.device)
-    knn_ids, knn_scores = nn_descent(
+    knn_ids, knn_scores = _nn_descent(
         corpus, cfg.knn, generator, init_graph=draws.init_graph, rounds=draws.rounds
     )
     clock.mark("descent")
@@ -356,6 +374,149 @@ def build_index(
         self_ip=g.self_ip,
     )
 
+
+
+# ---------------------------------------------------------------------------
+# Insert (paper §4.1 "Updates")
+# ---------------------------------------------------------------------------
+
+
+def _last_wins(rows: torch.Tensor, n: int) -> torch.Tensor:
+    """Per target row, the position of the LAST write to it in ``rows``
+    (-1 where none): duplicate targets resolve in row order on every device,
+    as XLA's CPU scatter applies them (``index_put_`` with duplicate indices
+    is nondeterministic on CUDA)."""
+    pos = torch.arange(rows.shape[0], device=rows.device)
+    win = torch.full((n,), -1, dtype=pos.dtype, device=rows.device)
+    return win.scatter_reduce(0, rows.long(), pos, reduce="amax")
+
+
+def _back_link(sem_old: torch.Tensor, merged_ids: torch.Tensor, n_old: int, k: int):
+    """Each new node replaces the weakest semantic edge of its strongest old
+    neighbors (the first min(4, k) columns of its merged list) with itself.
+    Writes into a copy, never the published table. Invalid targets (PAD or
+    new nodes) are clipped onto row 0 or n_old - 1 and write back the value
+    they read, as ``repro`` does, so they can clobber a real back-link of
+    the same pass (ROADMAP Queue 3)."""
+    sem = sem_old.clone()
+    n_new = merged_ids.shape[0]
+    new_id = torch.arange(n_new, dtype=torch.int32, device=sem.device) + n_old
+    for j in range(min(4, k)):
+        tgt = merged_ids[:, j]
+        ok = (tgt >= 0) & (tgt < n_old)
+        tgt_safe = tgt.clamp(0, n_old - 1).long()
+        col = sem.shape[1] - 1 - (j % 2)  # weakest slots: edge lists are priority-ordered
+        vals = torch.where(ok, new_id, sem[tgt_safe, col])
+        win = _last_wins(tgt_safe, n_old)
+        hit = torch.nonzero(win >= 0).squeeze(1)
+        sem[hit, col] = vals[win[hit]]
+    return sem
+
+
+def _insert_program(
+    corpus_cat: FusedVectors,  # (n_old + n_new, ...) concatenated corpus
+    new_docs: FusedVectors,  # (n_new, ...)
+    old_self_ip: torch.Tensor,  # (n_old,)
+    sem_old: torch.Tensor,  # (n_old, d)
+    old_ids: torch.Tensor,  # (n_new, k) search results vs the existing index
+    old_scores: torch.Tensor,  # (n_new, k)
+    new_ids_local: torch.Tensor,  # (n_new, k) NN-Descent among the new nodes
+    new_scores: torch.Tensor,  # (n_new, k)
+    cfg: BuildConfig,
+):
+    """Merge + self scores + reverse + prune + back-link for an insert batch
+    (``repro``'s fused program of the same name). Returns (semantic edges of
+    the old rows with back-links, the new rows' semantic and keyword edges,
+    self scores of all rows)."""
+    n_old, n_new, k = sem_old.shape[0], new_docs.n, cfg.knn.k
+    dev = sem_old.device
+    new_ids_global = torch.where(new_ids_local >= 0, new_ids_local + n_old,
+                                 torch.full_like(new_ids_local, PAD_IDX))
+    merged_ids, merged_scores = _merge_topk(old_ids, old_scores, new_ids_global, new_scores, k)
+    cself = torch.cat([old_self_ip,
+                       pruning.self_scores(new_docs, use_kernel=cfg.prune.use_kernel)])
+    # reverse edges among the new nodes only: merged_ids holds GLOBAL ids
+    rev = new_node_reverse(merged_ids, n_old, max(cfg.prune.degree // 4, 1))
+    node_ids = torch.arange(n_new, dtype=torch.int32, device=dev) + n_old
+    sem_new, kw_new, _ = pruning._prune_chunk(
+        corpus_cat, new_docs, node_ids, merged_ids, merged_scores, cself, rev, None, cfg.prune)
+    return _back_link(sem_old, merged_ids, n_old, k), sem_new, kw_new, cself
+
+
+def insert(
+    index: HybridIndex,
+    new_docs: FusedVectors,
+    cfg: BuildConfig,
+    *,
+    generator: Optional[torch.Generator] = None,
+    draws: Optional[BuildDraws] = None,
+    new_doc_entities: Optional[np.ndarray] = None,
+    search_params: Optional[SearchParams] = None,
+) -> HybridIndex:
+    """Insert new nodes on the index's device: their k-NN is the merge of (a)
+    a search of the existing index and (b) NN-Descent among the new nodes
+    (``draws.init_graph`` / ``draws.rounds`` in place of the generator's);
+    then one prune chunk over the new nodes and the back-link pass. Returns
+    a new index; the given one is never written.
+
+    ``search_params`` bounds the step-(a) probe; ``k`` and the edge paths
+    are forced to the build's values (``use_keywords=False``,
+    ``use_kg=False``, ``pool_size >= 2k``), so the merge widths stay fixed
+    whatever the caller's serving params."""
+    dev = index.semantic_edges.device
+    new_docs = new_docs.to(dev)
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(1)
+    draws = draws or BuildDraws()
+    n_new, k = new_docs.n, cfg.knn.k
+    dispatch.build_rows_tick(n_new)
+
+    # (a) k-NN from the existing index through its own search
+    if search_params is None:
+        params = SearchParams(k=k, iters=max(24, 2 * k), use_kernel=cfg.knn.use_kernel)
+    else:
+        params = dataclasses.replace(
+            search_params, k=k, use_keywords=False, use_kg=False,
+            use_kernel=cfg.knn.use_kernel, pool_size=max(search_params.pool_size, 2 * k))
+    dispatch.tick()
+    res = search(index, new_docs, FusionSpec.from_weights(PathWeights.three_path()), params,
+                 device=dev)
+
+    # (b) NN-Descent among the new nodes only
+    new_ids_local, new_scores = nn_descent(
+        new_docs, cfg.knn, generator, init_graph=draws.init_graph, rounds=draws.rounds)
+
+    corpus = cat_fused([index.corpus, new_docs])
+
+    dispatch.tick()
+    sem_old, sem_new, kw_new, cself = _insert_program(
+        corpus, new_docs, index.self_ip, index.semantic_edges, res.ids, res.scores,
+        new_ids_local, new_scores, cfg)
+
+    def pad_rows(a):
+        return torch.cat([a, torch.full((n_new,) + tuple(a.shape[1:]), PAD_IDX, dtype=a.dtype,
+                                        device=dev)])
+
+    if new_doc_entities is not None:
+        ents = torch.as_tensor(np.asarray(new_doc_entities, np.int32), device=dev)
+        if ents.shape[1] != index.doc_entities.shape[1]:
+            raise ValueError("entity width mismatch")
+        doc_entities = torch.cat([index.doc_entities, ents])
+    else:
+        doc_entities = pad_rows(index.doc_entities)
+
+    return HybridIndex(
+        corpus=corpus,
+        semantic_edges=torch.cat([sem_old, sem_new]),
+        keyword_edges=torch.cat([index.keyword_edges, kw_new]),
+        logical_edges=pad_rows(index.logical_edges),
+        doc_entities=doc_entities,
+        entity_to_docs=index.entity_to_docs,
+        entity_adj=index.entity_adj,
+        entry_points=index.entry_points,
+        alive=torch.cat([index.alive, torch.ones((n_new,), dtype=torch.bool, device=dev)]),
+        self_ip=cself,
+    )
 
 
 # ---------------------------------------------------------------------------

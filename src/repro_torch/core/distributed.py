@@ -7,21 +7,26 @@ every leaf of its ``HybridIndex`` has shape (S, ...), and ``global_ids``
 rows). Graphs never cross segments. ``make_local_group_search`` searches the
 S segments and merges their top-k per row in global-id space, fusion-aware
 (``fusion.merge_rows_fused``). ``repro`` vmaps the segments into one traced
-program; here a Python loop runs ``search_padded`` once per segment on a view
-of the stacked tensors (no copy). The mesh builders, the ``shard_map``
+program; here the S segments are searched as ONE index of S x n_seg rows
+(``SegmentedIndex.flat``: views of the stacked tensors, edge ids offset by
+segment) with the queries repeated per segment and each row starting from
+its own segment's entry points, so a group costs one round loop on the host
+whatever its segment count. A KG search runs the segments in turn: entity
+tables address a segment's local rows. The mesh builders, the ``shard_map``
 search and placement belong to the multi-GPU slice.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from repro_torch.core.build_pipeline import BuildDraws, build_index
-from repro_torch.core.fusion import FusionSpec, broadcast_spec, merge_rows_fused
+from repro_torch.core.fusion import FusionSpec, PathStats, broadcast_spec, merge_rows_fused
 from repro_torch.core.index import INDEX_FIELDS, BuildConfig, HybridIndex
 from repro_torch.core.search import SearchParams, SearchResult, search_padded
 from repro_torch.core.usms import (
@@ -85,6 +90,33 @@ class SegmentedIndex:
     def map(self, fn) -> "SegmentedIndex":
         """Apply ``fn`` to every tensor (global ids included)."""
         return SegmentedIndex(map_index(self.index, fn), fn(self.global_ids))
+
+    @functools.cached_property
+    def flat(self) -> tuple[HybridIndex, torch.Tensor]:
+        """The S segments as one index of S * n_seg rows, and each segment's
+        entry points in its ids, (S, n_entry). Leaves are views of the
+        stacked tensors except the two edge tables, whose ids are offset by
+        segment (PAD stays PAD); made once per group object (a delete or a
+        compaction publishes a new one). The entity tables stay per segment,
+        so the flattened index serves no KG search."""
+        idx, cap = self.index, self.global_ids.shape[1]
+        off = torch.arange(self.n_segments, dtype=torch.int32,
+                           device=self.global_ids.device)[:, None] * cap
+        flat = lambda t: t.reshape((-1,) + tuple(t.shape[2:]))
+
+        def shifted(t):
+            o = off.view((-1,) + (1,) * (t.dim() - 1)).to(t.dtype)
+            return flat(torch.where(t >= 0, t + o, t))
+
+        flat_index = HybridIndex(
+            corpus=map_corpus(idx.corpus, flat),
+            semantic_edges=shifted(idx.semantic_edges),
+            keyword_edges=shifted(idx.keyword_edges),
+            logical_edges=flat(idx.logical_edges), doc_entities=flat(idx.doc_entities),
+            entity_to_docs=idx.entity_to_docs[0], entity_adj=idx.entity_adj[0],
+            entry_points=idx.entry_points[0], alive=flat(idx.alive), self_ip=flat(idx.self_ip))
+        entries = torch.where(idx.entry_points >= 0, idx.entry_points + off, idx.entry_points)
+        return flat_index, entries
 
 
 def segment_slices(n: int, n_segments: int) -> list[tuple[int, int]]:
@@ -266,6 +298,38 @@ def _segment_to_global(
     return g, scores, ps, res.expanded
 
 
+def _tile(x, s: int):
+    """Rows repeated s times, segment-major (a tensor, a fusion spec's
+    leaves or a corpus)."""
+    if isinstance(x, torch.Tensor):
+        return torch.cat([x] * s)
+    if isinstance(x, FusionSpec):
+        return FusionSpec(mode=_tile(x.mode, s), weights=_tile(x.weights, s),
+                          rrf_k=_tile(x.rrf_k, s), stats=_tile(x.stats, s))
+    if isinstance(x, PathWeights):
+        return PathWeights(*(_tile(getattr(x, f), s) for f in ("dense", "sparse", "full", "kg")))
+    if isinstance(x, PathStats):
+        return PathStats(*(_tile(getattr(x, f), s) for f in ("minv", "maxv", "mean", "std")))
+    return map_corpus(x, lambda t: _tile(t, s))
+
+
+def _group_to_global(seg_index, queries, spec, keywords, entities, params):
+    """All S segments in one search: (S, B, k) global ids, scores, per-path
+    scores, and the total expansions."""
+    s, b = seg_index.n_segments, queries.n
+    flat_index, entries = seg_index.flat
+    res = search_padded(flat_index, _tile(queries, s), _tile(spec, s), _tile(keywords, s),
+                        _tile(entities, s), params,
+                        entry_points=entries.repeat_interleave(b, dim=0))
+    gids = seg_index.global_ids.reshape(-1)
+    g = torch.where(res.ids >= 0, gids[res.ids.clamp(0, gids.shape[0] - 1).long()], PAD_IDX)
+    scores = torch.where(g >= 0, res.scores, float("-inf"))
+    ps = torch.where((g >= 0)[:, :, None], res.path_scores, 0.0)
+    shape = (s, b) + tuple(g.shape[1:])
+    return (g.reshape(shape), scores.reshape(shape), ps.reshape(shape + (3,)),
+            res.expanded.sum())
+
+
 def _merge_rows_topk(g_all: torch.Tensor, s_all: torch.Tensor, k: int):
     """Per-row top-k over stacked (S, B, k) global-id results by raw score:
     (top scores, ids), PAD ids on non-finite slots. Correct for weighted and
@@ -297,15 +361,20 @@ def make_local_group_search(params: SearchParams):
             fusion = FusionSpec.from_weights(fusion)
         dev = seg_index.global_ids.device
         spec = broadcast_spec(fusion, queries.n, dev)
-        parts = [
-            _segment_to_global(seg_index.segment(s), seg_index.global_ids[s], queries, spec,
-                               keywords, entities, params)
-            for s in range(seg_index.n_segments)
-        ]
-        g_all, s_all, ps_all = (torch.stack([p[i] for p in parts]) for i in range(3))
+        if params.use_kg:  # per-segment entity tables: one segment at a time
+            parts = [
+                _segment_to_global(seg_index.segment(s), seg_index.global_ids[s], queries,
+                                   spec, keywords, entities, params)
+                for s in range(seg_index.n_segments)
+            ]
+            g_all, s_all, ps_all = (torch.stack([p[i] for p in parts]) for i in range(3))
+            total = sum(p[3].sum() for p in parts)
+        else:
+            g_all, s_all, ps_all, total = _group_to_global(
+                seg_index, queries.to(dev), spec, keywords.to(dev, torch.int32),
+                entities.to(dev, torch.int32), params)
         ids, top, ps = merge_rows_fused(g_all, s_all, ps_all, spec, params.k)
         scores = torch.where(torch.isfinite(top), top, NEG_FILL)
-        total = sum(p[3].sum() for p in parts)
         expanded = total.to(torch.int32).expand(ids.shape[0]).contiguous()
         return SearchResult(ids, scores, expanded, ps)
 

@@ -106,3 +106,18 @@ def reverse_neighbors(nbr_ids: torch.Tensor, cap: int) -> torch.Tensor:
     rev = torch.full((n, cap), PAD_IDX, dtype=torch.int32, device=dev)
     rev[dst_sorted[keep], pos[keep]] = src_sorted[keep]
     return rev
+
+
+def new_node_reverse(merged_ids: torch.Tensor, n_old: int, cap: int) -> torch.Tensor:
+    """Reverse adjacency among the NEW nodes of an insert batch.
+
+    merged_ids: (n_new, K) candidate lists holding GLOBAL ids: old-corpus ids
+    are < n_old, new-node ids >= n_old. Only new-node targets get rows in the
+    returned (n_new, cap) table; old-corpus targets are dropped (the insert's
+    back-link pass handles them). Returned source ids are GLOBAL (>= n_old).
+    Feeding global ids straight into ``reverse_neighbors`` would treat
+    old-corpus ids < n_new as new-node rows."""
+    pad = torch.full_like(merged_ids, PAD_IDX)
+    local = torch.where(merged_ids >= n_old, merged_ids - n_old, pad)
+    rev = reverse_neighbors(local, cap)
+    return torch.where(rev >= 0, rev + n_old, torch.full_like(rev, PAD_IDX))

@@ -81,12 +81,14 @@ def _full(shape, fill, dtype, device) -> torch.Tensor:
     return torch.full(shape, fill, dtype=dtype, device=device)
 
 
-def _entry_state(index: HybridIndex, q_entities: torch.Tensor, p: SearchParams):
+def _entry_state(index: HybridIndex, q_entities: torch.Tensor, p: SearchParams,
+                 entry_points: Optional[torch.Tensor] = None):
     """Entry points per query: nodes holding the query entities when the KG
-    is on, then the precomputed large-norm nodes (Algorithm 2 l.2-8)."""
+    is on, then the precomputed large-norm nodes (Algorithm 2 l.2-8), the
+    index's or, when given, one row of ``entry_points`` (B, n_entry) each."""
     b = q_entities.shape[0]
     dev = q_entities.device
-    base = index.entry_points[None, :].expand(b, -1)
+    base = index.entry_points[None, :].expand(b, -1) if entry_points is None else entry_points
     base_ent = _full(base.shape, PAD_IDX, torch.int32, dev)
     if p.use_kg:
         n_ent = index.entity_to_docs.shape[0]
@@ -116,6 +118,7 @@ def _search_batch(
     q_entities: torch.Tensor,  # (B, Eq) query entity ids (PAD padded)
     spec: FusionSpec,  # batched (B,) / (B, 3) leaves
     p: SearchParams,
+    entry_points: Optional[torch.Tensor] = None,  # (B, n_entry) per-row entry points
 ):
     """``repro``'s ``_search_one``, batched over the B queries."""
     n = index.n
@@ -127,7 +130,7 @@ def _search_batch(
     w_kg = spec.weights.kg  # (B,)
 
     # ---- init pool ---------------------------------------------------------
-    e_ids, e_ents, e_hops = _entry_state(index, q_entities, p)
+    e_ids, e_ents, e_hops = _entry_state(index, q_entities, p, entry_points)
     ne = e_ids.shape[1]
     if ne > P:
         raise ValueError("pool_size must cover the entry set")
@@ -290,9 +293,13 @@ def search_padded(
     keywords: torch.Tensor,  # (B, Kw) required keywords, PAD_IDX padded
     entities: torch.Tensor,  # (B, Eq) query entities, PAD_IDX padded
     params: SearchParams,
+    *,
+    entry_points: Optional[torch.Tensor] = None,
 ) -> SearchResult:
     """Batched search over padded operands, on the index's device. A bare
-    ``PathWeights`` means weighted-sum."""
+    ``PathWeights`` means weighted-sum. ``entry_points`` (B, n_entry), when
+    given, replaces the index's entry points row by row (a pool group's
+    segments searched as one index, ``distributed.make_local_group_search``)."""
     params = resolve_params(params)
     if isinstance(fusion, PathWeights):
         fusion = FusionSpec.from_weights(fusion)
@@ -303,7 +310,7 @@ def search_padded(
     qw = weighted_query(queries, spec.weights)
     ids, scores, ps, expanded = _search_batch(
         index, qw, queries, keywords.to(dev, torch.int32), entities.to(dev, torch.int32),
-        spec, params,
+        spec, params, entry_points,
     )
     return SearchResult(ids, scores, expanded, ps)
 

@@ -23,12 +23,11 @@ from repro_torch.core.build_pipeline import BuildDraws, build_index, pad_index_r
 from repro_torch.core.distributed import (
     SegmentedIndex,
     alive_docs,
-    map_corpus,
     mark_deleted_segmented,
     resolve_global_ids,
 )
 from repro_torch.core.index import BuildConfig
-from repro_torch.core.usms import PAD_IDX, FusedVectors, quantize_corpus
+from repro_torch.core.usms import PAD_IDX, FusedVectors, cat_fused, quantize_corpus
 
 
 @dataclasses.dataclass
@@ -147,10 +146,7 @@ def alive_docs_pool(pool: SegmentPool) -> tuple[FusedVectors, np.ndarray, np.nda
         parts.append(corpus)
         gid_parts.append(gids)
         ent_parts.append(widen_entities(ents, width))
-    cols = [torch.cat([p.tensors()[j] for p in parts]) for j in range(5)]
-    it = iter(cols)
-    corpus = map_corpus(parts[0], lambda _: next(it))
-    return corpus, np.concatenate(gid_parts), np.concatenate(ent_parts, axis=0)
+    return cat_fused(parts), np.concatenate(gid_parts), np.concatenate(ent_parts, axis=0)
 
 
 def live_counts(pool: SegmentPool) -> list[tuple[int, int, int, int]]:

@@ -163,6 +163,13 @@ def quantize_corpus(f: FusedVectors) -> QuantizedFusedVectors:
     )
 
 
+def cat_fused(parts) -> FusedVectors:
+    """Row-wise concatenation of fp32 corpora (new tensors: the parts are
+    never written)."""
+    cols = [torch.cat([p.tensors()[j] for p in parts]) for j in range(5)]
+    return FusedVectors(cols[0], SparseVec(cols[1], cols[2]), SparseVec(cols[3], cols[4]))
+
+
 def dequantize_corpus(q: QuantizedFusedVectors) -> FusedVectors:
     """fp32 storage back from a quantized corpus (rebuild / compaction input)."""
     return FusedVectors(

@@ -1,1 +1,2 @@
-"""Runtime for the port (``repro/runtime``): fault tolerance."""
+"""Runtime for the port (``repro/runtime``): fault tolerance and build
+dispatch accounting."""

@@ -14,20 +14,24 @@
     ``stats.compiles`` (the misses) keep their meaning: fusion mode and
     weights are (B,) tensors, never part of the key, so one key serves every
     weight mix;
-  * ``mark_deleted`` on a single index goes through a copy-on-write snapshot
-    swap: the writer builds the next index off to the side and publishes it
+  * ``insert`` / ``mark_deleted`` go through a copy-on-write snapshot swap:
+    the writer builds the next index off to the side and publishes it
     atomically, so in-flight batches never see a half-updated index;
   * the same service fronts a single ``HybridIndex`` and a ``SegmentPool``:
     a pool read runs ``make_local_group_search`` once per shape group and
     merges the groups per row in global-id space, fusion-aware;
+  * a pool snapshot may carry a *grow segment* (a small ``HybridIndex``
+    absorbing streaming inserts, managed by ``serving.segment_router``):
+    reads also run ``search_padded`` over it and merge per row in global-id
+    space. The grow pass's shape keys are kept apart from the sealed keys,
+    so grow churn never prunes or adds a sealed key;
   * token-bucket admission control runs in front of ``MicroBatcher.enqueue``;
     a background pump thread drives ``poll`` so deadline flushes do not
     depend on the submit path.
 
-Not in this port yet (each raises ``NotImplementedError``): ``insert``
-(``build_pipeline.insert``), a ``SegmentedIndex`` or pool behind a mesh, and
-deletes on a pool (the segment router's global-id routing); ROADMAP Queue 1
-items 3, 5 and 6 list them.
+Writes to a pool go through an attached ``SegmentRouter``. Not in this port
+yet: a ``SegmentedIndex`` or pool behind a mesh (raises
+``NotImplementedError``; ROADMAP Queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -40,6 +44,8 @@ from typing import Optional, Sequence, Union
 import numpy as np
 import torch
 
+from repro_torch.core.build_pipeline import BuildDraws
+from repro_torch.core.build_pipeline import insert as index_insert
 from repro_torch.core.distributed import SegmentedIndex, make_local_group_search
 from repro_torch.core.fusion import (
     FUSION_MODE_NAMES,
@@ -49,7 +55,7 @@ from repro_torch.core.fusion import (
     merge_fused_host,
     stack_specs,
 )
-from repro_torch.core.index import INDEX_FIELDS, HybridIndex
+from repro_torch.core.index import INDEX_FIELDS, BuildConfig, HybridIndex
 from repro_torch.core.index import mark_deleted as index_mark_deleted
 from repro_torch.core.search import SearchParams, SearchResult, resolve_params, search_padded
 from repro_torch.core.segment_pool import SegmentPool, group_shape_key
@@ -205,10 +211,13 @@ class ServiceStats:
 @dataclasses.dataclass(frozen=True)
 class _Snapshot:
     """An immutable index the read path holds across a whole batch — the
-    copy-on-write unit."""
+    copy-on-write unit. ``grow``/``grow_gids`` are a pool's optional grow
+    segment and its local-row -> global-id map."""
 
     index: Union[HybridIndex, SegmentPool]
     version: int
+    grow: Optional[HybridIndex] = None
+    grow_gids: Optional[torch.Tensor] = None  # (n_grow,) int32
 
 
 def _index_device(index) -> torch.device:
@@ -227,6 +236,7 @@ class HybridSearchService:
         config: Optional[ServiceConfig] = None,
         *,
         mesh=None,
+        build_cfg: Optional[BuildConfig] = None,
     ):
         if mesh is not None:
             raise NotImplementedError(
@@ -286,8 +296,13 @@ class HybridSearchService:
         self._key_lock = threading.Lock()
         self._batcher = MicroBatcher(self.config.batcher)
         self._seen_keys: set = set()
+        # shape keys the grow pass has read (repro's search_padded traces):
+        # never pruned, kept apart from the sealed keys
+        self._grow_keys: set = set()
         self._pool = isinstance(index, SegmentPool)
         self._local_fn = make_local_group_search(self.params) if self._pool else None
+        self._build_cfg = build_cfg
+        self._router = None  # set by serving.segment_router.SegmentRouter
         # running per-path normalization stats: refreshed lazily when the
         # snapshot version moves, EMA-blended across publishes (DESIGN.md §11)
         self._stats_cache: Optional[PathStats] = None
@@ -356,6 +371,10 @@ class HybridSearchService:
                         self.dump_metrics()  # final flush on clean shutdown
                     except OSError:
                         pass
+        # clean shutdown extends to the attached router's merge worker: an
+        # in-flight merge finishes its publish, then the worker exits
+        if self._router is not None:
+            self._router.stop_merge_worker()
 
     def __enter__(self) -> "HybridSearchService":
         return self
@@ -373,6 +392,17 @@ class HybridSearchService:
     def index(self) -> Union[HybridIndex, SegmentPool]:
         return self._snap.index
 
+    @property
+    def grow_index(self) -> Optional[HybridIndex]:
+        """The current grow segment (None when sealed-only)."""
+        return self._snap.grow
+
+    @property
+    def grow_shape_keys(self) -> set:
+        """Every grow-segment shape key a read has run over (pow2 bucketing
+        keeps it O(log growth) between compactions)."""
+        return self._grow_keys
+
     # EMA weight of FRESH stats at each snapshot publish
     _STATS_EMA = 0.3
 
@@ -381,8 +411,12 @@ class HybridSearchService:
         """(corpus, alive) pairs covering every row of a snapshot."""
         idx = snap.index
         if isinstance(idx, SegmentPool):
-            return [(g.index.corpus, g.index.alive) for g in idx.groups]
-        return [(idx.corpus, idx.alive)]
+            parts = [(g.index.corpus, g.index.alive) for g in idx.groups]
+        else:
+            parts = [(idx.corpus, idx.alive)]
+        if snap.grow is not None:
+            parts.append((snap.grow.corpus, snap.grow.alive))
+        return parts
 
     @property
     def path_stats(self) -> PathStats:
@@ -426,37 +460,72 @@ class HybridSearchService:
                 add("graph", g.global_ids)
         else:
             add_index(idx)
+        if snap.grow is not None:
+            add_index(snap.grow)
         for leaf, dtype in self._index_bytes_keys - set(totals):
             _INDEX_BYTES.set(0, leaf=leaf, dtype=dtype)
         for (leaf, dtype), v in totals.items():
             _INDEX_BYTES.set(v, leaf=leaf, dtype=dtype)
         self._index_bytes_keys = set(totals)
 
-    def _publish(self, new_index) -> None:
+    def _publish(self, new_index, *, grow=None, grow_gids=None) -> None:
+        """Swap in the next snapshot (callers hold ``_write_lock``). The
+        device is synchronised first: work queued by this thread (a build,
+        an insert) is finished before any reader can pick the tensors up."""
         dev = _index_device(new_index)
+        if grow is not None:
+            if grow_gids is None:
+                raise ValueError("a grow segment needs its global-id map")
+            grow_gids = torch.as_tensor(grow_gids, dtype=torch.int32, device=dev)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)  # readers never see a half-written index
-        self._snap = _Snapshot(new_index, self._snap.version + 1)
+        self._snap = _Snapshot(new_index, self._snap.version + 1, grow=grow,
+                               grow_gids=grow_gids)
         self._tick_index_bytes(self._snap)
+        # prune on the SEALED keys only: grow churn neither adds nor evicts
+        # them, and a pool publish keeps every group that survived
         valid = self._valid_index_keys(new_index)
         with self._key_lock:
             self._seen_keys = {k for k in self._seen_keys if k[0] in valid}
 
-    def insert(self, new_docs: FusedVectors, **_kwargs) -> int:
-        """Streaming inserts need ``build_pipeline.insert`` (and, for a pool,
-        the segment router), which the port does not have yet."""
-        raise NotImplementedError(
-            "insert waits for build_pipeline.insert and serving.segment_router "
-            "(ROADMAP Queue 1 items 3 and 6)")
+    def insert(
+        self,
+        new_docs: FusedVectors,
+        *,
+        generator: Optional[torch.Generator] = None,
+        draws: Optional[BuildDraws] = None,
+        new_doc_entities: Optional[np.ndarray] = None,
+    ) -> int:
+        """Absorb streaming inserts; returns the new snapshot version.
+        In-flight searches keep the snapshot they started with. A pool
+        service routes inserts to its grow segment through the attached
+        ``SegmentRouter``."""
+        if self._pool:
+            if self._router is None:
+                raise ValueError(
+                    "streaming insert into a pool needs a grow segment: attach a "
+                    "serving.segment_router.SegmentRouter")
+            return self._router.insert(new_docs, generator=generator, draws=draws,
+                                       new_doc_entities=new_doc_entities)
+        if self._build_cfg is None:
+            raise ValueError("insert requires build_cfg at service construction")
+        with self._write_lock:
+            new_index = index_insert(self._snap.index, new_docs, self._build_cfg,
+                                     generator=generator, draws=draws,
+                                     new_doc_entities=new_doc_entities)
+            self._publish(new_index)
+            return self._snap.version  # read under the lock: OUR version
 
     def mark_deleted(self, ids) -> int:
-        """Mark-delete docs of a single index; returns the new snapshot
-        version. The index shape is unchanged, so every seen key stays
-        valid."""
+        """Mark-delete docs; returns the new snapshot version. Shapes are
+        unchanged, so every seen key stays valid. A pool service resolves
+        global ids through the attached ``SegmentRouter``."""
         if self._pool:
-            raise NotImplementedError(
-                "deletion on a pool needs the segment router's global-id routing "
-                "(ROADMAP Queue 1 item 6); use segment_pool.mark_deleted_pool")
+            if self._router is None:
+                raise ValueError(
+                    "deletion on a pool needs global-id routing: attach a "
+                    "serving.segment_router.SegmentRouter")
+            return self._router.delete(ids)
         with self._write_lock:
             self._publish(index_mark_deleted(self._snap.index, ids))
             return self._snap.version  # read under the lock: OUR version
@@ -605,6 +674,27 @@ class HybridSearchService:
                        {"parts": len(ids_parts), "site": "pool_merge"}))
         return m_ids, m_scores, m_ps, expanded
 
+    def _merge_grow(self, snap: _Snapshot, args, ids, scores, ps, expanded, phases):
+        """Phase two of a pool read: search the grow segment and merge per
+        row with the sealed results in global-id space. Tombstones need no
+        filter here: both passes filter on their own ``alive`` masks."""
+        t0 = time.perf_counter()
+        key = self._index_key(snap.grow)
+        with self._key_lock:
+            retraced = key not in self._grow_keys
+            self._grow_keys.add(key)
+        gres = search_padded(snap.grow, *args, self.params)
+        g_local = _host(gres.ids)
+        gmap = _host(snap.grow_gids)
+        g_ids = np.where(g_local >= 0, gmap[np.clip(g_local, 0, gmap.shape[0] - 1)], PAD_IDX)
+        g_scores = np.where(g_local >= 0, _host(gres.scores), -np.inf)
+        g_ps = np.where((g_local >= 0)[:, :, None], _host(gres.path_scores), 0.0)
+        m_ids, m_scores, m_ps = merge_fused_host(
+            [ids, g_ids], [scores, g_scores], [ps, g_ps], args[1], ids.shape[1])
+        phases.append(("grow_merge", t0, time.perf_counter(),
+                       {"grow_rows": int(snap.grow.n), "retraced": retraced}))
+        return m_ids, m_scores, m_ps, expanded + _host(gres.expanded)
+
     def _run_batch(self, bucket: Bucket, entries) -> None:
         # batch phases are timed once and attributed to every query in the
         # batch as spans on its TraceContext (DESIGN.md §12 span taxonomy)
@@ -628,6 +718,9 @@ class HybridSearchService:
                 ids, scores = _host(res.ids), _host(res.scores)
                 ps, expanded = _host(res.path_scores), _host(res.expanded)
                 phases.append(("device_dispatch", t1, time.perf_counter(), {}))
+            if snap.grow is not None:
+                ids, scores, ps, expanded = self._merge_grow(
+                    snap, args, ids, scores, ps, expanded, phases)
         except Exception as err:
             # entries are already dequeued: fail every waiter so no result()
             # blocks forever, then surface to the driving thread

@@ -554,3 +554,80 @@ def test_flash_bwd_bf16_is_deterministic(cuda):
     torch.cuda.synchronize()
     for name, a, b in zip(("dq", "dk", "dv"), first, again):
         assert torch.equal(a, b), name
+
+
+# ---------------------------------------------------------------------------
+# the write path: insert and router compaction through the kernels against
+# the same operations through the plain versions
+# ---------------------------------------------------------------------------
+
+
+def _write_cfgs():
+    from repro_torch.core.index import BuildConfig
+    from repro_torch.core.knn_graph import KnnConfig
+    from repro_torch.core.pruning import PruneConfig
+
+    kern = BuildConfig(knn=KnnConfig(k=16, iters=3), prune=PruneConfig(degree=12,
+                       keyword_degree=4), path_refine_iters=1)
+    plain = dataclasses.replace(
+        kern, knn=dataclasses.replace(kern.knn, use_kernel=False),
+        prune=dataclasses.replace(kern.prune, use_kernel=False))
+    return kern, plain
+
+
+def _row_sets_equal(a, b) -> float:
+    sa = torch.sort(a.masked_fill(a < 0, 2**30), dim=-1).values
+    sb = torch.sort(b.masked_fill(b < 0, 2**30), dim=-1).values
+    return float((sa == sb).all(dim=-1).float().mean().item())
+
+
+def test_insert_kernels_match_plain_versions(cuda):
+    from repro_torch.core import build_pipeline as bp
+    from repro_torch.data.corpus import CorpusConfig, make_corpus
+    from repro_torch.kernels.fused_topk import fused_topk
+    from repro_torch.kernels.pairwise_tile import pairwise_tile
+
+    c = make_corpus(CorpusConfig(n_docs=640, n_queries=8, n_topics=16, d_dense=64, seed=2))
+    kern, plain = _write_cfgs()
+    base = bp.build_index(c.docs[:512], kern, generator=torch.Generator("cuda").manual_seed(1))
+    launched = fused_topk.launches, pairwise_tile.launches
+    got = bp.insert(base, c.docs[512:], kern, generator=torch.Generator("cuda").manual_seed(2))
+    assert fused_topk.launches > launched[0] and pairwise_tile.launches > launched[1]
+    want = bp.insert(base, c.docs[512:], plain,
+                     generator=torch.Generator("cuda").manual_seed(2))
+    assert _row_sets_equal(got.semantic_edges, want.semantic_edges) >= 0.99
+    assert _row_sets_equal(got.keyword_edges, want.keyword_edges) >= 0.99
+    torch.testing.assert_close(got.self_ip, want.self_ip, rtol=0, atol=TOL)
+    assert torch.equal(got.alive, want.alive) and got.n == 640
+
+
+def test_router_compaction_kernels_match_plain_versions(cuda):
+    from repro_torch.core.fusion import FusionSpec
+    from repro_torch.core.search import SearchParams
+    from repro_torch.core.segment_pool import SegmentPool, build_pool_segment
+    from repro_torch.data.corpus import CorpusConfig, make_corpus
+    from repro_torch.serving.hybrid_service import HybridSearchService
+    from repro_torch.serving.segment_router import RouterConfig, SegmentRouter
+
+    c = make_corpus(CorpusConfig(n_docs=768, n_queries=16, n_topics=16, d_dense=64, seed=4))
+    kern, plain = _write_cfgs()
+    seg = build_pool_segment(c.docs[:512], np.arange(512), kern,
+                             generator=torch.Generator("cuda").manual_seed(3))
+    out = []
+    for cfg, use in ((kern, None), (plain, False)):
+        svc = HybridSearchService(SegmentPool.from_segmented(seg),
+                                  SearchParams(k=8, use_kernel=use, corpus_dtype="int8"))
+        router = SegmentRouter(svc, cfg, RouterConfig(seal_threshold=10**9))
+        svc.insert(c.docs[512:640])
+        svc.mark_deleted([3, 515])
+        svc.insert(c.docs[640:768])
+        router.compact_incremental()
+        out.append((svc, svc.search(c.queries, FusionSpec.three_path())))
+    (sk, rk), (sp, rp) = out
+    gk, gp = sk.index.groups[-1], sp.index.groups[-1]
+    assert torch.equal(gk.global_ids, gp.global_ids)
+    assert type(gk.index.corpus).__name__ == "QuantizedFusedVectors"
+    assert _row_sets_equal(gk.index.semantic_edges, gp.index.semantic_edges) >= 0.99
+    same = rk.ids == rp.ids
+    assert same.float().mean() >= 0.95
+    torch.testing.assert_close(rk.scores[same], rp.scores[same], rtol=TOL, atol=TOL)

@@ -246,6 +246,11 @@ def test_port_imports_no_jax():
         "training.optimizer", "training.train_loop", "training.grad_compression",
         "data.pipeline", "runtime.fault_tolerance", "checkpoint.checkpoint", "launch.train",
     )} <= loaded
+    # and the write path's
+    assert {f"repro_torch.{m}" for m in (
+        "runtime.dispatch", "serving.segment_router", "checkpoint.index_io",
+        "core.build_pipeline",
+    )} <= loaded
 
 
 def test_chip_smoke_fails_without_cuda_or_repo(tmp_path):

@@ -602,7 +602,26 @@ def test_span_tree_metrics_and_unported_paths(corpus, index, tq):
     svc2 = _service(index)  # the most recent publisher sets the gauges
     assert by.value(leaf="dense", dtype="float32") == index.corpus.dense.numel() * 4
     assert by.value(leaf="graph", dtype="int32") > 0
-    with pytest.raises(NotImplementedError):
+    # the write path: a single index takes inserts given a build config, a
+    # pool takes deletes and inserts through an attached router
+    with pytest.raises(ValueError, match="build_cfg"):
         svc2.insert(to_torch(corpus.docs[:1]))
-    with pytest.raises(NotImplementedError):
+    from repro_torch.core.index import BuildConfig
+    from repro_torch.core.knn_graph import KnnConfig
+    from repro_torch.core.pruning import PruneConfig
+    from repro_torch.serving.segment_router import SegmentRouter
+
+    build = BuildConfig(knn=KnnConfig(k=12, iters=3), prune=PruneConfig(degree=12,
+                        keyword_degree=4), path_refine_iters=0)
+    svc3 = HybridSearchService(index, SearchParams(**PARAMS), build_cfg=build)
+    assert svc3.insert(to_torch(corpus.docs[224:232])) == 1 and svc3.index.n == 232
+    pool_svc = HybridSearchService(SegmentPool.from_segmented(tdist.SegmentedIndex(
+        tdist.map_index(index, lambda a: a[None]),
+        torch.arange(index.n, dtype=torch.int32)[None])), SearchParams(**PARAMS))
+    with pytest.raises(ValueError, match="SegmentRouter"):
+        pool_svc.mark_deleted([3])
+    router = SegmentRouter(pool_svc, build)
+    assert pool_svc.mark_deleted([3]) == 1 and router.stats.deleted_sealed == 1
+    assert pool_svc.insert(to_torch(corpus.docs[224:232])) == 2 and router.grow_size == 8
+    with pytest.raises(NotImplementedError, match="item 5"):
         HybridSearchService(index, SearchParams(**PARAMS), mesh=object())
