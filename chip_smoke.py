@@ -104,13 +104,36 @@ Phases (each prints its own lines; any failure exits nonzero):
      ln(vocab) and a last one below it; then the loss gradients through
      flash against naive on 2 rows, with three planted faults in the
      backward that must each fail that check;
-  9. the kernels line: launches on each variant's path (phases 4, 6 and 8
-     plus the fp32 pool's serving for the fp32 variants, phases 4 and 8 for
-     pairwise_tile, the int8 pool's serving and phase 8 for the int8
+  9. the text path and the replica tier (run last: before phase 7 it left
+     the profiled training step one kernel record short):
+     65,536 SynCorpus docs (fig14's 100,000 cut to fit the script's
+     time) through IngestPipeline (d_dense 1024, fit on
+     a strided 2,048), sharded by the consistent-hash ring (512 virtual
+     nodes) into R = 4 replicas and into R = 1, each shard sealed every 256
+     rows into pooled segments with the KG, each replica a
+     HybridSearchService and a SegmentRouter behind a ReplicaRouter
+     (benchmarks/fig14_scale.py's build_tier): ingest and build seconds,
+     isolated, model and tier QPS with p50 / p99, scaling efficiency,
+     recall@10 against brute force, one batch under adaptive fusion with the
+     KG on; gates, each with a planted fault that must fail it: (1)
+     placement against a ring the script computes with hashlib, (2) the
+     merge against the script's own merge of the replicas' results, (3) a
+     tier and one service over the first 512 docs, searched exhaustively,
+     equal up to ties, (4) degraded reads (mark_down, down_replicas, the
+     counter, fail_on_partial, bit-identical after mark_up), (5) 4,096
+     further docs streamed through stream_into in 16 batches of 256 (ids
+     contiguous, each on its home's grow segment, read-your-writes as in
+     phase 8) and 1,024 deletes, (6) save_pool with the fitted pipeline and
+     load_ingest bit for bit, (7) the fp32 kernels launched and the int8
+     ones not, (8) the bundled text corpus: hybrid recall@10 no lower than
+     dense-only and retrieve_text equal to a direct search;
+  10. the kernels line: launches on each variant's path (phases 4, 6, 8 and
+     9 plus the fp32 pool's serving for the fp32 variants, phases 4, 8 and
+     9 for pairwise_tile, the int8 pool's serving and phase 8 for the int8
      variants, phases 6 and 7 for flash_attention_fwd, phase 7 for the
      backward kernels), errors, times and bounds at the shape the path runs
      most (the flash kernels with their route by dtype as ``variant``);
-  10. the last line: {"ok": true, "device": {...}}.
+  11. the last line: {"ok": true, "device": {...}}.
 
 Imports nothing of JAX. Needs one CUDA card; exits nonzero without one.
 """
@@ -154,6 +177,17 @@ RYW_SHARE = 0.99  # read-your-writes: least share returned of the re-inserted do
 # of them, the port's 0.9131-0.9453, both packages' inserts 0.9531-1.0 of a
 # batch (tests/segment_reach.py on the CPU)
 REACH_FLOOR = 0.90
+# phase 9: SynCorpus text through the ingest pipeline into a replica tier
+# (benchmarks/fig14_scale.py's build_tier layout). Its largest size, 100,000
+# docs, took 540 s of phase 9 on an H100 (PERF.md, Findings: 115 s of it
+# one adaptive batch with the KG on, searched a segment at a time), so
+# the corpus is cut to 65,536 docs to keep the script inside its time limit
+TEXT_DOCS, TEXT_QUERIES, TEXT_FIT, TEXT_DENSE = 65_536, 64, 2048, 1024
+TEXT_ENCODE_BATCH, TEXT_SEGMENT, TEXT_VNODES, TEXT_REPLICAS = 1024, 256, 512, 4
+TEXT_REQUESTS, TEXT_BATCH = 256, 32  # per QPS reading: closed-loop batches of 32
+TEXT_STREAM, TEXT_STREAM_BATCH, TEXT_DELETES = 4096, 256, 1024
+TEXT_CONTRACT_DOCS = 512  # gate 3: a tier and one service over the first 512 docs
+TEXT_BUILD = None  # BuildConfig() (patched small for a CPU rehearsal)
 # phase 6: RAG at llama3.2-1b's full width
 RAG_REQUESTS, RAG_PROMPT, RAG_GEN = 64, 64, 64
 RAG_TOP_K, RAG_CTX = 4, 256  # prefill L = 4 * 256 + 64 = 1088
@@ -1398,6 +1432,25 @@ def phase_serving(corpus_bundle, results: dict, device: str = "cuda"):
     return pool_q, out["int8"]["rows"]["three_path"]["recall"]
 
 
+def graph_reach(idx):
+    """Per row of one index: alive and reached from its entry points along
+    semantic edges, by a breadth-first walk over every node, dead ones
+    included, as a search expands them (host bool array). The witness of
+    read-your-writes that no search computes."""
+    import torch
+
+    sem = idx.semantic_edges
+    seen = torch.zeros(sem.shape[0], dtype=torch.bool, device=sem.device)
+    front = idx.entry_points[idx.entry_points >= 0].long()
+    seen[front] = True
+    while front.numel():
+        nb = sem[front].reshape(-1).long()
+        nb = nb[(nb >= 0) & (nb < sem.shape[0])]
+        front = nb[~seen[nb]].unique()
+        seen[front] = True
+    return (seen & idx.alive).cpu().numpy()
+
+
 def widen_ell(f, learned: int, lexical: int):
     """Rows of ``f`` with their ELL widths padded (PAD ids, zero values) to
     (learned, lexical): doc rows and query rows then share one bucket."""
@@ -1547,16 +1600,7 @@ def phase_write(corpus_bundle, pool_q, results: dict, int8_recall: float, device
             at = [(i, rows[int(nid)]) for i, nid in enumerate(new_ids) if int(nid) in rows]
             if not at:
                 continue
-            sem = idx.semantic_edges
-            seen = torch.zeros(sem.shape[0], dtype=torch.bool, device=sem.device)
-            front = idx.entry_points[idx.entry_points >= 0].long()
-            seen[front] = True
-            while front.numel():
-                nb = sem[front].reshape(-1).long()
-                nb = nb[(nb >= 0) & (nb < sem.shape[0])]
-                front = nb[~seen[nb]].unique()
-                seen[front] = True
-            live = (seen & idx.alive).cpu().numpy()
+            live = graph_reach(idx)
             for i, r in at:
                 ok[i], cap[i] = bool(live[r]), idx.n
         return ok, cap
@@ -1883,6 +1927,624 @@ def phase_write(corpus_bundle, pool_q, results: dict, int8_recall: float, device
     say(f"phase 8 planted fault no sealed tombstones: {bad} deleted ids returned")
     need(bad > 0, "planted fault (no sealed tombstones) passes the delete gate")
     router.stop_merge_worker()
+
+
+def ring_witness(names, vnodes: int, ids):
+    """Home replica index per id by BLAKE2b consistent hashing, computed here
+    with hashlib apart from the program (each replica's ``{name}#{v}``
+    virtual nodes on a sorted ring; an id's 8 big-endian bytes go to their
+    hash's successor)."""
+    import hashlib
+
+    import numpy as np
+
+    h = lambda b: int.from_bytes(hashlib.blake2b(b, digest_size=8).digest(), "big")
+    ring = sorted((h(f"{n}#{v}".encode()), i) for i, n in enumerate(names) for v in range(vnodes))
+    keys = np.asarray([k for k, _ in ring], np.uint64)
+    owner = np.asarray([o for _, o in ring])
+    hs = np.asarray([h(int(g).to_bytes(8, "big")) for g in ids], np.uint64)
+    return owner[np.searchsorted(keys, hs, side="right") % len(keys)]
+
+
+def stack_segments(segs):
+    """A pool of sealed one-segment indexes: equal capacities concatenated
+    into one group each (one copy, where appending them one by one copies
+    the group again per segment), groups in the order of first appearance."""
+    import torch
+
+    from repro_torch.core.segment_pool import SegmentPool, append_segment
+
+    by_cap: dict = {}
+    for seg in segs:
+        by_cap.setdefault(int(seg.global_ids.shape[1]), []).append(seg)
+    pool = SegmentPool(groups=[])
+    for same in by_cap.values():
+        cat = iter([torch.cat(col) for col in zip(*(seg.leaves() for seg in same))])
+        pool, _ = append_segment(pool, same[0].map(lambda t: next(cat)))
+    return pool
+
+
+def same_up_to_ties(a_ids, a_scores, b_ids, b_scores, decimals=None) -> bool:
+    """The same scores in the same order and, per equal-score group, the same
+    ids (host arrays, rows of equal length). ``decimals``: scores compared
+    rounded to that many places (two searches that summed a doc's score in
+    another order), else bit for bit."""
+    import numpy as np
+
+    a_ids, b_ids = np.asarray(a_ids), np.asarray(b_ids)
+    a_scores, b_scores = np.asarray(a_scores), np.asarray(b_scores)
+    if decimals is not None:
+        a_scores, b_scores = np.round(a_scores, decimals), np.round(b_scores, decimals)
+    if a_ids.shape != b_ids.shape or not np.array_equal(a_scores, b_scores):
+        return False
+    for ai, bi, sc in zip(a_ids, b_ids, a_scores):
+        for v in np.unique(sc):
+            if set(ai[sc == v].tolist()) != set(bi[sc == v].tolist()):
+                return False
+    return True
+
+
+def phase_text(results: dict, device: str = "cuda"):
+    """SynCorpus text through the ingest pipeline into a replica tier
+    (benchmarks/fig14_scale.py's build_tier at its largest size): fit on a
+    strided sample, encode every doc, shard by the consistent-hash ring
+    into R = 4 replicas and R = 1, each shard sealed every 256 rows into
+    pooled segments with the KG, every replica a HybridSearchService and a
+    SegmentRouter behind a ReplicaRouter; isolated, model and tier QPS,
+    scaling efficiency, recall@10, a batch under adaptive fusion with the
+    KG on; then eight gates, each with a planted fault that must fail it.
+    (``device`` lets the phase be rehearsed on the CPU at a tiny size.)"""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint import load_ingest, load_pool, save_pool
+    from repro_torch.core.fusion import FUSION_MODE_NAMES, FusionSpec
+    from repro_torch.core.index import BuildConfig
+    from repro_torch.core.knn_graph import KnnConfig
+    from repro_torch.core.pruning import PruneConfig
+    from repro_torch.core.search import SearchParams, search
+    from repro_torch.core.segment_pool import SegmentPool, build_pool_segment
+    from repro_torch.core.usms import cat_fused, weighted_query
+    from repro_torch.data.corpus import recall_at_k
+    from repro_torch.data.syncorpus import SynCorpus, SynCorpusConfig
+    from repro_torch.data.textcorpus import load_bundled_corpus, topic_truth
+    from repro_torch.ingest import IngestConfig, IngestPipeline, adaptive_fusion_for
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.fused_topk import fused_topk, fused_topk_int8
+    from repro_torch.kernels.hybrid_distance import hybrid_distance, hybrid_distance_int8
+    from repro_torch.kernels.pairwise_tile import pairwise_tile
+    from repro_torch.obs.metrics import MetricsRegistry
+    from repro_torch.serving.batcher import BatcherConfig, _next_pow2
+    from repro_torch.serving.hybrid_service import HybridSearchService, ServiceConfig
+    from repro_torch.serving.rag import RagConfig, RagPipeline
+    from repro_torch.serving.replica_router import (
+        Replica,
+        ReplicaRouter,
+        ReplicaTierConfig,
+        build_ring,
+        ring_homes,
+    )
+    from repro_torch.serving.segment_router import RouterConfig, SegmentRouter
+
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    wrappers = {"hybrid_distance": hybrid_distance, "hybrid_distance_int8": hybrid_distance_int8,
+                "fused_topk": fused_topk, "fused_topk_int8": fused_topk_int8,
+                "pairwise_tile": pairwise_tile}
+    build_cfg = TEXT_BUILD or BuildConfig()
+    W = FusionSpec.three_path()
+    params = SearchParams(k=10, iters=32, pool_size=64)  # fig14's
+    batcher = BatcherConfig(flush_size=32, max_batch=32, flush_deadline_s=0.05)
+    names = lambda r: [f"replica{i}" for i in range(r)]
+    laps: dict = {}  # seconds by part of the phase, each ended by a device sync
+    mark = [time.perf_counter()]
+
+    def lap(name: str) -> None:
+        sync()
+        now = time.perf_counter()
+        laps[name] = laps.get(name, 0.0) + now - mark[0]
+        mark[0] = now
+
+    # ---- ingest ---------------------------------------------------------------
+    gen = SynCorpus(SynCorpusConfig(n_docs=TEXT_DOCS, n_queries=TEXT_QUERIES, seed=0))
+    pipe = IngestPipeline(IngestConfig(d_dense=TEXT_DENSE), device=device)
+    t = time.perf_counter()
+    fit = pipe.fit(gen.fit_sample(TEXT_FIT))
+    fit_s = time.perf_counter() - t
+    need(pipe.n_triplets > 0, "phase 9: the fit produced no triplets")
+    kg = dict(kg_triplets=fit.kg.triplets, n_entities=fit.kg.n_entities)
+    parts, ents, topics = [], [], []
+    gen_s = enc_s = 0.0
+    for lo in range(0, TEXT_DOCS, TEXT_ENCODE_BATCH):
+        t = time.perf_counter()
+        batch = [gen.doc(i) for i in range(lo, min(lo + TEXT_ENCODE_BATCH, TEXT_DOCS))]
+        t1 = time.perf_counter()
+        docs_b, ents_b = pipe.encode_docs([d.text for d in batch])
+        enc_s += time.perf_counter() - t1
+        gen_s += t1 - t
+        parts.append(docs_b)
+        ents.append(ents_b)
+        topics += [d.topic for d in batch]
+    corpus, ents, topics = cat_fused(parts), np.concatenate(ents), np.asarray(topics)
+    del parts
+    qs = gen.queries()
+    enc = pipe.encode_queries([q.text for q in qs])
+    q_topics = np.asarray([q.topic for q in qs])
+    say(f"phase 9 ingest: fit on {TEXT_FIT} of {TEXT_DOCS} SynCorpus docs (d_dense "
+        f"{TEXT_DENSE}) {fit_s:.2f} s, {pipe.n_triplets} triplets over "
+        f"{len(pipe.entity_vocab)} entities; {TEXT_DOCS} docs generated in {gen_s:.2f} s "
+        f"({TEXT_DOCS / gen_s:.0f} docs/s), encoded in {enc_s:.2f} s "
+        f"({TEXT_DOCS / enc_s:.0f} docs/s, batches of {TEXT_ENCODE_BATCH}); "
+        f"{sum(int((e >= 0).any()) for e in ents)} docs carry entities")
+    lap("ingest")
+
+    def make_tier(n_rep, docs, doc_ents, n, seg_docs, cfg, svc_params, salt):
+        """fig14's build_tier: each doc to its ring home, a shard sealed
+        every ``seg_docs`` rows into a pooled segment at pow2 capacity with
+        the KG, a service and a router per replica."""
+        homes = ring_homes(build_ring(names(n_rep), TEXT_VNODES), np.arange(n))
+        reps, seg_no = [], 0
+        for i in range(n_rep):
+            rows = np.flatnonzero(homes == i)
+            need(rows.size > 0, f"phase 9: replica {i} of {n_rep} received no docs")
+            segs = []
+            for s in range(0, rows.size, seg_docs):
+                part = rows[s:s + seg_docs]
+                segs.append(build_pool_segment(
+                    docs.take(torch.as_tensor(part, device=device)), part, cfg,
+                    capacity=_next_pow2(part.size), doc_entities=doc_ents[part], device=device,
+                    generator=torch.Generator(device).manual_seed(salt + seg_no), **kg))
+                seg_no += 1
+            pool = stack_segments(segs)
+            del segs
+            svc = HybridSearchService(pool, svc_params, ServiceConfig(batcher=batcher))
+            router = SegmentRouter(svc, cfg, RouterConfig(seal_threshold=10**9), **kg)
+            reps.append(Replica(svc, router, name=names(n_rep)[i]))
+        return ReplicaRouter(reps, ReplicaTierConfig(virtual_nodes=TEXT_VNODES))
+
+    q_batches = [enc.vectors[lo:lo + TEXT_BATCH]
+                 for lo in range(0, TEXT_QUERIES - TEXT_BATCH + 1, TEXT_BATCH)]
+
+    def measure(fn):
+        """Closed-loop batches (fig14's _measure): a warm-up batch, then
+        TEXT_REQUESTS requests; QPS and per-batch p50 / p99 (ms)."""
+        fn(q_batches[0])
+        hist = MetricsRegistry().histogram("phase9_batch_seconds", "per-batch wall time")
+        done, i = 0, 0
+        t0 = time.perf_counter()
+        while done < TEXT_REQUESTS:
+            t1 = time.perf_counter()
+            fn(q_batches[i % len(q_batches)])
+            hist.observe(time.perf_counter() - t1)
+            done += TEXT_BATCH
+            i += 1
+        snap = hist.snapshot()
+        return done / (time.perf_counter() - t0), snap.quantile(0.5) * 1e3, snap.quantile(0.99) * 1e3
+
+    # ---- build and read: R = 4, then R = 1 ---------------------------------------
+    for w in wrappers.values():  # the phase's main path: counts zeroed just before
+        w.launches = 0
+    tiers, reads = {}, {}
+    for n_rep in (TEXT_REPLICAS, 1):
+        sync()
+        t = time.perf_counter()
+        tier = make_tier(n_rep, corpus, ents, TEXT_DOCS, TEXT_SEGMENT, build_cfg, params, 41)
+        sync()
+        build_s = time.perf_counter() - t
+        lap(f"build R={n_rep}")
+        ran = lambda: sum(r.service.stats.batches for r in tier.replicas)
+        b0 = ran()
+        iso = [measure(lambda q, s=r.service: s.search(q, W, k=10))[0] for r in tier.replicas]
+        b1 = ran()
+        tier_qps, p50, p99 = measure(lambda q: tier.search(q, W, k=10))
+        b2 = ran()
+        reads[n_rep] = dict(iso=iso, model=min(iso), tier=tier_qps)
+        say(f"phase 9 R={n_rep}: built {TEXT_DOCS} docs in {build_s:.2f} s "
+            f"({TEXT_DOCS / build_s:.0f} docs/s); shard docs {tier.shard_sizes()}, segments "
+            f"per replica {[r.router.pool.n_segments for r in tier.replicas]}, groups "
+            f"{[r.router.pool.n_groups for r in tier.replicas]}; isolated QPS "
+            f"{', '.join(f'{x:.1f}' for x in iso)}, model_qps {min(iso):.1f}; tier QPS "
+            f"{tier_qps:.1f}, p50 {p50:.2f} ms p99 {p99:.2f} ms a batch of {TEXT_BATCH} "
+            f"(three-path, use_kg=False, {TEXT_REQUESTS} requests); the replicas ran {b1 - b0} "
+            f"service batches for the isolated readings, {b2 - b1} for the tier's "
+            f"({TEXT_REQUESTS + TEXT_BATCH} requests a replica each, the warm-up batch with them)")
+        tiers[n_rep] = tier
+        lap(f"reads R={n_rep}")
+    eff = reads[TEXT_REPLICAS]["model"] / (TEXT_REPLICAS * reads[1]["model"])
+    say(f"phase 9 scaling_efficiency = model_qps@{TEXT_REPLICAS} / ({TEXT_REPLICAS} x "
+        f"model_qps@1) = {reads[TEXT_REPLICAS]['model']:.1f} / ({TEXT_REPLICAS} x "
+        f"{reads[1]['model']:.1f}) = {eff:.4f}")
+    tiers.pop(1).close()
+    tier = tiers.pop(TEXT_REPLICAS)
+    reps = tier.replicas
+    R = len(reps)
+
+    # recall@10 against brute force over every doc, and the topic share
+    qw = weighted_query(enc.vectors, W.weights)
+    truth = ops.topk_hybrid(qw, corpus, 10, chunk=8192)[1]
+    got = tier.search(enc.vectors, W, k=10)
+    rec = recall_at_k(got.ids, truth)
+    ids = got.ids.numpy()
+    share = float(np.mean([(topics[i[i >= 0]] == qt).mean() for i, qt in zip(ids, q_topics)]))
+    say(f"phase 9 R={R} recall@10 {rec:.4f} (three-path, brute force over {TEXT_DOCS} docs); "
+        f"share of the top 10 in the query's topic {share:.4f}")
+    lap("recall")
+
+    # one batch under adaptive fusion with the KG on (one segment at a time)
+    kg_params = dataclasses.replace(params, use_kg=True)
+    kg_tier = ReplicaRouter([Replica(HybridSearchService(r.service.index, kg_params,
+                                                         ServiceConfig(batcher=batcher)),
+                                     name=r.name) for r in reps],
+                            ReplicaTierConfig(virtual_nodes=TEXT_VNODES))
+    qa = enc.vectors[0:TEXT_BATCH]
+    spec = adaptive_fusion_for(dataclasses.replace(
+        enc, vectors=qa, keywords=enc.keywords[:TEXT_BATCH], entities=enc.entities[:TEXT_BATCH]),
+        stats=tier.path_stats())
+    modes = [FUSION_MODE_NAMES[int(m)] for m in spec.mode]
+    t = time.perf_counter()
+    kg_res = kg_tier.search(qa, spec, entities=enc.entities[:TEXT_BATCH], k=10)
+    kg_s = time.perf_counter() - t
+    t = time.perf_counter()
+    tier.search(qa, spec, k=10)
+    flat_s = time.perf_counter() - t
+    need(bool((kg_res.ids[:, 0] >= 0).all()), "phase 9: an adaptive KG query without results")
+    say(f"phase 9 adaptive batch of {TEXT_BATCH}: modes "
+        f"{ {m: modes.count(m) for m in sorted(set(modes))} }, "
+        f"{int((enc.entities[:TEXT_BATCH] >= 0).any(1).sum())} rows with entities; use_kg=True "
+        f"{kg_s:.3f} s ({TEXT_BATCH / kg_s:.1f} QPS, one segment at a time over "
+        f"{[r.router.pool.n_segments for r in reps]} segments); the same batch at "
+        f"use_kg=False {flat_s:.3f} s ({TEXT_BATCH / flat_s:.1f} QPS)")
+    kg_tier.close()
+    lap("adaptive batch")
+
+    # ---- gate 1: placement against the script's own ring ------------------------
+    home = ring_witness(names(R), TEXT_VNODES, np.arange(TEXT_DOCS))
+
+    def placement_ok(homes) -> bool:
+        for i, r in enumerate(reps):
+            held = np.sort(np.concatenate([g.global_ids.cpu().numpy().ravel()
+                                           for g in r.router.pool.groups]))
+            if not np.array_equal(held[held >= 0], np.flatnonzero(homes == i)):
+                return False
+        return True
+
+    ok1 = placement_ok(home)
+    planted1 = placement_ok(ring_witness(names(R), 64, np.arange(TEXT_DOCS)))
+    say(f"phase 9 gate 1 placement: every replica holds exactly the ids the script's ring "
+        f"({TEXT_VNODES} virtual nodes) homes to it: {ok1}; planted 64-node ring: {planted1}")
+    need(ok1, "phase 9 gate 1: a replica holds ids its ring home is not")
+    need(not planted1, "planted fault (64-node ring) passes the placement gate")
+    lap("gate 1")
+
+    # ---- gate 2: the merge against the script's own merge ------------------------
+    def script_merge(parts, ordered=True):
+        all_ids = np.concatenate([p.ids.numpy() for p in parts], axis=1)
+        all_sc = np.concatenate([np.where(p.ids.numpy() >= 0, p.scores.numpy(), -np.inf)
+                                 for p in parts], axis=1)
+        order = (np.argsort(-all_sc, axis=1, kind="stable") if ordered
+                 else np.broadcast_to(np.arange(all_ids.shape[1]), all_ids.shape))[:, :10]
+        ids_, sc_ = np.take_along_axis(all_ids, order, 1), np.take_along_axis(all_sc, order, 1)
+        ok_ = np.isfinite(sc_)  # a row short of 10 results: PAD as the service gives it
+        return np.where(ok_, ids_, -1), np.where(ok_, sc_, -1e30).astype(np.float32)
+
+    merged = [tier.search(q, W, k=10) for q in q_batches]
+    direct = [[r.service.search(q, W, k=10) for r in reps] for q in q_batches]
+    ok2 = all(same_up_to_ties(m.ids, m.scores, *script_merge(d)) for m, d in zip(merged, direct))
+    planted2 = all(same_up_to_ties(m.ids, m.scores, *script_merge(d, ordered=False))
+                   for m, d in zip(merged, direct))
+    say(f"phase 9 gate 2 merge: the tier equals the script's merge of the {R} services' own "
+        f"results up to equal-score ties for {TEXT_QUERIES} queries: {ok2}; planted merge in "
+        f"replica order: {planted2}")
+    need(ok2, "phase 9 gate 2: the tier's merge differs from the services' own results")
+    need(not planted2, "planted fault (merge in replica order) passes the merge gate")
+    lap("gate 2")
+
+    # ---- gate 3: the tier against one service (DESIGN.md §9) ----------------------
+    # saturating: every row is an entry point and the pool covers a segment
+    # plus the entity entries, so both searches score every live doc
+    # exactly, whatever their graphs reach (a pool smaller than that misses
+    # the docs no entry point reaches, ROADMAP Queue 3)
+    n_c = TEXT_CONTRACT_DOCS
+
+    def exhaustive(seg):
+        cap = int(seg.global_ids.shape[1])
+        every = torch.arange(cap, dtype=torch.int32, device=seg.global_ids.device)[None]
+        return dataclasses.replace(seg, index=dataclasses.replace(seg.index, entry_points=every))
+
+    sat = SearchParams(k=10, iters=8, pool_size=_next_pow2(n_c) + 64, use_kg=True)
+    c_homes = ring_homes(build_ring(names(R), TEXT_VNODES), np.arange(n_c))
+    c_reps = []
+    for i in range(R):
+        rows = np.flatnonzero(c_homes == i)
+        seg = exhaustive(build_pool_segment(
+            corpus.take(torch.as_tensor(rows, device=device)), rows, build_cfg,
+            capacity=_next_pow2(rows.size), doc_entities=ents[rows], device=device,
+            generator=torch.Generator(device).manual_seed(900 + i), **kg))
+        c_reps.append(Replica(HybridSearchService(SegmentPool.from_segmented(seg), sat,
+                                                  ServiceConfig(batcher=batcher)),
+                              name=names(R)[i]))
+    c_tier = ReplicaRouter(c_reps, ReplicaTierConfig(virtual_nodes=TEXT_VNODES))
+    mono = HybridSearchService(SegmentPool.from_segmented(exhaustive(build_pool_segment(
+        corpus[0:n_c], np.arange(n_c), build_cfg, capacity=_next_pow2(n_c),
+        doc_entities=ents[:n_c], device=device,
+        generator=torch.Generator(device).manual_seed(999), **kg))), sat,
+        ServiceConfig(batcher=batcher))
+    q_ent = enc.entities
+
+    def contract(t_):
+        a = [t_.search(q, W, entities=q_ent[lo:lo + TEXT_BATCH], k=10)
+             for lo, q in zip(range(0, TEXT_QUERIES, TEXT_BATCH), q_batches)]
+        b = [mono.search(q, W, entities=q_ent[lo:lo + TEXT_BATCH], k=10)
+             for lo, q in zip(range(0, TEXT_QUERIES, TEXT_BATCH), q_batches)]
+        return all(same_up_to_ties(x.ids, x.scores, y.ids, y.scores, decimals=5)
+                   for x, y in zip(a, b))
+
+    ok3 = contract(c_tier)
+    c_tier.mark_down(0)
+    planted3 = contract(c_tier)
+    c_tier.mark_up(0)
+    say(f"phase 9 gate 3 contract: a tier of {R} over the first {n_c} docs (segments of "
+        f"{[int(r.service.index.groups[0].global_ids.shape[1]) for r in c_reps]}) and one "
+        f"service over one pool of them, saturating ({sat}), entities on, return the same "
+        f"results up to equal-score ties: {ok3}; planted tier with replica0 down: {planted3}")
+    need(ok3, "phase 9 gate 3: the tier differs from one service over the same docs")
+    need(not planted3, "planted fault (a replica's shard missing) passes the contract gate")
+    c_tier.close()
+    mono.stop_pump()
+    del c_tier, mono, c_reps
+    lap("gate 3")
+
+    # ---- gate 4: degraded reads ---------------------------------------------------
+    qb = q_batches[0]
+    before = tier.search(qb, W, k=10)
+    deg0 = tier.stats.degraded_reads("replica1")
+
+    def degraded_ok(res) -> bool:
+        got_ids = res.ids.numpy()
+        got_ids = got_ids[got_ids >= 0]
+        return bool((home[got_ids] != 1).all()) and res.down_replicas == ("replica1",)
+
+    tier.mark_down(1)
+    res = tier.search(qb, W, k=10)
+    deg1 = tier.stats.degraded_reads("replica1")
+    ok4 = degraded_ok(res) and deg1 == deg0 + 1
+    tier.config = dataclasses.replace(tier.config, fail_on_partial=True)
+    try:
+        tier.search(qb, W, k=10)
+        raised = False
+    except RuntimeError:
+        raised = True
+    finally:
+        tier.config = dataclasses.replace(tier.config, fail_on_partial=False)
+    sound_up = tier._up
+    tier._up = lambda: list(range(R))  # a router that searches down replicas too
+    try:
+        planted4 = degraded_ok(tier.search(qb, W, k=10))
+    finally:
+        tier._up = sound_up
+    tier.mark_up(1)
+    after = tier.search(qb, W, k=10)
+    same4 = torch.equal(after.ids, before.ids) and torch.equal(after.scores, before.scores)
+    say(f"phase 9 gate 4 degraded reads: after mark_down(1) no result id homed on replica1 and "
+        f"down_replicas {res.down_replicas}, degraded counter {deg0} -> {deg1}: {ok4}; fail_on_partial raises: {raised}; "
+        f"after mark_up bit-identical to before: {same4}; planted router searching down "
+        f"replicas: {planted4}")
+    need(ok4 and raised and same4, "phase 9 gate 4: degraded reads")
+    need(not planted4, "planted fault (down replicas searched) passes the degraded-read gate")
+    lap("gate 4")
+
+    # ---- gate 5: streamed writes, deletes, read-your-writes -----------------------
+    ext = SynCorpus(SynCorpusConfig(n_docs=TEXT_DOCS + TEXT_STREAM, n_queries=TEXT_QUERIES,
+                                    seed=0))
+    ins_s, ryw = [], []  # ryw: (new ids, reached, found by home, returned by tier)
+    seen: list = []  # (time the search was made, ids) of every result from here on
+    for lo in range(TEXT_DOCS, TEXT_DOCS + TEXT_STREAM, TEXT_STREAM_BATCH):
+        texts = ext.texts(lo, lo + TEXT_STREAM_BATCH)
+        t = time.perf_counter()
+        gids = pipe.stream_into(tier, texts)
+        ins_s.append(time.perf_counter() - t)
+        lap("stream_into")
+        need(np.array_equal(gids, np.arange(lo, lo + len(texts))),
+             f"phase 9: ids {gids[:3]}... not contiguous from {lo}")
+        new_home = ring_witness(names(R), TEXT_VNODES, gids)
+        q = pipe.encode_queries(texts).vectors
+        found = np.zeros(gids.size, bool)
+        reached = np.zeros(gids.size, bool)
+        for i, r in enumerate(reps):
+            snap = r.service._snap
+            grow_gids = snap.grow_gids.cpu().numpy()
+            need(np.array_equal(np.sort(grow_gids[grow_gids >= lo]), gids[new_home == i]),
+                 f"phase 9: replica{i}'s grow segment does not hold its new ids")
+            live = graph_reach(snap.grow)
+            row_of = {int(g): k for k, g in enumerate(grow_gids)}
+            rows = np.flatnonzero(new_home == i)
+            reached[rows] = [live[row_of[int(g)]] for g in gids[rows]]
+            own = r.service.search(q[torch.as_tensor(rows, device=device)], W, k=10).ids.numpy()
+            found[rows] = [g in row for g, row in zip(gids[rows], own)]
+        t = time.perf_counter()
+        tier_ids = tier.search(q, W, k=10).ids.numpy()
+        seen.extend((t, row) for row in tier_ids)
+        ryw.append((gids, reached, found, np.asarray([g in row for g, row in zip(gids, tier_ids)])))
+        lap("read-your-writes probes")
+    new_ids, reached, found, returned = (np.concatenate([x[i] for x in ryw]) for i in range(4))
+    h, f = int((found & returned).sum()), int(found.sum())
+    say(f"phase 9 stream: {TEXT_STREAM} docs (ids {TEXT_DOCS}-{TEXT_DOCS + TEXT_STREAM - 1}) in "
+        f"{len(ins_s)} stream_into calls of {TEXT_STREAM_BATCH}: {TEXT_STREAM / sum(ins_s):.1f} "
+        f"docs/s (encode + route + insert), p50 {np.quantile(ins_s, 0.5):.3f} s p99 "
+        f"{np.quantile(ins_s, 0.99):.3f} s a call; grow segments "
+        f"{[r.router.grow_size for r in reps]}")
+    say(f"phase 9 gate 5 read-your-writes: reached from the grow segment's entry points "
+        f"{int(reached.sum())}/{new_ids.size} = {reached.mean():.4f} (floor {REACH_FLOOR}); the "
+        f"tier returned {h}/{f} = {h / max(f, 1):.4f} of what the home replica's own search "
+        f"finds for each new doc's text (floor {RYW_SHARE}); of all {returned.mean():.4f}")
+    need(reached.mean() >= REACH_FLOOR, f"phase 9 gate 5: reached {reached.mean():.4f}")
+    need(f > 0 and h / f >= RYW_SHARE, f"phase 9 gate 5: returned {h}/{f}")
+
+    # deletes: half new, half sealed ids the tier was just returning
+    rng = np.random.default_rng(9)
+    half = TEXT_DELETES // 2
+    t = time.perf_counter()
+    answered = tier.search(enc.vectors, W, k=10).ids.numpy()
+    seen.extend((t, row) for row in answered)
+    recent = np.unique(answered[(answered >= 0) & (answered < TEXT_DOCS)])
+    sealed_v = rng.choice(recent, min(half, recent.size), replace=False)
+    rest = np.setdiff1d(np.arange(TEXT_DOCS), sealed_v)
+    sealed_v = np.concatenate([sealed_v, rng.choice(rest, half - sealed_v.size, replace=False)])
+    victims = np.concatenate([rng.choice(new_ids, half, replace=False), sealed_v])
+    del_time: dict = {}
+    del_s = []
+    for s in range(0, victims.size, TEXT_STREAM_BATCH):
+        chunk = victims[s:s + TEXT_STREAM_BATCH]
+        t = time.perf_counter()
+        tier.delete(chunk)
+        done = time.perf_counter()
+        del_s.append(done - t)
+        del_time.update((int(g), done) for g in chunk)
+
+    def violations(after: float) -> tuple[int, int]:
+        """Deleted ids in results of searches made after their delete
+        returned, and the results read."""
+        bad = n_res = 0
+        for t_, row in seen:
+            if t_ < after:
+                continue
+            n_res += 1
+            bad += sum(1 for g in row if g >= 0 and del_time.get(int(g), np.inf) < t_)
+        return bad, n_res
+
+    t_del = time.perf_counter()
+    new_v = victims[:half]
+    own_text = pipe.encode_queries([ext.doc(int(g)).text for g in new_v[:2 * TEXT_BATCH]])
+    for qv in (enc.vectors, own_text.vectors):
+        t = time.perf_counter()
+        seen.extend((t, row) for row in tier.search(qv, W, k=10).ids.numpy())
+    bad, n_res = violations(t_del)
+    say(f"phase 9 gate 5 deletes: {victims.size} ids ({half} new, {half} sealed, "
+        f"{min(half, recent.size)} of them just returned) in {len(del_s)} calls, p50 "
+        f"{np.quantile(del_s, 0.5):.4f} s; {bad} deleted ids in {n_res} results of searches "
+        f"made after the delete returned")
+    need(bad == 0, f"phase 9 gate 5: {bad} deleted ids returned")
+    # planted: a tier that never forwards deletes
+    last = tier.search(enc.vectors, W, k=10).ids.numpy()
+    more = np.unique(last[last >= 0])[:64]
+    sound_delete = tier.delete
+    tier.delete = lambda ids: int(np.asarray(ids).size)
+    try:
+        t = time.perf_counter()
+        tier.delete(more)
+        done = time.perf_counter()
+        del_time.update((int(g), done) for g in more)
+        t = time.perf_counter()
+        seen.extend((t, row) for row in tier.search(enc.vectors, W, k=10).ids.numpy())
+    finally:
+        tier.delete = sound_delete
+    planted5, _ = violations(done)
+    say(f"phase 9 gate 5 planted tier that never forwards deletes: {planted5} deleted ids "
+        "returned")
+    need(planted5 > 0, "planted fault (deletes never forwarded) passes the delete gate")
+    lap("deletes")
+
+    # ---- gate 7: the kernels launched on this path --------------------------------
+    sync()
+    launches = {k: w.launches for k, w in wrappers.items()}  # read just after
+    say(f"phase 9 launches (builds, reads, adaptive KG batch, gates 1-5, stream): "
+        f"{json.dumps(launches)}")
+    for k in ("hybrid_distance", "fused_topk", "pairwise_tile"):
+        need(launches[k] > 0 or device != "cuda", f"phase 9: {k} was not launched")
+        results[k]["launches"] += launches[k]
+    for k in ("hybrid_distance_int8", "fused_topk_int8"):
+        need(launches[k] == 0, f"phase 9: {k} launched on the fp32 tier")
+    for w in wrappers.values():
+        w.launches = 0
+    HybridSearchService(reps[0].service.index, dataclasses.replace(params, use_kernel=False)
+                        ).search(qb, W, k=10)
+    planted7 = sum(w.launches for w in wrappers.values())
+    say(f"phase 9 gate 7 planted search through the plain versions: {planted7} launches")
+    need(planted7 == 0, "planted fault (plain versions) passes the launch gate")
+    lap("gate 7")
+
+    # ---- gate 6: persistence --------------------------------------------------------
+    pool0 = reps[0].router.pool
+    texts_q = [q.text for q in qs]
+    other = IngestPipeline(IngestConfig(d_dense=TEXT_DENSE), device=device)
+    other.fit(gen.fit_sample(TEXT_FIT // 4))
+
+    def same_enc(a, b) -> bool:
+        fa, fb = a.vectors, b.vectors
+        return (all(torch.equal(x, y) for x, y in zip(
+            (fa.dense, fa.learned.idx, fa.learned.val, fa.lexical.idx, fa.lexical.val),
+            (fb.dense, fb.learned.idx, fb.learned.val, fb.lexical.idx, fb.lexical.val)))
+            and np.array_equal(a.keywords, b.keywords) and np.array_equal(a.entities, b.entities))
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_text_") as d:
+        t = time.perf_counter()
+        save_pool(d, pool0, ingest=pipe)
+        save_s = time.perf_counter() - t
+        nbytes = sum(f_.stat().st_size for f_ in Path(d).rglob("*") if f_.is_file())
+        t = time.perf_counter()
+        loaded_pool = load_pool(d, device=device)
+        loaded_pipe = load_ingest(d, device=device)
+        sync()
+        load_s = time.perf_counter() - t
+    ok6a = same_enc(loaded_pipe.encode_queries(texts_q), pipe.encode_queries(texts_q))
+    a6 = HybridSearchService(pool0, params).search(enc.vectors, W, k=10)
+    b6 = HybridSearchService(loaded_pool, params).search(enc.vectors, W, k=10)
+    ok6b = torch.equal(a6.ids, b6.ids) and torch.equal(a6.scores, b6.scores)
+    swapped = IngestPipeline.from_state(
+        dataclasses.asdict(pipe.config), n_docs=other.stats.n_docs, avg_dl=other.stats.avg_dl,
+        df_learned=other.stats.df_learned, df_lexical=other.stats.df_lexical,
+        entity_names=pipe.entity_vocab.names, n_triplets=pipe.n_triplets, device=device)
+    planted6 = same_enc(swapped.encode_queries(texts_q), pipe.encode_queries(texts_q))
+    say(f"phase 9 gate 6 persistence: replica0's pool ({pool0.n_segments} segments) with the "
+        f"fitted pipeline, {nbytes} bytes, save {save_s:.3f} s, load {load_s:.3f} s; loaded "
+        f"pipeline encodes the {TEXT_QUERIES} queries bit for bit: {ok6a}; loaded pool answers "
+        f"with the same ids and scores bitwise: {ok6b}; planted pipeline with another fit's "
+        f"stats encodes the same: {planted6}")
+    need(ok6a and ok6b, "phase 9 gate 6: persistence")
+    need(not planted6, "planted fault (another fit's stats) passes the persistence gate")
+    del loaded_pool
+    lap("gate 6")
+
+    # ---- gate 8: real text (the bundled corpus, ingest_bench.py's gate) -------------
+    bc = load_bundled_corpus()
+    bpipe = IngestPipeline(IngestConfig(d_dense=64), device=device)
+    bfit = bpipe.fit(bc.texts)
+    bindex = bpipe.build(bfit, BuildConfig(
+        knn=KnnConfig(k=16, iters=4, node_chunk=128),
+        prune=PruneConfig(degree=16, keyword_degree=4, node_chunk=128), path_refine_iters=1),
+        generator=torch.Generator(device).manual_seed(0))
+    benc = bpipe.encode_queries(bc.query_texts)
+    btruth = topic_truth(bc.query_topics, bc.topics)
+    bparams = SearchParams(k=10, iters=48, pool_size=64)
+    brec = {name: recall_at_k(search(bindex, benc.vectors, spec, bparams, device=device).ids,
+                              btruth)
+            for name, spec in (("dense_only", FusionSpec.weighted(1, 0, 0)), ("hybrid", W))}
+    rag = RagPipeline(None, bindex, torch.zeros((bc.n_docs, 1), dtype=torch.int32),
+                      RagConfig(top_k=10, search=bparams), ingest=bpipe)
+    direct8 = search(bindex, benc.vectors, W, bparams, keywords=benc.keywords,
+                     entities=benc.entities, device=device)
+    via = rag.retrieve_text(bc.query_texts)
+    ok8 = torch.equal(via.ids, direct8.ids) and torch.equal(via.scores, direct8.scores)
+    rag.ingest = IngestPipeline.from_state(
+        dataclasses.asdict(bpipe.config), n_docs=bpipe.stats.n_docs, avg_dl=bpipe.stats.avg_dl,
+        df_learned=np.roll(bpipe.stats.df_learned, 1), df_lexical=bpipe.stats.df_lexical,
+        entity_names=bpipe.entity_vocab.names, n_triplets=bpipe.n_triplets, device=device)
+    off = rag.retrieve_text(bc.query_texts)
+    planted8 = torch.equal(off.ids, direct8.ids) and torch.equal(off.scores, direct8.scores)
+    say(f"phase 9 gate 8 real text: bundled corpus ({bc.n_docs} paragraphs, "
+        f"{len(bc.query_texts)} queries, {bpipe.n_triplets} triplets) built and searched on "
+        f"{device}: recall@10 hybrid {brec['hybrid']:.4f} >= dense-only {brec['dense_only']:.4f}: "
+        f"{brec['hybrid'] >= brec['dense_only']}; retrieve_text equals a direct search of "
+        f"encode_queries: {ok8}; planted pipeline with shifted df: {planted8}")
+    need(brec["hybrid"] >= brec["dense_only"], "phase 9 gate 8: hybrid recall below dense-only")
+    need(ok8, "phase 9 gate 8: retrieve_text differs from a direct search")
+    need(not planted8, "planted fault (another fit's df) passes the retrieve_text gate")
+    tier.close()
+    lap("gate 8")
+    say(f"phase 9 seconds by part: {json.dumps({k: round(v, 3) for k, v in laps.items()})}; "
+        f"total {sum(laps.values()):.1f} s")
 
 
 def flash_work(q, k, v, causal: bool) -> tuple[float, float, float]:
@@ -2579,6 +3241,11 @@ def main() -> int:
         train_cfg = dataclasses.replace(get_config("llama3.2-1b"), attn_impl="flash")
         phase_flash_bwd(train_cfg, results)
         phase_train(train_cfg, results)
+        torch.cuda.empty_cache()
+        # last: run before phase 7, phase 9 (its tier's threads) left phase
+        # 7's profiled training step one flash-forward record short of the
+        # launches its wrapper counted (PERF.md, Findings)
+        phase_text(results)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

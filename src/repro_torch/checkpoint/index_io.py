@@ -7,6 +7,9 @@ directory -> rename -> ``.done`` commit marker):
     <dir>/step_<N>/      manifest.json + leaf_<i>.npy (N grows per save,
                          retention keeps 1)
     <dir>/step_<N>.done  commit marker
+    <dir>/ingest_step_<N>/  ingest_manifest.json + ingest_arrays.npz (the
+                         fitted ingest pipeline paired with step N, when
+                         given)
 
 ``repro`` orders the leaves by ``jax.tree_util``'s flatten of its registered
 dataclasses. Here the same order, the same manifest ``paths`` and the same
@@ -17,8 +20,11 @@ carries the quantization record and, for a pool, the per-group storage
 dtypes (``pool_groups``), which are the load-time group template; a legacy
 manifest without them loads as uniform fp32 groups.
 
-Checkpoints paired with a fitted ingest pipeline (``ingest=``,
-``load_ingest``) wait for the ingest port (ROADMAP Queue 1 item 8).
+A checkpoint paired with a fitted ``ingest.IngestPipeline`` (``ingest=``)
+writes the pipeline's manifest to ``ingest_step_<N>`` BEFORE index step N
+commits, and ``load_ingest`` reads the manifest of the latest committed
+step, so a crash anywhere never pairs a new index with stale stats (or the
+reverse). The ingest manifest and arrays are ``repro``'s too.
 """
 
 from __future__ import annotations
@@ -43,8 +49,8 @@ from repro_torch.core.usms import (
 )
 from repro_torch.device import resolve_device
 
+INGEST_SUBDIR = "ingest"  # legacy flat layout, still readable
 INGEST_STEP_PREFIX = "ingest_step_"
-_INGEST_ITEM = "ROADMAP Queue 1 item 8"
 
 _FP32_CORPUS = ("dense", "learned/.idx", "learned/.val", "lexical/.idx", "lexical/.val")
 _INT8_CORPUS = ("dense_q", "dense_scale") + _FP32_CORPUS[1:]
@@ -139,20 +145,18 @@ def _manifest_extra(tree) -> dict:
     return {"quantization": _corpus_record(tree.corpus)}
 
 
-def _no_ingest(ingest) -> None:
-    if ingest is not None:
-        raise NotImplementedError(
-            f"saving a fitted ingest pipeline waits for the ingest port ({_INGEST_ITEM})")
-
-
-def _save_stepped(directory: pathlib.Path, treedef: str, flat, extra: dict, keep: int) -> None:
+def _save_stepped(directory: pathlib.Path, treedef: str, flat, extra: dict, keep: int,
+                  ingest=None) -> None:
     """A fresh step per save: the previous committed step is only collected
     by retention AFTER the new one's ``.done`` lands, so a crash mid-save
-    always leaves a committed index behind."""
+    always leaves a committed index behind. The paired ingest manifest is
+    written before the step commits."""
     steps = all_steps(directory)
     step = steps[-1] + 1 if steps else 0
+    if ingest is not None:
+        ingest.save(directory / f"{INGEST_STEP_PREFIX}{step}")
     save_flat(directory, step, treedef, flat, keep=keep, extra=extra)
-    # ingest manifests (written by repro) whose index step retention dropped
+    # ingest manifests whose index step retention dropped
     kept = set(all_steps(directory))
     for d in directory.glob(INGEST_STEP_PREFIX + "*"):
         try:
@@ -165,20 +169,22 @@ def _save_stepped(directory: pathlib.Path, treedef: str, flat, extra: dict, keep
 
 def save_index(directory: str | os.PathLike, index: HybridIndex, *, ingest=None,
                keep: int = 1) -> None:
-    """Atomically persist ``index`` as a fresh committed step."""
-    _no_ingest(ingest)
+    """Atomically persist ``index`` as a fresh committed step, paired with
+    the fitted ``ingest.IngestPipeline`` whose frozen stats produced its
+    vectors when ``ingest`` is given."""
     tree = f"PyTreeDef({_index_node(_quantized(index.corpus))})"
     _save_stepped(pathlib.Path(directory), tree, _index_flat(index), _manifest_extra(index),
-                  keep)
+                  keep, ingest)
 
 
 def save_pool(directory: str | os.PathLike, pool: SegmentPool, *, ingest=None,
               keep: int = 1) -> None:
     """Atomically persist a heterogeneous ``SegmentPool`` (any group count,
-    per-group segment counts, capacities and storage dtypes)."""
-    _no_ingest(ingest)
+    per-group segment counts, capacities and storage dtypes), paired with
+    ``ingest`` when given."""
     tree = f"PyTreeDef({_pool_node([_dtype(g.index.corpus) for g in pool.groups])})"
-    _save_stepped(pathlib.Path(directory), tree, _pool_flat(pool), _manifest_extra(pool), keep)
+    _save_stepped(pathlib.Path(directory), tree, _pool_flat(pool), _manifest_extra(pool), keep,
+                  ingest)
 
 
 def _committed(directory: pathlib.Path, step: Optional[int], what: str):
@@ -254,9 +260,18 @@ def load_pool(directory: str | os.PathLike, *, step: Optional[int] = None,
     return SegmentPool(groups=groups)
 
 
-def load_ingest(directory: str | os.PathLike):
-    """The fitted ingest pipeline paired with the latest committed step."""
-    raise NotImplementedError(
-        f"loading a fitted ingest pipeline waits for the ingest port ({_INGEST_ITEM})")
+def load_ingest(directory: str | os.PathLike, *, device=None):
+    """The fitted ``ingest.IngestPipeline`` paired with the latest committed
+    step, encoding onto ``device`` (``None`` -> CUDA). Falls back to the
+    legacy flat ``ingest/`` layout."""
+    from repro_torch.ingest.pipeline import IngestPipeline
+
+    directory = pathlib.Path(directory)
+    steps = all_steps(directory)
+    if steps:
+        stepped = directory / f"{INGEST_STEP_PREFIX}{steps[-1]}"
+        if stepped.exists():
+            return IngestPipeline.load(stepped, device=device)
+    return IngestPipeline.load(directory / INGEST_SUBDIR, device=device)
 
 

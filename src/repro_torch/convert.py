@@ -1,11 +1,13 @@
 """Carry ``repro``'s state into the port, from numpy arrays under ``repro``'s
 field names: corpora (fp32 or int8 storage), indexes, segmented indexes,
-segment pools, model parameters and train states (parameters and train
-states back, too). Imports no JAX: every leaf goes through ``np.asarray``.
+segment pools, fitted ingest pipelines, model parameters and train states
+(parameters and train states back, too). Imports no JAX: every leaf goes
+through ``np.asarray``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Mapping
 
 import numpy as np
@@ -102,6 +104,26 @@ def segmented_from_arrays(seg, device) -> SegmentedIndex:
 def pool_from_arrays(pool, device) -> SegmentPool:
     """SegmentPool from an object with ``groups`` of segmented indexes."""
     return SegmentPool(groups=[segmented_from_arrays(g, device) for g in pool.groups])
+
+
+def ingest_pipeline_from_arrays(pipe, device):
+    """A fitted ``repro_torch.ingest.IngestPipeline`` from any object with a
+    fitted ``repro`` pipeline's fields: ``config`` (a dataclass or a mapping
+    of ``IngestConfig``'s fields), ``stats`` (``n_docs``, ``avg_dl``,
+    ``df_learned``, ``df_lexical``), ``entity_vocab.names`` and
+    ``n_triplets``. The port's pipeline then encodes bit for bit as the
+    source does, onto ``device``."""
+    from repro_torch.ingest.pipeline import IngestPipeline
+
+    cfg = pipe.config
+    cfg = dict(cfg) if isinstance(cfg, Mapping) else dataclasses.asdict(cfg)
+    st = pipe.stats
+    if st is None:
+        raise ValueError("ingest_pipeline_from_arrays: the pipeline is not fitted")
+    return IngestPipeline.from_state(
+        cfg, n_docs=st.n_docs, avg_dl=st.avg_dl, df_learned=np.asarray(st.df_learned),
+        df_lexical=np.asarray(st.df_lexical), entity_names=list(pipe.entity_vocab.names),
+        n_triplets=pipe.n_triplets, device=device)
 
 
 def _param_paths(model: Transformer):

@@ -1,5 +1,5 @@
-"""Dynamic fusion framework (DESIGN.md §11). Port of ``repro/core/fusion.py``
-(the adaptive selector waits for a later slice).
+"""Dynamic fusion framework (DESIGN.md §11). Port of ``repro/core/fusion.py``,
+the per-query adaptive selector (``adaptive_fusion``) included.
 
 A ``FusionSpec`` carries the fusion mode, the per-path weights, the RRF
 constant and the per-path normalization stats. Four modes:
@@ -405,4 +405,80 @@ def merge_fused_host(
         np.where(ok, m_ids, PAD_IDX).astype(np.int32),
         np.where(ok, m_scores, _NEG_FILL).astype(np.float32),
         np.where(ok[:, :, None], m_ps, 0.0).astype(np.float32),
+    )
+
+
+# ---------------------------------------------------------------------------
+# Per-query adaptive selector (the ingest/query path hook).
+# ---------------------------------------------------------------------------
+
+
+def query_nnz(vectors) -> np.ndarray:
+    """Live lexical terms per query row — the query-specificity signal the
+    adaptive selector keys on."""
+    return np.asarray((_np(vectors.lexical.idx) >= 0).sum(axis=-1))
+
+
+def adaptive_fusion(
+    keywords,
+    entities,
+    nnz,
+    *,
+    stats: Optional[PathStats] = None,
+    rrf_k: float = DEFAULT_RRF_K,
+) -> FusionSpec:
+    """Per-query fusion-mode selector from query characteristics (host-side
+    and cheap):
+
+      * entity-bearing queries -> weighted_sum with the KG path on (entity
+        waypoints steer traversal; rank fusion would dilute the logical
+        reward, which only the weighted mode folds into final scores);
+      * >= 2 required keywords -> RRF (precision-shaped query: rank fusion
+        is robust to the paths' incomparable score scales);
+      * lexically rich queries (nnz >= 8) -> zscore-normalized weighted sum
+        (many live terms make the lexical magnitude dominate raw sums);
+      * else -> dense-leaning weighted sum.
+
+    Returns a batched (B,)-leaf FusionSpec of host tensors; pass ``stats``
+    (e.g. a service's running stats) to pin normalization, else it resolves
+    downstream."""
+    kw = _np(keywords) if keywords is not None else None
+    en = _np(entities) if entities is not None else None
+    nnz = _np(nnz)
+    b = nnz.shape[0]
+    kw_count = (kw >= 0).sum(axis=-1) if kw is not None and kw.size else np.zeros(b)
+    has_ent = (en >= 0).any(axis=-1) if en is not None and en.size else np.zeros(b, bool)
+    mode = np.full(b, WEIGHTED_SUM, np.int32)
+    wd = np.ones(b, np.float32)
+    ws = np.full(b, 0.5, np.float32)
+    wf = np.full(b, 0.5, np.float32)
+    wk = np.zeros(b, np.float32)
+
+    lex_rich = nnz >= 8
+    mode[lex_rich] = ZSCORE
+    ws[lex_rich] = 1.0
+    wf[lex_rich] = 1.0
+
+    kw_rich = kw_count >= 2
+    mode[kw_rich] = RRF
+    ws[kw_rich] = 1.0
+    wf[kw_rich] = 1.0
+
+    mode[has_ent] = WEIGHTED_SUM
+    wd[has_ent] = 1.0
+    ws[has_ent] = 1.0
+    wf[has_ent] = 1.0
+    wk[has_ent] = 1.0
+
+    batched_stats = None
+    if stats is not None:
+        s = lambda x: _f32(_np(x)).expand(b, N_SCORE_PATHS).contiguous()
+        batched_stats = PathStats(minv=s(stats.minv), maxv=s(stats.maxv),
+                                  mean=s(stats.mean), std=s(stats.std))
+    t = torch.from_numpy
+    return FusionSpec(
+        mode=t(mode),
+        weights=PathWeights(dense=t(wd), sparse=t(ws), full=t(wf), kg=t(wk)),
+        rrf_k=torch.full((b,), rrf_k, dtype=torch.float32),
+        stats=batched_stats,
     )

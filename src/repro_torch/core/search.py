@@ -75,6 +75,9 @@ class SearchResult:
     scores: torch.Tensor  # (B, k) f32 fused scores (mode-dependent scale)
     expanded: torch.Tensor  # (B,) int32 number of expanded nodes
     path_scores: Optional[torch.Tensor] = None  # (B, k, 3) [dense, learned, lexical]
+    # replica names whose shards this result is missing (a degraded scatter
+    # read, DESIGN.md §9); None for single-index results and healthy tiers
+    down_replicas: Optional[tuple] = None
 
 
 def _full(shape, fill, dtype, device) -> torch.Tensor:

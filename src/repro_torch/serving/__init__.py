@@ -1,1 +1,2 @@
-"""Serving layer of the port: micro-batching and the hybrid search service."""
+"""Serving layer of the port: micro-batching, the hybrid search service,
+the grow-segment router and the replica tier."""

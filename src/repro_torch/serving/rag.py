@@ -12,10 +12,12 @@ keywords and entities. The pipeline is:
      doc 0, as in ``repro``);
   3. batched generation conditioned on [context ; prompt].
 
-The text entry points (``retrieve_text``, ``answer_text``), and with them
-repro's per-query adaptive fusion, need the ingest port and
-``adaptive_fusion`` (ROADMAP Queue 1 items 8 and 2); they raise
-``NotImplementedError``.
+With an attached ``ingest.IngestPipeline`` the request side starts from raw
+text: ``retrieve_text``/``answer_text`` run the same analyzer the corpus was
+ingested with (query dense + TF-IDF/BM25 ``SparseVec``, double-quoted
+phrases as required keywords, capitalized spans matched against the frozen
+entity vocab as query entities), and ``RagConfig.adaptive`` picks the fusion
+mode and weights per query from the analyzer's signals.
 """
 
 from __future__ import annotations
@@ -26,17 +28,13 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.fusion import FusionSpec, as_fusion_spec
+from repro_torch.core.fusion import FusionSpec, adaptive_fusion, as_fusion_spec, query_nnz
 from repro_torch.core.index import HybridIndex
 from repro_torch.core.search import SearchParams, SearchResult, resolve_params, search
 from repro_torch.core.usms import FusedVectors
 from repro_torch.obs.tracer import TraceContext
 from repro_torch.serving.engine import ServingEngine
 from repro_torch.serving.hybrid_service import HybridSearchService
-
-_TEXT = ("text queries need the ingest port and adaptive_fusion (ROADMAP Queue 1 items 8 "
-         "and 2)")
-
 
 @dataclasses.dataclass
 class RagConfig:
@@ -45,6 +43,9 @@ class RagConfig:
     # the query-side fusion object; stats resolve against the attached
     # service's running corpus stats (identity when direct)
     fusion: FusionSpec = dataclasses.field(default_factory=FusionSpec.three_path)
+    # pick mode + weights per query from its text-derived characteristics
+    # (keyword count, lexical nnz, entity presence) on the text entry points
+    adaptive: bool = False
     search: SearchParams = SearchParams(k=4, iters=32, pool_size=64)
 
 
@@ -57,12 +58,20 @@ class RagPipeline:
         cfg: RagConfig,
         *,
         service: Optional[HybridSearchService] = None,
+        ingest=None,  # a fitted ingest.IngestPipeline, for text queries
     ):
         self.engine = engine
         self.index = index
         self.doc_tokens = doc_tokens
         self.cfg = cfg
         self.service = service
+        self.ingest = ingest
+        if ingest is not None and not getattr(ingest, "fitted", False):
+            raise ValueError(
+                "RagPipeline needs a FITTED IngestPipeline: the query-side "
+                "analyzer must use the same frozen corpus stats the index "
+                "was built from"
+            )
         if service is not None:
             # retrieval runs with the service's SearchParams; refuse a config
             # that silently diverges from it (k may differ: the service caps
@@ -106,12 +115,40 @@ class RagPipeline:
             trace.add_span("retrieval", t0, time.perf_counter(), path="direct")
         return res
 
-    def retrieve_text(self, texts, *, trace: Optional[TraceContext] = None) -> SearchResult:
-        raise NotImplementedError(_TEXT)
+    def _adaptive_spec(self, enc) -> FusionSpec:
+        """Per-query fusion selection from the analyzer's view of the query:
+        required-keyword count, lexical nnz and entity presence pick mode +
+        weights per row. Normalization stats pin to the attached service's
+        running stats when there is one, else resolve downstream."""
+        stats = self.service.path_stats if self.service is not None else None
+        return adaptive_fusion(enc.keywords, enc.entities, query_nnz(enc.vectors), stats=stats)
 
-    def answer_text(self, texts, prompts, n_tokens: int, *,
-                    trace: Optional[TraceContext] = None):
-        raise NotImplementedError(_TEXT)
+    def _encode(self, texts, what: str):
+        if self.ingest is None:
+            raise ValueError(f"{what} requires an IngestPipeline at construction")
+        return self.ingest.encode_queries(list(texts))
+
+    def retrieve_text(self, texts, *, trace: Optional[TraceContext] = None) -> SearchResult:
+        """Raw query strings -> hybrid retrieval through the attached
+        analyzer (query SparseVec + required keywords + query entities).
+        With ``cfg.adaptive`` the fusion mode and weights are selected per
+        query from the analyzer's signals."""
+        t0 = time.perf_counter()
+        enc = self._encode(texts, "retrieve_text")
+        if trace is not None:
+            trace.add_span("query_encode", t0, time.perf_counter(), queries=len(texts))
+        return self.retrieve(
+            enc.vectors, keywords=enc.keywords, entities=enc.entities,
+            fusion=self._adaptive_spec(enc) if self.cfg.adaptive else None, trace=trace)
+
+    def answer_text(self, texts, prompts: torch.Tensor, n_tokens: int, *,
+                    trace: Optional[TraceContext] = None) -> tuple[torch.Tensor, SearchResult]:
+        """Text-query counterpart of ``answer`` (the same retrieval-to-
+        generation tail; only the query encoding differs)."""
+        enc = self._encode(texts, "answer_text")
+        return self.answer(
+            enc.vectors, prompts, n_tokens, keywords=enc.keywords, entities=enc.entities,
+            fusion=self._adaptive_spec(enc) if self.cfg.adaptive else None, trace=trace)
 
     def build_context(self, result: SearchResult) -> torch.Tensor:
         """Concatenate retrieved docs' token spans -> (B, top_k * ctx_len)."""

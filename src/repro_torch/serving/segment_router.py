@@ -109,8 +109,8 @@ class RouterConfig:
     # run auto merges on a background worker thread (each merge still takes
     # the service write lock); wait_merges() blocks until it is quiescent
     background_merge: bool = True
-    # every N compactions persist the sealed pool via
-    # checkpoint.index_io.save_pool. 0 = off.
+    # every N compactions persist the sealed pool (and the paired ingest
+    # manifest) via checkpoint.index_io.save_pool. 0 = off.
     autocheckpoint_every: int = 0
     autocheckpoint_dir: Optional[str] = None
 
@@ -225,11 +225,9 @@ class SegmentRouter:
             raise ValueError(
                 "SegmentRouter fronts a SegmentPool service; a single HybridIndex "
                 "already supports insert()/mark_deleted() directly")
-        if ingest is not None:
-            raise NotImplementedError(
-                "checkpoints paired with a fitted ingest pipeline wait for the "
-                "ingest port (ROADMAP Queue 1 item 8)")
         self.service = service
+        # a fitted ingest.IngestPipeline: auto-checkpoints pair it with the pool
+        self._ingest = ingest
         self.build_cfg = build_cfg
         self.config = config or RouterConfig()
         self.stats = RouterStats(service.metrics)
@@ -669,7 +667,8 @@ class SegmentRouter:
     # -- auto-checkpoint ----------------------------------------------------
 
     def _maybe_autocheckpoint(self) -> None:
-        """Persist the sealed pool every ``autocheckpoint_every``
+        """Persist the sealed pool, paired with the fitted ingest pipeline
+        when the router has one, every ``autocheckpoint_every``
         compactions, so a crash loses at most the current grow segment plus
         one window. Runs outside the write lock (a published snapshot is
         immutable) and serializes writers on its own lock."""
@@ -682,6 +681,6 @@ class SegmentRouter:
                 return
             from repro_torch.checkpoint.index_io import save_pool
 
-            save_pool(cfg.autocheckpoint_dir, self.pool)
+            save_pool(cfg.autocheckpoint_dir, self.pool, ingest=self._ingest)
             self._last_ckpt_compactions = done
             self.stats._autocheckpoints.inc()

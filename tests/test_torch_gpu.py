@@ -631,3 +631,59 @@ def test_router_compaction_kernels_match_plain_versions(cuda):
     same = rk.ids == rp.ids
     assert same.float().mean() >= 0.95
     torch.testing.assert_close(rk.scores[same], rp.scores[same], rtol=TOL, atol=TOL)
+
+
+# ---------------------------------------------------------------------------
+# the text path and the replica tier: text encoded onto the card, a tier of
+# two replicas through the kernels against the same tier through the plain
+# versions
+# ---------------------------------------------------------------------------
+
+
+def test_text_tier_kernels_match_plain_versions(cuda):
+    from repro_torch.core.fusion import FusionSpec
+    from repro_torch.core.search import SearchParams
+    from repro_torch.core.segment_pool import SegmentPool, build_pool_segment
+    from repro_torch.data.syncorpus import SynCorpus, SynCorpusConfig
+    from repro_torch.ingest import IngestConfig, IngestPipeline, adaptive_fusion_for
+    from repro_torch.kernels.fused_topk import fused_topk
+    from repro_torch.serving.hybrid_service import HybridSearchService
+    from repro_torch.serving.replica_router import (
+        Replica,
+        ReplicaRouter,
+        ReplicaTierConfig,
+        build_ring,
+        ring_homes,
+    )
+
+    gen = SynCorpus(SynCorpusConfig(n_docs=640, n_topics=16, n_entities=48, n_queries=16,
+                                    seed=2))
+    pipe = IngestPipeline(IngestConfig(d_dense=64))  # the card by default
+    fit = pipe.fit(gen.fit_sample(256))
+    docs, ents = pipe.encode_docs(gen.texts(0, 640))
+    assert docs.dense.is_cuda and pipe.n_triplets > 0
+    kg = dict(kg_triplets=fit.kg.triplets, n_entities=fit.kg.n_entities)
+    homes = ring_homes(build_ring(["replica0", "replica1"], 64), np.arange(640))
+    enc = pipe.encode_queries([q.text for q in gen.queries()])
+    kern, plain = _write_cfgs()
+    out = []
+    for cfg, use in ((kern, None), (plain, False)):
+        reps = []
+        for i in range(2):
+            rows = np.flatnonzero(homes == i)
+            seg = build_pool_segment(docs.take(torch.as_tensor(rows, device="cuda")), rows, cfg,
+                                     doc_entities=ents[rows],
+                                     generator=torch.Generator("cuda").manual_seed(i), **kg)
+            svc = HybridSearchService(SegmentPool.from_segmented(seg),
+                                      SearchParams(k=8, use_kg=True, use_kernel=use))
+            reps.append(Replica(svc, name=f"replica{i}"))
+        tier = ReplicaRouter(reps, ReplicaTierConfig())
+        launched = fused_topk.launches
+        spec = adaptive_fusion_for(enc, stats=tier.path_stats())
+        out.append(tier.search(enc.vectors, spec, entities=enc.entities))
+        assert (fused_topk.launches > launched) == (use is None)
+        tier.close()
+    rk, rp = out
+    same = rk.ids == rp.ids
+    assert same.float().mean() >= 0.95
+    torch.testing.assert_close(rk.scores[same], rp.scores[same], rtol=TOL, atol=TOL)

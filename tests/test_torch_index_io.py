@@ -4,7 +4,10 @@ manifests (as JSON) and byte-equal leaf files, for an fp32 and an int8
 index and for a mixed fp32 / int8 pool; each package loads the other's save
 with every leaf equal and the same search ids. A legacy pool manifest
 without ``pool_groups`` loads, an uncommitted step raises, a non-pool
-checkpoint is refused by ``load_pool``, and ``ingest=`` raises."""
+checkpoint is refused by ``load_pool``. A save paired with a fitted ingest
+pipeline (``ingest=``) writes repro's ingest manifest and arrays byte for
+byte before the step commits, and ``load_ingest`` of either package reads
+the other's, paired with the latest committed step."""
 
 from __future__ import annotations
 
@@ -28,8 +31,12 @@ from repro.core.search import SearchParams as RSearchParams  # noqa: E402
 from repro.core.search import search as r_search  # noqa: E402
 from repro.core.usms import quantize_corpus as r_quantize  # noqa: E402
 from repro.data.corpus import CorpusConfig, make_corpus  # noqa: E402
+from repro.data.textcorpus import load_bundled_corpus  # noqa: E402
+from repro.ingest import IngestConfig as RIngestConfig  # noqa: E402
+from repro.ingest import IngestPipeline as RIngestPipeline  # noqa: E402
 from repro_torch.checkpoint import index_io as tio  # noqa: E402
 from repro_torch.convert import index_from_arrays, pool_from_arrays  # noqa: E402
+from repro_torch.ingest import IngestConfig, IngestPipeline  # noqa: E402
 from repro_torch.core.fusion import FusionSpec  # noqa: E402
 from repro_torch.core.search import SearchParams, search  # noqa: E402
 from repro_torch.serving.hybrid_service import HybridSearchService  # noqa: E402
@@ -194,15 +201,58 @@ def test_missing_uncommitted_and_foreign_checkpoints_raise(saved, tmp_path):
         tio.load_index(tmp_path / "pool", device="cpu")
 
 
-def test_ingest_and_default_device(saved, tmp_path):
+@pytest.fixture(scope="module")
+def fitted():
+    """The bundled corpus fitted by each package (equal state)."""
+    texts = load_bundled_corpus().texts
+    r = RIngestPipeline(RIngestConfig(d_dense=16))
+    r.fit(texts)
+    t = IngestPipeline(IngestConfig(d_dense=16), device="cpu")
+    t.fit(texts)
+    return texts, r, t
+
+
+def ingest_files(d) -> dict:
+    """The ingest step's manifest bytes and the npz members' bytes (the
+    zip's own timestamps aside)."""
+    import zipfile
+
+    with zipfile.ZipFile(d / RIngestPipeline.ARRAYS) as z:
+        members = {n: z.read(n) for n in sorted(z.namelist())}
+    return {"manifest": (d / RIngestPipeline.MANIFEST).read_bytes(), **members}
+
+
+@pytest.mark.parametrize("kind", ["index_fp32", "pool_mixed"])
+def test_ingest_pairing_matches_repro(saved, fitted, tmp_path, kind):
     _, trees = saved
+    texts, r, t = fitted
+    (rio.save_pool if kind.startswith("pool") else rio.save_index)(
+        tmp_path / "r", trees[kind], ingest=r)
+    (tio.save_pool if kind.startswith("pool") else tio.save_index)(
+        tmp_path / "t", to_port(kind, trees[kind]), ingest=t)
+    assert ingest_files(tmp_path / "t" / "ingest_step_0") == \
+        ingest_files(tmp_path / "r" / "ingest_step_0")
+    want = r.encode_queries(texts[:4])
+    for got in (tio.load_ingest(tmp_path / "r", device="cpu").encode_queries(texts[:4]),
+                rio.load_ingest(tmp_path / "t").encode_queries(texts[:4])):
+        for g, w in zip((got.vectors.dense, got.vectors.lexical.val, got.keywords),
+                        (want.vectors.dense, want.vectors.lexical.val, want.keywords)):
+            np.testing.assert_array_equal(np.asarray(g), np.asarray(w))
+    # a second save: the ingest step pairs with the new commit, the old goes
+    tio.save_index(tmp_path / "t", to_port("index", trees["index_fp32"]), ingest=t)
+    assert sorted(d.name for d in (tmp_path / "t").glob("ingest_step_*")) == ["ingest_step_1"]
+    assert tio.load_ingest(tmp_path / "t", device="cpu").entity_vocab.names == \
+        t.entity_vocab.names
+
+
+def test_ingest_and_default_device(saved, fitted, tmp_path):
+    _, trees = saved
+    texts, _, t = fitted
     idx = to_port("index", trees["index_fp32"])
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tio.save_index(tmp_path / "i", idx, ingest=object())
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tio.save_pool(tmp_path / "p", to_port("pool", trees["pool_mixed"]), ingest=object())
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tio.load_ingest(tmp_path / "i")
+    with pytest.raises(FileNotFoundError, match="ingest manifest"):
+        tio.load_ingest(tmp_path / "i", device="cpu")  # nothing paired yet
+    t.save(tmp_path / "legacy" / "ingest")  # the legacy flat layout still loads
+    assert tio.load_ingest(tmp_path / "legacy", device="cpu").stats.n_docs == len(texts)
     tio.save_index(tmp_path / "i", idx)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):

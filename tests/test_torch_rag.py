@@ -4,7 +4,10 @@ on the llama3.2-1b smoke config at fp32 (vocab 256, as tests/test_serving.py)
 with parameters carried across by ``convert.py``: greedy generation gives
 repro's tokens exactly (naive and flash attention); ``RagPipeline.answer``,
 direct and through ``HybridSearchService``, over a small repro-built index
-carried across, gives repro's ids and tokens exactly. Also the port's own
+carried across, gives repro's ids and tokens exactly, and so do
+``retrieve_text`` and ``answer_text`` over the bundled text corpus (adaptive
+fusion on and off), with the fitted ingest pipeline carried across by
+``convert.ingest_pipeline_from_arrays``. Also the port's own
 checks: generation equals incremental forward passes
 (tests/test_serving.py:41), argmax ties go to the first index, temperature
 sampling's shape and determinism, the trace spans, the CLI on the CPU, and
@@ -35,6 +38,9 @@ from repro.core import PruneConfig as RPruneConfig  # noqa: E402
 from repro.core import build_index as r_build_index  # noqa: E402
 from repro.core.search import SearchParams as RSearchParams  # noqa: E402
 from repro.data.corpus import CorpusConfig, make_corpus  # noqa: E402
+from repro.data.textcorpus import load_bundled_corpus  # noqa: E402
+from repro.ingest import IngestConfig as RIngestConfig  # noqa: E402
+from repro.ingest import IngestPipeline as RIngestPipeline  # noqa: E402
 from repro.models import transformer as rtfm  # noqa: E402
 from repro.serving import batcher as rbatcher  # noqa: E402
 from repro.serving import engine as rengine  # noqa: E402
@@ -42,7 +48,8 @@ from repro.serving import hybrid_service as rsvc  # noqa: E402
 from repro.serving import rag as rrag  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.convert import fused_from_numpy, index_from_arrays  # noqa: E402
-from repro_torch.convert import model_params_from_numpy  # noqa: E402
+from repro_torch.convert import ingest_pipeline_from_arrays, model_params_from_numpy  # noqa: E402
+from repro_torch.ingest import IngestConfig, IngestPipeline  # noqa: E402
 from repro_torch.core.search import SearchParams  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.obs.tracer import TraceContext  # noqa: E402
@@ -208,16 +215,73 @@ def test_rag_refuses_what_is_not_ported_or_disagrees(engines, rag_setup):
     _, _, tindex, doc_tokens = rag_setup
     cfg = RagConfig(top_k=2, search=SearchParams(**SEARCH))
     pipe = RagPipeline(teng, tindex, torch.as_tensor(doc_tokens), cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="IngestPipeline"):
         pipe.retrieve_text(["a query"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="IngestPipeline"):
         pipe.answer_text(["a query"], torch.zeros((1, 2), dtype=torch.int32), 2)
+    with pytest.raises(ValueError, match="FITTED"):
+        RagPipeline(teng, tindex, torch.as_tensor(doc_tokens), cfg,
+                    ingest=IngestPipeline(IngestConfig(), device="cpu"))
     other = HybridSearchService(tindex, SearchParams(k=2, iters=7))
     with pytest.raises(ValueError, match="disagree"):
         RagPipeline(teng, tindex, torch.as_tensor(doc_tokens), cfg, service=other)
     small = HybridSearchService(tindex, dataclasses.replace(cfg.search, k=1))
     with pytest.raises(ValueError, match="exceeds the service cap"):
         RagPipeline(teng, tindex, torch.as_tensor(doc_tokens), cfg, service=small)
+
+
+@pytest.fixture(scope="module")
+def text_setup():
+    """The bundled corpus fitted by repro, built with its KG, carried across
+    (index and fitted pipeline)."""
+    corpus = load_bundled_corpus()
+    rpipe = RIngestPipeline(RIngestConfig(d_dense=32))
+    rindex = rpipe.build(rpipe.fit(corpus.texts), R_BUILD, key=jax.random.key(4))
+    doc_tokens = np.random.default_rng(5).integers(0, 256, (corpus.n_docs, 8)).astype(np.int32)
+    return (corpus, rpipe, rindex, ingest_pipeline_from_arrays(rpipe, "cpu"),
+            index_from_arrays(rindex, "cpu"), doc_tokens)
+
+
+TEXT_SEARCH = dict(k=5, iters=24, pool_size=48, use_keywords=True, use_kg=True)
+
+
+@pytest.mark.parametrize("adaptive", [False, True], ids=["fixed", "adaptive"])
+@pytest.mark.parametrize("service", [False, True], ids=["direct", "service"])
+def test_text_entry_points_match_repro(engines, text_setup, service, adaptive):
+    reng, teng = engines
+    corpus, rpipe, rindex, tpipe, tindex, doc_tokens = text_setup
+    rcfg = rrag.RagConfig(top_k=2, ctx_tokens_per_doc=8, adaptive=adaptive,
+                          search=RSearchParams(**TEXT_SEARCH))
+    tcfg = RagConfig(top_k=2, ctx_tokens_per_doc=8, adaptive=adaptive,
+                     search=SearchParams(**TEXT_SEARCH))
+    rkw, tkw = {}, {}
+    if service:
+        batch = dict(flush_size=8, max_batch=8)
+        rkw["service"] = rsvc.HybridSearchService(
+            rindex, dataclasses.replace(rcfg.search, k=2),
+            rsvc.ServiceConfig(batcher=rbatcher.BatcherConfig(**batch)))
+        tkw["service"] = HybridSearchService(tindex, dataclasses.replace(tcfg.search, k=2),
+                                             ServiceConfig(batcher=BatcherConfig(**batch)))
+    r = rrag.RagPipeline(reng, rindex, jnp.asarray(doc_tokens), rcfg, ingest=rpipe, **rkw)
+    t = RagPipeline(teng, tindex, torch.as_tensor(doc_tokens), tcfg, ingest=tpipe, **tkw)
+    texts = corpus.query_texts[:6] + ['"scurvy" on the voyage home with Magellan',
+                                      '"rye" "starter" sourdough']
+    enc = tpipe.encode_queries(texts)
+    assert (enc.entities >= 0).any() and ((enc.keywords >= 0).sum(1) >= 2).any()
+    trace = TraceContext("rag")
+    got = t.retrieve_text(texts, trace=trace)
+    want = r.retrieve_text(texts)
+    np.testing.assert_array_equal(got.ids.numpy(), np.asarray(want.ids))
+    np.testing.assert_allclose(got.scores.numpy(), np.asarray(want.scores), rtol=1e-4,
+                               atol=1e-4)
+    assert "query_encode" in trace.span_names()
+    prompts = _prompts((len(texts), 4), seed=6)
+    got_out, _ = t.answer_text(texts, torch.as_tensor(prompts), 5)
+    want_out, _ = r.answer_text(texts, jnp.asarray(prompts), 5)
+    np.testing.assert_array_equal(got_out.numpy(), np.asarray(want_out))
+    if not adaptive:  # the fixed spec: retrieve_text is retrieve over encode_queries
+        direct = t.retrieve(enc.vectors, keywords=enc.keywords, entities=enc.entities)
+        assert torch.equal(direct.ids, got.ids)
 
 
 # ---------------------------------------------------------------------------

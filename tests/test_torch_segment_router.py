@@ -189,8 +189,7 @@ def test_router_requires_pool_service(corpus, sealed):
     with pytest.raises(ValueError, match="SegmentPool"):
         SegmentRouter(single, T_CFG)
     t, _, _, _ = pair(sealed, **NO_COMPACT)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        SegmentRouter(t, T_CFG, ingest=object())
+    assert SegmentRouter(t, T_CFG, ingest=object())._ingest is not None  # pairs checkpoints
 
 
 @pytest.mark.parametrize("dtype", ["float32", "int8"])
@@ -426,6 +425,27 @@ def test_autocheckpoint_on_compaction(corpus, sealed, tmp_path):
     loaded = load_pool(ckpt, device="cpu")
     assert loaded.capacities == tr.pool.capacities
     assert sum(c[3] for c in live_counts(loaded)) == N_SEALED + 32
+
+
+def test_autocheckpoint_pairs_the_ingest_pipeline(corpus, sealed, tmp_path):
+    from repro_torch.checkpoint import load_ingest
+    from repro_torch.data.textcorpus import load_bundled_corpus
+    from repro_torch.ingest import IngestConfig, IngestPipeline
+
+    pipe = IngestPipeline(IngestConfig(d_dense=16), device="cpu")
+    pipe.fit(load_bundled_corpus().texts[:40])
+    ckpt = tmp_path / "auto"
+    t, _, _, _ = pair(sealed, **NO_COMPACT)
+    tr = SegmentRouter(t, T_CFG, RouterConfig(**NO_COMPACT, auto_merge=False,
+                                              autocheckpoint_every=1,
+                                              autocheckpoint_dir=str(ckpt)), ingest=pipe)
+    t.insert(to_torch(corpus.docs[N_SEALED:N_SEALED + 16]))
+    tr.compact_incremental()
+    assert tr.stats.autocheckpoints == 1
+    loaded = load_ingest(ckpt, device="cpu")
+    assert loaded.entity_vocab.names == pipe.entity_vocab.names
+    np.testing.assert_array_equal(loaded.stats.df_learned, pipe.stats.df_learned)
+    assert (ckpt / "ingest_step_0").is_dir()
 
 
 def test_pump_delivers_during_inserts(corpus, sealed):

@@ -360,6 +360,9 @@ def test_service_parity_with_repro_on_pool(corpus, pools, dtype):
     r_svc = rsvc.HybridSearchService(
         r_pool, RSearchParams(use_kernel=False, corpus_dtype=dtype, **PARAMS),
         rsvc.ServiceConfig(batcher=rbatcher.BatcherConfig(**batch)))
+    # the byte gauges are process-wide: only this service's labels, not those
+    # of services an earlier test file built in the same process
+    GLOBAL.get("allanpoe_index_bytes_total").reset()
     t_svc = HybridSearchService(
         pool_from_arrays(r_pool, "cpu"), SearchParams(corpus_dtype=dtype, **PARAMS),
         ServiceConfig(batcher=BatcherConfig(**batch)))
