@@ -55,9 +55,9 @@ Phases (each prints its own lines; any failure exits nonzero):
      the gap the format allows, with planted faults that must fail;
   8. the write path at full width (run after phase 5, before phase 6):
      phase 5's int8 pool served with a SegmentRouter attached (default
-     RouterConfig), a writer thread upserting 4096 sealed docs in 64 batches
+     RouterConfig), a writer thread upserting 2048 sealed docs in 32 batches
      of 64 (delete by global id, re-insert the fp32 vectors under a fresh id)
-     with 16 batches of further deletes between them, and reader threads
+     with 8 batches of further deletes between them, and reader threads
      submitting phase 5's queries through the pump: insert docs/s and p50 /
      p99 per call, delete p50, compactions and merges with their seconds,
      the groups at the end, QPS and p50 / p99 under writes, the sealed key's
@@ -96,16 +96,18 @@ Phases (each prints its own lines; any failure exits nonzero):
      tensor-core route: timed beside the plain version and the
      scaled_dot_product_attention backward, whose kernels are named;
      repeated launches bit-identical; fp32 on 2 rows, timed on the CUDA-core
-     route) and at edge shapes; then one warm-up step, profiled (32
-     launches of the tensor-core forward and 16 of each tensor-core backward
-     kernel by symbol, none of the CUDA-core ones), and 8 timed steps
+     route) and at edge shapes; then one warm-up step, profiled inside an
+     idle frame of 0.25 s on each side (32 launches of the tensor-core
+     forward and 16 of each tensor-core backward kernel by symbol, none of
+     the CUDA-core ones; one more step profiled without the frame is
+     printed beside it), and 8 timed steps
      (seconds, tokens/s, loss, grad norm, lr, peak memory, and exactly 32 /
      16 / 16 forward / dQ / dK-dV launches per step), a first loss near
      ln(vocab) and a last one below it; then the loss gradients through
      flash against naive on 2 rows, with three planted faults in the
      backward that must each fail that check;
-  9. the text path and the replica tier (run last: before phase 7 it left
-     the profiled training step one kernel record short):
+  9. the text path and the replica tier (run last; ROADMAP Queue 3 says
+     why not after phase 8):
      65,536 SynCorpus docs (fig14's 100,000 cut to fit the script's
      time) through IngestPipeline (d_dense 1024, fit on
      a strided 2,048), sharded by the consistent-hash ring (512 virtual
@@ -115,7 +117,9 @@ Phases (each prints its own lines; any failure exits nonzero):
      (benchmarks/fig14_scale.py's build_tier): ingest and build seconds,
      isolated, model and tier QPS with p50 / p99, scaling efficiency,
      recall@10 against brute force, one batch under adaptive fusion with the
-     KG on; gates, each with a planted fault that must fail it: (1)
+     KG on; the path's launches read by part (builds, reads, the KG read,
+     streamed inserts; each zeroed just before it); gates, each with a
+     planted fault that must fail it: (1)
      placement against a ring the script computes with hashlib, (2) the
      merge against the script's own merge of the replicas' results, (3) a
      tier and one service over the first 512 docs, searched exhaustively,
@@ -124,8 +128,12 @@ Phases (each prints its own lines; any failure exits nonzero):
      further docs streamed through stream_into in 16 batches of 256 (ids
      contiguous, each on its home's grow segment, read-your-writes as in
      phase 8) and 1,024 deletes, (6) save_pool with the fitted pipeline and
-     load_ingest bit for bit, (7) the fp32 kernels launched and the int8
-     ones not, (8) the bundled text corpus: hybrid recall@10 no lower than
+     load_ingest bit for bit, (7) every kernel call caught on the main path
+     (the first segment build's stages, one read at R = 4 and at R = 1, one
+     KG read) against its plain version, with error, two launches
+     bit-identical, times and bound, and the fp32 kernels launched in each
+     part (a tier reading through the plain versions fails), the int8 ones
+     in none, (8) the bundled text corpus: hybrid recall@10 no lower than
      dense-only and retrieve_text equal to a direct search;
   10. the kernels line: launches on each variant's path (phases 4, 6, 8 and
      9 plus the fp32 pool's serving for the fp32 variants, phases 4, 8 and
@@ -170,7 +178,9 @@ RECALL_GAP = 0.02  # int8 three-path recall@10 must stay within this of fp32 (RO
 # scale faults 0.0009 and 0.9769 on an H100 at 2^20 (PERF.md, Findings PR 12)
 INT8_OVERLAP = 0.99
 # phase 8: the write path (serving_bench.py --streaming at full width)
-WRITE_BATCH, WRITE_BATCHES = 64, 64  # 4096 upserts; 16 further delete batches between them
+# 2048 upserts, 8 further delete batches between them (32 batches: cut from
+# 64 to keep the script inside its time limit once phase 9 joined it)
+WRITE_BATCH, WRITE_BATCHES = 64, 32
 RYW_SHARE = 0.99  # read-your-writes: least share returned of the re-inserted docs search finds
 # least share of re-inserted docs reached from their segment's entry points:
 # at this width the reference's builds of 256-1024 docs reach 0.9248-0.9570
@@ -178,10 +188,10 @@ RYW_SHARE = 0.99  # read-your-writes: least share returned of the re-inserted do
 # batch (tests/segment_reach.py on the CPU)
 REACH_FLOOR = 0.90
 # phase 9: SynCorpus text through the ingest pipeline into a replica tier
-# (benchmarks/fig14_scale.py's build_tier layout). Its largest size, 100,000
-# docs, took 540 s of phase 9 on an H100 (PERF.md, Findings: 115 s of it
-# one adaptive batch with the KG on, searched a segment at a time), so
-# the corpus is cut to 65,536 docs to keep the script inside its time limit
+# (benchmarks/fig14_scale.py's build_tier layout). At 65,536 docs phase 9
+# takes 391.9-483.2 s of a 750.6-1,045.1 s script on an H100 (PERF.md, §4),
+# most of it host work that grows with the docs, so fig14's largest size,
+# 100,000, would bring the script to the edge of its time limit
 TEXT_DOCS, TEXT_QUERIES, TEXT_FIT, TEXT_DENSE = 65_536, 64, 2048, 1024
 TEXT_ENCODE_BATCH, TEXT_SEGMENT, TEXT_VNODES, TEXT_REPLICAS = 1024, 256, 512, 4
 TEXT_REQUESTS, TEXT_BATCH = 256, 32  # per QPS reading: closed-loop batches of 32
@@ -190,6 +200,7 @@ TEXT_CONTRACT_DOCS = 512  # gate 3: a tier and one service over the first 512 do
 TEXT_BUILD = None  # BuildConfig() (patched small for a CPU rehearsal)
 # phase 6: RAG at llama3.2-1b's full width
 RAG_REQUESTS, RAG_PROMPT, RAG_GEN = 64, 64, 64
+PROFILE_PAD_S = 0.25  # phase 7: idle card before and after the profiled step, inside the trace
 RAG_TOP_K, RAG_CTX = 4, 256  # prefill L = 4 * 256 + 64 = 1088
 RAG_MAX_LEN = 1152
 FLASH_TOL = {"float32": 1e-5, "bfloat16": 2e-2}  # tests/test_flash_attention.py:40
@@ -486,6 +497,41 @@ def cuda_kernels(prof) -> dict:
             n, ms = out.get(evt.key, (0, 0.0))
             out[evt.key] = (n + evt.count, ms + t / 1e3)
     return out
+
+
+def profiled_step(step, pad_s: float):
+    """``step()`` under torch.profiler (CUDA activity). With ``pad_s`` > 0 the
+    step is framed inside the trace by a spin-kernel marker and ``pad_s`` of
+    idle card on each side; without, it is preceded by one small kernel and
+    a sync. Returns (step's result, its seconds, {kernel: (launches, ms)},
+    the trace's flash kernels in time order as a string, F the forward, Q
+    dQ, K dK/dV, and the names of its first and last two device records)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        if pad_s:
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            time.sleep(pad_s)
+        else:
+            torch.ones(1, device="cuda").add_(1)
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if pad_s:
+            time.sleep(pad_s)
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+    dev = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
+                 key=lambda e: e.time_range.start)
+    sym = {"flash_fwd_tc_kernel": "F", "flash_bwd_tc_dq_kernel": "Q", "flash_bwd_tc_dkv_kernel": "K"}
+    order = "".join(next((c for k, c in sym.items() if k in e.name), "") for e in dev)
+    ends = [e.name[:48] for e in dev[:2] + dev[-2:]]
+    return out, dt, cuda_kernels(prof), order, ends
 
 
 def random_ids(n: int, b: int, c: int, pad_frac: float, gen):
@@ -811,35 +857,26 @@ def phase_kernels(corpus, queries, results: dict):
         torch.cuda.empty_cache()
 
 
-def insert_calls(docs, n_grow: int = 192, n_new: int = 64) -> dict:
-    """The kernel calls one insert makes, as the write path makes them: a
-    grow segment of ``n_grow`` docs is built (default BuildConfig) and
-    ``n_new`` more are inserted, while the op entry points are caught on the
-    way in. Returns {(stage, op, shape): (args, kwargs)}, the first call of
-    each shape per stage: the probe's search (entry scoring, rounds, final
-    re-score), NN-Descent among the new nodes (init, rounds), the self
-    scores, and the prune chunk (per-path re-ranks, pair tiles)."""
-    import torch
-
-    from repro_torch.core import build_pipeline as bp
-    from repro_torch.core import pruning
-    from repro_torch.core.index import BuildConfig
+@contextlib.contextmanager
+def kernel_calls(stages=(), label: str = "?"):
+    """{(stage, op, shape): (args, kwargs)} of the three kernel ops called
+    inside the block, the first call of each shape per stage (the calls
+    themselves run as they are). ``stages``: (module, name, stage label) of
+    functions that name the stage of the calls made within them; other calls
+    get ``label``. Calls from several threads are caught under ``label``."""
     from repro_torch.kernels import ops
 
-    grow = bp.build_index(docs[0:n_grow], BuildConfig(),
-                          generator=torch.Generator("cuda").manual_seed(5))
-    stage, seen = ["?"], {}
+    stage, seen = [label], {}
 
     def catch(op, fn, ids_at):
         def run(*a, **kw):
-            key = (stage[0], op, tuple(a[ids_at].shape))
-            seen.setdefault(key, (a, kw))
+            seen.setdefault((stage[0], op, tuple(a[ids_at].shape)), (a, kw))
             return fn(*a, **kw)
         return run
 
-    def staged(label, fn):
+    def staged(name, fn):
         def run(*a, **kw):
-            prev, stage[0] = stage[0], label
+            prev, stage[0] = stage[0], name
             try:
                 return fn(*a, **kw)
             finally:
@@ -850,38 +887,62 @@ def insert_calls(docs, n_grow: int = 192, n_new: int = 64) -> dict:
                (ops, "hybrid_scores_vs_ids", catch("hybrid_distance", ops.hybrid_scores_vs_ids,
                                                    2)),
                (ops, "pairwise_tile_scores_vs_ids",
-                catch("pairwise_tile", ops.pairwise_tile_scores_vs_ids, 1)),
-               (bp, "search", staged("probe", bp.search)),
-               (bp, "nn_descent", staged("descent", bp.nn_descent)),
-               (pruning, "self_scores", staged("self_scores", pruning.self_scores)),
-               (pruning, "_prune_chunk", staged("prune", pruning._prune_chunk))]
+                catch("pairwise_tile", ops.pairwise_tile_scores_vs_ids, 1))]
+    patches += [(m, name, staged(st, getattr(m, name))) for m, name, st in stages]
     sound = [(m, name, getattr(m, name)) for m, name, _ in patches]
     for m, name, fn in patches:
         setattr(m, name, fn)
     try:
-        bp.insert(grow, docs[n_grow:n_grow + n_new], BuildConfig(),
-                  generator=torch.Generator("cuda").manual_seed(6))
+        yield seen
     finally:
         for m, name, fn in sound:
             setattr(m, name, fn)
+
+
+def build_stages(probe: bool = False) -> list:
+    """kernel_calls' stages of a build (and an insert's probe search)."""
+    from repro_torch.core import build_pipeline as bp
+    from repro_torch.core import pruning
+
+    return ([(bp, "search", "probe")] if probe else []) + [
+        (bp, "nn_descent", "descent"), (bp, "_nn_descent", "descent"),
+        (bp, "_path_refinement", "refine"),
+        (pruning, "self_scores", "self_scores"), (pruning, "_prune_chunk", "prune")]
+
+
+def insert_calls(docs, n_grow: int = 192, n_new: int = 64) -> dict:
+    """The kernel calls one insert makes, as the write path makes them: a
+    grow segment of ``n_grow`` docs is built (default BuildConfig) and
+    ``n_new`` more are inserted, while the op entry points are caught on the
+    way in (kernel_calls): the probe's search (entry scoring, rounds, final
+    re-score), NN-Descent among the new nodes (init, rounds), the self
+    scores, and the prune chunk (per-path re-ranks, pair tiles)."""
+    import torch
+
+    from repro_torch.core import build_pipeline as bp
+    from repro_torch.core.index import BuildConfig
+
+    grow = bp.build_index(docs[0:n_grow], BuildConfig(),
+                          generator=torch.Generator("cuda").manual_seed(5))
+    with kernel_calls(build_stages(probe=True)) as seen:
+        bp.insert(grow, docs[n_grow:n_grow + n_new], BuildConfig(),
+                  generator=torch.Generator("cuda").manual_seed(6))
     return seen
 
 
-def phase_insert_kernels(docs, results: dict):
-    """Each kernel of the write path against its plain version at the shapes
-    an insert of 64 docs into a grow segment of 192 gives it (caught from a
-    real insert), with error, two launches bit-identical, times and bound."""
+def check_calls(calls: dict, results: dict, phase: str, prefix: str, reps: int = 20,
+                device: str = "cuda") -> int:
+    """Each caught kernel call (kernel_calls) against its plain version on
+    the same operands: max error (fused_topk: agreement up to ties), two
+    launches bit-identical, times and bound into ``results`` under
+    ``{prefix}_{stage}``. On the CPU (a rehearsal) the wrappers run their
+    plain versions and nothing is timed. Returns the calls checked."""
     import torch
 
     from repro_torch.kernels import ops
     from repro_torch.kernels.hybrid_distance import hybrid_distance_plain
     from repro_torch.kernels.ref import NEG
 
-    calls = insert_calls(docs)
-    need({op for _, op, _ in calls} == {"fused_topk", "hybrid_distance", "pairwise_tile"},
-         f"insert: kernels caught {sorted({op for _, op, _ in calls})}")
-    need({st for st, _, _ in calls} >= {"probe", "descent", "self_scores", "prune"},
-         f"insert: stages caught {sorted({st for st, _, _ in calls})}")
     for (st, op, shape), (a, kw) in sorted(calls.items()):
         kw = {k: v for k, v in kw.items() if k != "use_kernel"}
         if op == "pairwise_tile":
@@ -889,7 +950,7 @@ def phase_insert_kernels(docs, results: dict):
             fn = lambda use: ops.pairwise_tile_scores_vs_ids(corpus, ids, use_kernel=use)
             out_k, out_p = fn(None), fn(False)
             err = float((out_k - out_p).abs().max().item())
-            label = f"insert_{st} C={shape[0]} K={shape[1]}"
+            label = f"{prefix}_{st} C={shape[0]} K={shape[1]}"
             nbytes, flops = tile_work(corpus, ids.clamp(0, corpus.n - 1))
             rate, flops = TF32_FLOP_PER_S, 3 * flops
         elif op == "hybrid_distance":
@@ -897,9 +958,9 @@ def phase_insert_kernels(docs, results: dict):
             fn = lambda use: ops.hybrid_scores_vs_ids(q, corpus, ids, use_kernel=use)
             out_k, out_p = fn(None), fn(False)
             live = ids >= 0
-            need(torch.equal(torch.isinf(out_k), ~live), f"insert {st} hybrid_distance: mask")
+            need(torch.equal(torch.isinf(out_k), ~live), f"{prefix} {st} hybrid_distance: mask")
             err = float((out_k - out_p).abs()[live].max().item()) if live.any() else 0.0
-            label = f"insert_{st} B={shape[0]} C={shape[1]}"
+            label = f"{prefix}_{st} B={shape[0]} C={shape[1]}"
             nbytes, flops = scoring_work(q, corpus, ids, ids.numel() * 4)
             rate = FP32_FLOP_PER_S
         else:
@@ -912,7 +973,8 @@ def phase_insert_kernels(docs, results: dict):
                 full = full + bias
             full = torch.where(ids >= 0, full, torch.full_like(full, NEG))
             err = topk_agree(out_k[0], out_k[1], out_p[0], out_p[1], full, TOL)
-            label = f"insert_{st} B={shape[0]} C={shape[1]} k={k}"
+            label = (f"{prefix}_{st} B={shape[0]} C={shape[1]} k={k}"
+                     + ("" if bias is None else " bias"))
             nbytes, flops = scoring_work(q, corpus, ids, shape[0] * k * 8)
             rate = FP32_FLOP_PER_S
         need(err <= TOL, f"{op} {label}: error {err}")
@@ -920,11 +982,27 @@ def phase_insert_kernels(docs, results: dict):
         same = (torch.equal(again, out_k) if op != "fused_topk"
                 else torch.equal(again[0], out_k[0]) and torch.equal(again[1], out_k[1]))
         need(same, f"{op} {label}: two launches differ")
-        ms = time_ms(lambda: fn(None), 20)
-        dev = device_ms(lambda: fn(None), 20)
-        plain_ms = time_ms(lambda: fn(False), 3, warm=1)
-        record_check(results, "phase 2", op, label, err, ms, plain_ms, nbytes, flops, dev, rate)
-    torch.cuda.empty_cache()
+        if device == "cuda":
+            ms = time_ms(lambda: fn(None), reps)
+            dev = device_ms(lambda: fn(None), reps)
+            plain_ms = time_ms(lambda: fn(False), 3, warm=1)
+            record_check(results, phase, op, label, err, ms, plain_ms, nbytes, flops, dev, rate)
+        del out_k, out_p, again
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return len(calls)
+
+
+def phase_insert_kernels(docs, results: dict):
+    """Each kernel of the write path against its plain version at the shapes
+    an insert of 64 docs into a grow segment of 192 gives it (caught from a
+    real insert), with error, two launches bit-identical, times and bound."""
+    calls = insert_calls(docs)
+    need({op for _, op, _ in calls} == {"fused_topk", "hybrid_distance", "pairwise_tile"},
+         f"insert: kernels caught {sorted({op for _, op, _ in calls})}")
+    need({st for st, _, _ in calls} >= {"probe", "descent", "self_scores", "prune"},
+         f"insert: stages caught {sorted({st for st, _, _ in calls})}")
+    check_calls(calls, results, "phase 2", "insert")
 
 
 @contextlib.contextmanager
@@ -1474,9 +1552,10 @@ def phase_write(corpus_bundle, pool_q, results: dict, int8_recall: float, device
     """The write path at full width: phase 5's int8 pool served with a
     SegmentRouter attached (default RouterConfig: seal at 256 live grow
     docs, incremental compaction, pow2 seals, tier fanout 4, background
-    merges), while a writer thread upserts 4096 sealed docs (delete by
-    global id, re-insert the fp32 vectors under a fresh id) in 64 batches of
-    64 with 1024 further deletes between them, and reader threads submit
+    merges), while a writer thread upserts WRITE_BATCHES x WRITE_BATCH
+    sealed docs (delete by global id, re-insert the fp32 vectors under a
+    fresh id) with 64 further deletes after every fourth batch, and reader
+    threads submit
     phase 5's queries through the pump. Gates: read-your-writes (the index
     and the service), deletes, persistence, and three planted faults. (``device`` lets the phase be
     rehearsed on the CPU at a tiny size.)"""
@@ -1986,14 +2065,17 @@ def same_up_to_ties(a_ids, a_scores, b_ids, b_scores, decimals=None) -> bool:
 
 def phase_text(results: dict, device: str = "cuda"):
     """SynCorpus text through the ingest pipeline into a replica tier
-    (benchmarks/fig14_scale.py's build_tier at its largest size): fit on a
-    strided sample, encode every doc, shard by the consistent-hash ring
-    into R = 4 replicas and R = 1, each shard sealed every 256 rows into
-    pooled segments with the KG, every replica a HybridSearchService and a
-    SegmentRouter behind a ReplicaRouter; isolated, model and tier QPS,
-    scaling efficiency, recall@10, a batch under adaptive fusion with the
-    KG on; then eight gates, each with a planted fault that must fail it.
-    (``device`` lets the phase be rehearsed on the CPU at a tiny size.)"""
+    (benchmarks/fig14_scale.py's build_tier, at TEXT_DOCS = 65,536 of its
+    largest 100,000): fit on a strided sample, encode every doc, shard by
+    the consistent-hash ring into R = 4 replicas and R = 1, each shard
+    sealed every 256 rows into pooled segments with the KG, every replica a
+    HybridSearchService and a SegmentRouter behind a ReplicaRouter;
+    isolated, model and tier QPS, scaling efficiency, recall@10, a batch
+    under adaptive fusion with the KG on; the kernels at the shapes this
+    path gave them and its launches by part (builds, reads, the KG read,
+    streamed inserts); then eight gates, each with a planted fault that
+    must fail it. (``device`` lets the phase be rehearsed on the CPU at a
+    tiny size.)"""
     import dataclasses
     import tempfile
 
@@ -2080,10 +2162,11 @@ def phase_text(results: dict, device: str = "cuda"):
         f"{sum(int((e >= 0).any()) for e in ents)} docs carry entities")
     lap("ingest")
 
-    def make_tier(n_rep, docs, doc_ents, n, seg_docs, cfg, svc_params, salt):
+    def make_tier(n_rep, docs, doc_ents, n, seg_docs, cfg, svc_params, salt, catch=None):
         """fig14's build_tier: each doc to its ring home, a shard sealed
         every ``seg_docs`` rows into a pooled segment at pow2 capacity with
-        the KG, a service and a router per replica."""
+        the KG, a service and a router per replica. ``catch``: a dict that
+        takes the kernel calls of the first segment's build (kernel_calls)."""
         homes = ring_homes(build_ring(names(n_rep), TEXT_VNODES), np.arange(n))
         reps, seg_no = [], 0
         for i in range(n_rep):
@@ -2092,10 +2175,16 @@ def phase_text(results: dict, device: str = "cuda"):
             segs = []
             for s in range(0, rows.size, seg_docs):
                 part = rows[s:s + seg_docs]
-                segs.append(build_pool_segment(
-                    docs.take(torch.as_tensor(part, device=device)), part, cfg,
-                    capacity=_next_pow2(part.size), doc_entities=doc_ents[part], device=device,
-                    generator=torch.Generator(device).manual_seed(salt + seg_no), **kg))
+                first = catch is not None and seg_no == 0
+                grab = kernel_calls(build_stages(), "build") if first else contextlib.nullcontext()
+                with grab as got:
+                    segs.append(build_pool_segment(
+                        docs.take(torch.as_tensor(part, device=device)), part, cfg,
+                        capacity=_next_pow2(part.size), doc_entities=doc_ents[part],
+                        device=device, generator=torch.Generator(device).manual_seed(salt + seg_no),
+                        **kg))
+                if first:
+                    catch.update(got)
                 seg_no += 1
             pool = stack_segments(segs)
             del segs
@@ -2123,23 +2212,50 @@ def phase_text(results: dict, device: str = "cuda"):
         snap = hist.snapshot()
         return done / (time.perf_counter() - t0), snap.quantile(0.5) * 1e3, snap.quantile(0.99) * 1e3
 
+    # The phase's main path, its launches read by part: each part's counts
+    # are zeroed just before it and read just after (the gates' own searches
+    # and builds count nowhere)
+    launched: dict = {}
+
+    @contextlib.contextmanager
+    def counted(part: str):
+        for w in wrappers.values():
+            w.launches = 0
+        try:
+            yield
+        finally:
+            into = launched.setdefault(part, dict.fromkeys(wrappers, 0))
+            for k, w in wrappers.items():
+                into[k] += w.launches
+                w.launches = 0
+
+    # kernel calls caught on the main path, held against the plain versions
+    # after it: the first segment build, one read at R = 4 and at R = 1, one
+    # read with the KG on (a segment at a time, entity candidates)
+    caught: dict = {"build": {}}  # stages: descent, refine, self_scores, prune, build
+
     # ---- build and read: R = 4, then R = 1 ---------------------------------------
-    for w in wrappers.values():  # the phase's main path: counts zeroed just before
-        w.launches = 0
     tiers, reads = {}, {}
     for n_rep in (TEXT_REPLICAS, 1):
         sync()
         t = time.perf_counter()
-        tier = make_tier(n_rep, corpus, ents, TEXT_DOCS, TEXT_SEGMENT, build_cfg, params, 41)
-        sync()
+        with counted("builds"):
+            tier = make_tier(n_rep, corpus, ents, TEXT_DOCS, TEXT_SEGMENT, build_cfg, params, 41,
+                             catch=caught["build"] if n_rep == TEXT_REPLICAS else None)
+            sync()
         build_s = time.perf_counter() - t
         lap(f"build R={n_rep}")
         ran = lambda: sum(r.service.stats.batches for r in tier.replicas)
         b0 = ran()
-        iso = [measure(lambda q, s=r.service: s.search(q, W, k=10))[0] for r in tier.replicas]
-        b1 = ran()
-        tier_qps, p50, p99 = measure(lambda q: tier.search(q, W, k=10))
-        b2 = ran()
+        with counted("reads"):
+            iso = [measure(lambda q, s=r.service: s.search(q, W, k=10))[0]
+                   for r in tier.replicas]
+            b1 = ran()
+            tier_qps, p50, p99 = measure(lambda q: tier.search(q, W, k=10))
+            b2 = ran()
+            with kernel_calls(label=f"read_R{n_rep}") as got:
+                tier.search(q_batches[0], W, k=10)
+            caught[f"read_R{n_rep}"] = got
         reads[n_rep] = dict(iso=iso, model=min(iso), tier=tier_qps)
         say(f"phase 9 R={n_rep}: built {TEXT_DOCS} docs in {build_s:.2f} s "
             f"({TEXT_DOCS / build_s:.0f} docs/s); shard docs {tier.shard_sizes()}, segments "
@@ -2164,7 +2280,8 @@ def phase_text(results: dict, device: str = "cuda"):
     # recall@10 against brute force over every doc, and the topic share
     qw = weighted_query(enc.vectors, W.weights)
     truth = ops.topk_hybrid(qw, corpus, 10, chunk=8192)[1]
-    got = tier.search(enc.vectors, W, k=10)
+    with counted("reads"):
+        got = tier.search(enc.vectors, W, k=10)
     rec = recall_at_k(got.ids, truth)
     ids = got.ids.numpy()
     share = float(np.mean([(topics[i[i >= 0]] == qt).mean() for i, qt in zip(ids, q_topics)]))
@@ -2184,10 +2301,13 @@ def phase_text(results: dict, device: str = "cuda"):
         stats=tier.path_stats())
     modes = [FUSION_MODE_NAMES[int(m)] for m in spec.mode]
     t = time.perf_counter()
-    kg_res = kg_tier.search(qa, spec, entities=enc.entities[:TEXT_BATCH], k=10)
+    with counted("kg_read"), kernel_calls(label="read_kg") as got:
+        kg_res = kg_tier.search(qa, spec, entities=enc.entities[:TEXT_BATCH], k=10)
+    caught["read_kg"] = got
     kg_s = time.perf_counter() - t
     t = time.perf_counter()
-    tier.search(qa, spec, k=10)
+    with counted("reads"):
+        tier.search(qa, spec, k=10)
     flat_s = time.perf_counter() - t
     need(bool((kg_res.ids[:, 0] >= 0).all()), "phase 9: an adaptive KG query without results")
     say(f"phase 9 adaptive batch of {TEXT_BATCH}: modes "
@@ -2198,6 +2318,21 @@ def phase_text(results: dict, device: str = "cuda"):
         f"use_kg=False {flat_s:.3f} s ({TEXT_BATCH / flat_s:.1f} QPS)")
     kg_tier.close()
     lap("adaptive batch")
+
+    # ---- gate 7: the kernels at the main path's shapes and its launches --------------
+    n_checked = 0
+    for part, calls in caught.items():
+        need({op for _, op, _ in calls} >= ({"fused_topk", "hybrid_distance", "pairwise_tile"}
+                                            if part == "build" else
+                                            {"fused_topk", "hybrid_distance"}),
+             f"phase 9 {part}: kernels caught {sorted({op for _, op, _ in calls})}")
+        n_checked += check_calls(calls, results, "phase 9", "text", reps=10, device=device)
+    say(f"phase 9 gate 7 kernels vs plain versions at the main path's shapes: {n_checked} "
+        f"calls ({', '.join(f'{p} {len(c)}' for p, c in caught.items())}; stages of the "
+        f"build {sorted({st for st, _, _ in caught['build']})}), each within {TOL} and two "
+        f"launches bit-identical")
+    del caught
+    lap("kernel checks")
 
     # ---- gate 1: placement against the script's own ring ------------------------
     home = ring_witness(names(R), TEXT_VNODES, np.arange(TEXT_DOCS))
@@ -2343,7 +2478,8 @@ def phase_text(results: dict, device: str = "cuda"):
     for lo in range(TEXT_DOCS, TEXT_DOCS + TEXT_STREAM, TEXT_STREAM_BATCH):
         texts = ext.texts(lo, lo + TEXT_STREAM_BATCH)
         t = time.perf_counter()
-        gids = pipe.stream_into(tier, texts)
+        with counted("stream"):
+            gids = pipe.stream_into(tier, texts)
         ins_s.append(time.perf_counter() - t)
         lap("stream_into")
         need(np.array_equal(gids, np.arange(lo, lo + len(texts))),
@@ -2446,23 +2582,36 @@ def phase_text(results: dict, device: str = "cuda"):
     need(planted5 > 0, "planted fault (deletes never forwarded) passes the delete gate")
     lap("deletes")
 
-    # ---- gate 7: the kernels launched on this path --------------------------------
-    sync()
-    launches = {k: w.launches for k, w in wrappers.items()}  # read just after
-    say(f"phase 9 launches (builds, reads, adaptive KG batch, gates 1-5, stream): "
-        f"{json.dumps(launches)}")
-    for k in ("hybrid_distance", "fused_topk", "pairwise_tile"):
-        need(launches[k] > 0 or device != "cuda", f"phase 9: {k} was not launched")
-        results[k]["launches"] += launches[k]
-    for k in ("hybrid_distance_int8", "fused_topk_int8"):
-        need(launches[k] == 0, f"phase 9: {k} launched on the fp32 tier")
-    for w in wrappers.values():
-        w.launches = 0
-    HybridSearchService(reps[0].service.index, dataclasses.replace(params, use_kernel=False)
-                        ).search(qb, W, k=10)
-    planted7 = sum(w.launches for w in wrappers.values())
-    say(f"phase 9 gate 7 planted search through the plain versions: {planted7} launches")
-    need(planted7 == 0, "planted fault (plain versions) passes the launch gate")
+    # ---- gate 7 (continued): the main path's launches, by part ---------------------
+    # builds and streamed inserts run all three fp32 kernels, every read
+    # (with the KG on too) the fused top-k and the distance; no int8 variant
+    need_ops = {"builds": ("hybrid_distance", "fused_topk", "pairwise_tile"),
+                "reads": ("hybrid_distance", "fused_topk"),
+                "kg_read": ("hybrid_distance", "fused_topk"),
+                "stream": ("hybrid_distance", "fused_topk", "pairwise_tile")}
+
+    def launches_ok(part: str, counts: dict) -> bool:
+        return (all(counts[k] > 0 for k in need_ops[part])
+                and counts["hybrid_distance_int8"] == 0 and counts["fused_topk_int8"] == 0)
+
+    say(f"phase 9 launches of the main path by part: {json.dumps(launched)}")
+    for part in need_ops:
+        need(launches_ok(part, launched[part]) or device != "cuda",
+             f"phase 9 gate 7: {part} launched {launched[part]}")
+        for k in ("hybrid_distance", "fused_topk", "pairwise_tile"):
+            results[k]["launches"] += launched[part][k]
+    # planted: a tier whose replicas search through the plain versions
+    plain_tier = ReplicaRouter([Replica(HybridSearchService(
+        r.service.index, dataclasses.replace(params, use_kernel=False),
+        ServiceConfig(batcher=batcher)), name=r.name) for r in reps],
+        ReplicaTierConfig(virtual_nodes=TEXT_VNODES))
+    with counted("planted"):
+        plain_tier.search(qb, W, k=10)
+    plain_tier.close()
+    planted7 = launches_ok("reads", launched.pop("planted"))
+    say(f"phase 9 gate 7 planted tier reading through the plain versions passes the read "
+        f"launch gate: {planted7}")
+    need(not planted7, "planted fault (plain versions) passes the launch gate")
     lap("gate 7")
 
     # ---- gate 6: persistence --------------------------------------------------------
@@ -3085,10 +3234,7 @@ def phase_train(cfg, results: dict):
     import dataclasses
     import math
 
-    from contextlib import nullcontext
-
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.data.pipeline import DataConfig, TokenPipeline
     from repro_torch.kernels import flash_attention as fa
@@ -3118,19 +3264,15 @@ def phase_train(cfg, results: dict):
     torch.cuda.reset_peak_memory_stats()
     rows, seen = [], {k: 0 for k in wrappers}
     for s, batch in enumerate(batches):
-        torch.cuda.synchronize()
-        # the warm-up step runs under the profiler: which kernels a step runs
-        prof = profile(activities=[ProfilerActivity.CUDA]) if s == 0 else nullcontext()
-        with prof:
-            if s == 0:  # a first kernel and a sync, so the tracer is collecting before the step
-                torch.ones(1, device="cuda").add_(1)
-                torch.cuda.synchronize()
+        if s == 0:  # the warm-up step runs under the profiler: which kernels a step runs
+            (state, metrics), dt, step_kernels, order, ends = profiled_step(
+                lambda: step_fn(state, batch), PROFILE_PAD_S)
+        else:
+            torch.cuda.synchronize()
             t0 = time.perf_counter()
             state, metrics = step_fn(state, batch)
             torch.cuda.synchronize()
             dt = time.perf_counter() - t0
-        if s == 0:
-            step_kernels = cuda_kernels(prof)
         counts = {k: w.launches - seen[k] for k, w in wrappers.items()}
         seen = {k: w.launches for k, w in wrappers.items()}
         row = dict(step=s, seconds=dt, tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / dt,
@@ -3162,6 +3304,15 @@ def phase_train(cfg, results: dict):
                 "flash_bwd_dq_kernel": 0, "flash_bwd_dkv_kernel": 0}
     by_symbol = {sym: sum(c for n, (c, _) in step_kernels.items() if sym in n)
                  for sym in want_sym}
+    # one more step traced without the idle frame, printed beside it: after
+    # phase 9 both traces lost the backward's first forward record, so the
+    # frame is no cure and the fault stays open (ROADMAP Queue 3)
+    (state, _), _, bare_kernels, bare_order, bare_ends = profiled_step(
+        lambda: step_fn(state, batches[0]), 0.0)
+    bare = {sym: sum(c for n, (c, _) in bare_kernels.items() if sym in n) for sym in want_sym}
+    say(f"phase 7 profiled steps: framed by {PROFILE_PAD_S} s of idle card: flash records in "
+        f"time order {order}, first and last records {ends}; unframed (printed, not gated): "
+        f"{json.dumps(bare)}, in time order {bare_order}, first and last records {bare_ends}")
     say(f"phase 7 profiled warm-up step: kernel launches by symbol {json.dumps(by_symbol)}")
     need(by_symbol == want_sym, f"profiled step: launches by symbol {by_symbol} != {want_sym}")
     say(f"phase 7 checks: losses and grad norms finite; first loss {first:.4f} (ln V = "
@@ -3242,9 +3393,11 @@ def main() -> int:
         phase_flash_bwd(train_cfg, results)
         phase_train(train_cfg, results)
         torch.cuda.empty_cache()
-        # last: run before phase 7, phase 9 (its tier's threads) left phase
-        # 7's profiled training step one flash-forward record short of the
-        # launches its wrapper counted (PERF.md, Findings)
+        # last, not after phase 8: run before phase 7, phase 9 leaves phase
+        # 7's profiled step one flash-forward record short (the first one
+        # of the backward) while the wrapper counts all 32 and the step's
+        # loss and grad norm equal those of a run with all 32 recorded: a
+        # fault of the trace, not yet explained (ROADMAP Queue 3)
         phase_text(results)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
