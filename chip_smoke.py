@@ -106,6 +106,27 @@ Phases (each prints its own lines; any failure exits nonzero):
      ln(vocab) and a last one below it; then the loss gradients through
      flash against naive on 2 rows, with three planted faults in the
      backward that must each fail that check;
+  10. the dense and moe configs at full width (run after phase 6, while
+     phase 4's index lives; everything freed before phase 7), random
+     weights from a seed: qwen2-1.5b whole (QKV bias) through RagPipeline at
+     phase 6's batch; deepseek-v3-671b cut to 4 layers (3 dense MLA layers,
+     1 MoE layer of 256 experts, the MTP head) and kimi-k2-1t-a32b cut to 2
+     (1 dense, 1 MoE layer of 384 experts, GQA 64 / 8 at head_dim 112)
+     through RagPipeline over phase 4's index at 16 requests; deepseek-7b
+     and starcoder2-15b whole, one prefill of 8 x 1088 and 16 decode steps:
+     parameter bytes, peak memory, retrieval / prefill / decode seconds and
+     tokens/s, per MoE layer of the prefill the assignments dropped, the
+     largest and mean expert load and the aux loss, flash launches; gates,
+     each with a planted fault that must fail it: (a) prefill logits through
+     flash against naive on 8 rows (fault: MLA at scale hd ** -0.5), (b)
+     greedy decode against the full forward over the first 4 generated
+     tokens at a capacity that drops nothing (fault: decode without RoPE),
+     (c) the MoE dispatch against a per-token loop on 256 tokens (fault:
+     gates not renormalised), (d) the first flash-forward call of each
+     model's prefill, caught on the path, against the plain version on 8
+     rows, bit-identical twice, timed and recorded among the kernel's
+     checks; then one training step of the deepseek-v3 and kimi-k2 smoke
+     configs (bf16, flash, AdamW) with its flash launches;
   9. the text path and the replica tier (run last; ROADMAP Queue 3 says
      why not after phase 8):
      65,536 SynCorpus docs (fig14's 100,000 cut to fit the script's
@@ -135,19 +156,23 @@ Phases (each prints its own lines; any failure exits nonzero):
      part (a tier reading through the plain versions fails), the int8 ones
      in none, (8) the bundled text corpus: hybrid recall@10 no lower than
      dense-only and retrieve_text equal to a direct search;
-  10. the kernels line: launches on each variant's path (phases 4, 6, 8 and
-     9 plus the fp32 pool's serving for the fp32 variants, phases 4, 8 and
-     9 for pairwise_tile, the int8 pool's serving and phase 8 for the int8
-     variants, phases 6 and 7 for flash_attention_fwd, phase 7 for the
-     backward kernels), errors, times and bounds at the shape the path runs
-     most (the flash kernels with their route by dtype as ``variant``);
-  11. the last line: {"ok": true, "device": {...}}.
+  then the kernels line: launches on each variant's path (phases 4, 6, 8,
+     9 and 10 plus the fp32 pool's serving for the fp32 variants, phases 4,
+     8 and 9 for pairwise_tile, the int8 pool's serving and phase 8 for the
+     int8 variants, phases 6, 7 and 10 for flash_attention_fwd, phases 7 and
+     10 for the backward kernels), errors, times and bounds at the shape the
+     path runs most (the flash kernels with their route by dtype as
+     ``variant``; the forward with phase 10's shapes under ``checks``);
+  and the last line: {"ok": true, "device": {...}}.
 
-Imports nothing of JAX. Needs one CUDA card; exits nonzero without one.
+``--phases 1,4,10`` runs a subset, for finding faults: no kernels line and
+no last line. Imports nothing of JAX. Needs one CUDA card; exits nonzero
+without one.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import json
@@ -212,6 +237,21 @@ FLASH_TOL = {"float32": 1e-5, "bfloat16": 2e-2}  # tests/test_flash_attention.py
 # (tile dropped) and 5.812 (causal off) (PERF.md, Findings); phase 6 reads
 # both faults against the limit in every run
 PREFILL_GAP = 0.25
+# phase 10: the dense and moe configs at full width. deepseek-v3 and kimi-k2
+# are cut in depth only (first_dense_layers kept, one MoE layer): 31.6 and
+# 39.9 GB of bf16 weights. Their RAG batch is 16 requests: the dispatch's
+# (N k, D) gathers at phase 6's 64 x 1088 tokens (~8 GB each) and its
+# (E, C, D) buffer (~10 GB) would not fit beside kimi's weights and phase
+# 4's index
+MOE_DEPTH = {"deepseek-v3-671b": 4, "kimi-k2-1t-a32b": 2}
+MOE_REQUESTS = 16
+DENSE_ROWS, DENSE_STEPS = 8, 16  # deepseek-7b, starcoder2-15b: one prefill, 16 decode steps
+GATE_ROWS = 8  # gate (a): flash vs naive prefill on the first 8 rows of the batch
+DECODE_CHECK = 4  # gate (b): the first 4 generated tokens
+DISPATCH_TOKENS = 256  # gate (c)
+MODEL_PREFILL_GAP = 0.25  # gate (a), max |logit difference|
+DECODE_GAP = 0.25  # gate (b), max |logit difference|
+DISPATCH_GAP = 2e-2  # gate (c), max |difference| / max |output|
 # phase 7: training at llama3.2-1b's full width
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_TIMED = 8, 2048, 8  # one warm-up step, then 8 timed
 # backward kernels vs the plain version, elementwise |g - w| <= atol + rtol |w|
@@ -499,8 +539,9 @@ def cuda_kernels(prof) -> dict:
     return out
 
 
-def profiled_step(step, pad_s: float):
-    """``step()`` under torch.profiler (CUDA activity). With ``pad_s`` > 0 the
+def profiled_step(step, pad_s: float, cpu: bool = False):
+    """``step()`` under torch.profiler (CUDA activity, and CPU activity with
+    ``cpu``). With ``pad_s`` > 0 the
     step is framed inside the trace by a spin-kernel marker and ``pad_s`` of
     idle card on each side; without, it is preceded by one small kernel and
     a sync. Returns (step's result, its seconds, {kernel: (launches, ms)},
@@ -510,7 +551,8 @@ def profiled_step(step, pad_s: float):
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
+    with profile(activities=activities) as prof:
         if pad_s:
             torch.cuda._sleep(1000)
             torch.cuda.synchronize()
@@ -594,7 +636,7 @@ def record_check(results: dict, phase: str, name: str, shape: str, err: float, m
                  flop_rate: float = FP32_FLOP_PER_S) -> None:
     """A kernel's reading at one shape into ``results`` and the log."""
     b_ms, b_by = bound(nbytes, flops, flop_rate)
-    results.setdefault(name, {"max_abs_err": 0.0, "checks": []})
+    results.setdefault(name, {"launches": 0, "max_abs_err": 0.0, "checks": []})
     results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
     results[name]["checks"].append(dict(shape=shape, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                                         bound_by=b_by, device_ms=dev_ms))
@@ -1049,7 +1091,7 @@ def stage_counter(wrapper):
 @contextlib.contextmanager
 def prune_chunks_caught(count: int):
     """The arguments of the first ``count`` ``pruning._prune_chunk`` calls
-    the build inside the block makes (``_prune_all``'s node chunks, in
+    the build inside the block makes (``prune_all``'s node chunks, in
     order), to replay them later; the calls themselves run as they are."""
     from repro_torch.core import pruning
 
@@ -1112,6 +1154,29 @@ def phase_small_e2e():
         ids_agree(rk.ids, rk.scores, rp.ids, rp.scores, TOL)
     say(f"phase 3 small e2e N=4096 Dd=1024 KG on: build kernels {tk:.1f} s plain {tp:.1f} s; "
         f"semantic rows equal {sem:.4f} keyword rows equal {kw:.4f}; search ids agree up to ties")
+
+    # the host-driven legacy stages (repro.core's build_knn_graph and
+    # rng_ip_prune), through the kernels and the plain versions, from the
+    # same init_ids and round draws, then the same kNN graph
+    from repro_torch.core import knn_graph, pruning
+
+    n, kc, pc = c.docs.n, cfg_k.knn, cfg_k.prune
+    gen = torch.Generator("cuda").manual_seed(2)
+    init = knn_graph._init_graph(n, kc.k, gen, "cuda")
+    rounds = [torch.randint(0, n, (n, kc.extra_random), generator=gen, device="cuda",
+                            dtype=torch.int32) for _ in range(kc.iters)]
+    graphs = [knn_graph.build_knn_graph(c.docs, cfg.knn, gen, init_ids=init, rounds=rounds)
+              for cfg in (cfg_k, cfg_p)]
+    ids_agree(*graphs[0], *graphs[1], TOL)
+    edges = [pruning.rng_ip_prune(c.docs, *graphs[0], cfg.prune) for cfg in (cfg_k, cfg_p)]
+    sem = row_set_agreement(edges[0][0], edges[1][0])
+    kw = row_set_agreement(edges[0][1], edges[1][1])
+    same = float((edges[0][0] == edges[1][0]).all(1).float().mean())
+    say(f"phase 3 build_knn_graph (k {kc.k}, {kc.iters} rounds) through the kernels vs the plain "
+        f"versions from the same init_ids: ids agree up to ties, scores within {TOL}; "
+        f"rng_ip_prune (degree {pc.degree}) on that graph: semantic rows equal {sem:.4f} "
+        f"(in order {same:.4f}), keyword rows equal {kw:.4f}")
+    need(sem >= 0.99 and kw >= 0.99, f"rng_ip_prune: row agreement sem {sem} kw {kw}")
 
 
 def phase_full(corpus_bundle, results: dict):
@@ -2711,7 +2776,8 @@ def flash_work(q, k, v, causal: bool) -> tuple[float, float, float]:
     return nbytes, flops, BF16_FLOP_PER_S if q.dtype == torch.bfloat16 else FP32_FLOP_PER_S
 
 
-def check_flash_fwd(results: dict, label: str, q, k, v, causal: bool, rows=None) -> float:
+def check_flash_fwd(results: dict, label: str, q, k, v, causal: bool, rows=None,
+                    scale=None) -> float:
     """The forward kernel vs its plain version on ``rows`` batch rows (all by
     default), out and LSE within FLASH_TOL; returns the max |error|."""
     import torch
@@ -2719,10 +2785,12 @@ def check_flash_fwd(results: dict, label: str, q, k, v, causal: bool, rows=None)
     from repro_torch.kernels.flash_attention import flash_attention_fwd, flash_attention_plain
 
     tol = FLASH_TOL[str(q.dtype).removeprefix("torch.")]
-    out, lse = flash_attention_fwd(q, k, v, causal)
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    out, lse = flash_attention_fwd(q, k, v, causal, scale)
     sl = slice(None) if rows is None else slice(0, rows)
-    want_out, want_lse = flash_attention_plain(q[sl], k[sl], v[sl], causal, q.shape[-1] ** -0.5)
-    torch.cuda.synchronize()
+    want_out, want_lse = flash_attention_plain(q[sl], k[sl], v[sl], causal, scale)
+    if q.is_cuda:
+        torch.cuda.synchronize()
     err = 0.0
     for got, want in ((out[sl].float(), want_out.float()), (lse[sl], want_lse)):
         need(bool(torch.isfinite(got).all()), f"flash {label}: non-finite output")
@@ -2730,7 +2798,8 @@ def check_flash_fwd(results: dict, label: str, q, k, v, causal: bool, rows=None)
         need(bool((diff <= tol + tol * want.abs()).all()),
              f"flash {label}: error {float(diff.max()):.3g} beyond {tol} + {tol}|x|")
         err = max(err, float(diff.max()))
-    r = results.setdefault("flash_attention_fwd", {"max_abs_err": 0.0, "checks": []})
+    r = results.setdefault("flash_attention_fwd", {"launches": 0, "max_abs_err": 0.0,
+                                                   "checks": []})
     r["max_abs_err"] = max(r["max_abs_err"], err)
     return err
 
@@ -2813,10 +2882,10 @@ def planted_flash(kernel, causal: bool, drop: int):
     """A faulty stand-in for ``models.attention._flash`` that still runs the
     kernel: the causal mask off, or the last ``drop`` keys left out."""
 
-    def flash(q, k, v):  # (B, L, H, d), as _flash takes them
+    def flash(q, k, v, scale=None):  # (B, L, H, d), as _flash takes them
         s = k.shape[1] - drop
         out, _ = kernel(q.transpose(1, 2), k[:, :s].transpose(1, 2), v[:, :s].transpose(1, 2),
-                        causal)
+                        causal, scale)
         return out.transpose(1, 2)
 
     return flash
@@ -2938,6 +3007,506 @@ def phase_rag(corpus_bundle, index, results: dict):
     del params, doc_tokens, service, engine, rag
     torch.cuda.empty_cache()
 
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the dense and moe configs served at full width
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def first_flash_call():
+    """``[(q, k, v, causal, scale)]`` of the first flash-forward launch made
+    inside the block; every call runs as it is, and counts its launch."""
+    from repro_torch.kernels import flash_attention as fa
+
+    sound, caught = fa.flash_attention_fwd, []
+
+    def catch(q, k, v, causal=True, sm_scale=None):
+        if not caught:
+            caught.append((q, k, v, causal, sm_scale))
+        return sound(q, k, v, causal, sm_scale)
+
+    # the wrapper counts through its module's name, which names ``catch`` here
+    catch.launches = sound.launches
+    fa.flash_attention_fwd = catch
+    try:
+        yield caught
+    finally:
+        fa.flash_attention_fwd = sound
+        sound.launches = catch.launches
+
+
+@contextlib.contextmanager
+def moe_prefill_stats(n_tokens: int):
+    """Per MoE layer call over ``n_tokens`` tokens inside the block (a
+    prefill's): assignments dropped, the most and the mean assignments an
+    expert took, its capacity, and the aux loss the layer returned."""
+    import torch
+
+    from repro_torch.models import moe
+
+    sound, stats = moe.apply_moe, []
+
+    def run(p, cfg, x):
+        y, aux = sound(p, cfg, x)
+        n = x.shape[0] * x.shape[1]
+        if n == n_tokens:
+            _, _, ids = moe.route(p, cfg, x.reshape(n, -1))
+            c = moe.capacity(n, cfg)
+            load = torch.bincount(ids.reshape(-1), minlength=cfg.n_experts)
+            stats.append(dict(dropped=int((moe.expert_slots(ids, c) >= c).sum()),
+                              assignments=ids.numel(), capacity=c, max_load=int(load.max()),
+                              mean_load=float(load.float().mean()), aux=float(aux)))
+        return y, aux
+
+    moe.apply_moe = run
+    try:
+        yield stats
+    finally:
+        moe.apply_moe = sound
+
+
+@contextlib.contextmanager
+def pinned_routing(picks: list, record: bool = False):
+    """MoE routing inside the block: with ``record``, each MoE layer call's
+    expert ids are appended to ``picks``; without, the calls take those ids
+    in the same order, with gates from their own router's probabilities
+    (renormalised), and the block yields, per call, how many of their own
+    router's choices that replaced."""
+    import torch
+
+    from repro_torch.models import moe
+
+    sound, calls, moved = moe.route, iter(list(picks)), []
+
+    def route(p, cfg, xf):
+        probs, gate, top = sound(p, cfg, xf)
+        if record:
+            picks.append(top)
+            return probs, gate, top
+        pinned = next(calls)
+        moved.append(int((~(top[:, :, None] == pinned[:, None, :]).any(-1)).sum()))
+        g = torch.gather(probs, -1, pinned)
+        return probs, g / torch.clamp(g.sum(-1, keepdim=True), min=1e-9), pinned
+
+    moe.route = route
+    try:
+        yield moved
+    finally:
+        moe.route = sound
+
+
+@contextlib.contextmanager
+def rope_off():
+    """Planted fault (b): attention without RoPE inside the block (the
+    decode step's q and new key; the prefill's cache entries keep theirs)."""
+    from repro_torch.models import attention
+
+    sound = attention.apply_rope
+    attention.apply_rope = lambda x, positions, theta: x
+    try:
+        yield
+    finally:
+        attention.apply_rope = sound
+
+
+def greedy_logits(cfg, params, prompt, steps: int, planted: bool = False):
+    """Prefill ``prompt`` then ``steps`` greedy decode steps: ((B, steps + 1,
+    V) logits, the prefill's first, (B, steps) tokens)."""
+    import torch
+
+    from repro_torch.models import transformer as tfm
+
+    l = prompt.shape[1]
+    logits, cache = tfm.make_prefill(cfg, RAG_MAX_LEN)(params, prompt)
+    decode = tfm.make_decode_step(cfg)
+    out, toks = [logits], []
+    for i in range(steps):
+        toks.append(torch.argmax(logits, dim=-1).to(torch.int32))
+        with rope_off() if planted else contextlib.nullcontext():
+            logits, cache = decode(params, toks[-1], cache, l + i)
+        out.append(logits)
+    return torch.stack(out, dim=1), torch.stack(toks, dim=1)
+
+
+def moe_loop(p, cfg, xf):
+    """The script's own MoE on (N, D) tokens, one token at a time: the fp32
+    router's softmax, the top k by a stable descending sort, the gates
+    renormalised, Σ_j gate_j expert_j(x) in fp32, plus the shared expert."""
+    import torch
+    import torch.nn.functional as F
+
+    probs = torch.softmax(xf.float() @ p.router, dim=-1)
+    g, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
+    g, ids = g[:, :cfg.experts_per_token], ids[:, :cfg.experts_per_token]
+    g = g / g.sum(-1, keepdim=True)
+    rows = []
+    for t in range(xf.shape[0]):
+        x = xf[t].expand(len(ids[t]), 1, -1)  # (k, 1, D)
+        h = torch.bmm(F.silu(torch.bmm(x, p.w_gate[ids[t]])) * torch.bmm(x, p.w_up[ids[t]]),
+                      p.w_down[ids[t]])
+        rows.append((h[:, 0].float() * g[t, :, None]).sum(0))
+    y = torch.stack(rows).to(xf.dtype)
+    if cfg.n_shared_experts:
+        s = p.shared
+        y = y + (F.silu(xf @ s.w_gate) * (xf @ s.w_up)) @ s.w_down
+    return y
+
+
+def gate_dispatch(name: str, cfg, params, check, device: str = "cuda") -> None:
+    """Gate (c): the first MoE layer's dispatch on DISPATCH_TOKENS random
+    tokens at a capacity that drops none, against the per-token loop; the
+    planted fault (gates not renormalised) must read above the limit."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import moe
+
+    cfg = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.experts_per_token)
+    p = params.layers[0].moe
+    gen = torch.Generator(device=device).manual_seed(3)
+    xf = torch.randn((DISPATCH_TOKENS, cfg.d_model), generator=gen, device=device).to(
+        params.embed.tok.dtype)
+    with torch.inference_mode():
+        _, _, ids = moe.route(p, cfg, xf)
+        c = moe.capacity(DISPATCH_TOKENS, cfg)
+        dropped = int((moe.expert_slots(ids, c) >= c).sum())
+        want = moe_loop(p, cfg, xf).float()
+        scale = float(want.abs().max())
+        got = moe.apply_moe(p, cfg, xf[None])[0][0].float()
+        gap = float((got - want).abs().max()) / scale
+        sound = moe.route
+
+        def raw_gates(p_, cfg_, x_):  # the top-k probabilities, not renormalised
+            probs, _, top = sound(p_, cfg_, x_)
+            return probs, torch.gather(probs, -1, top), top
+
+        try:
+            moe.route = raw_gates
+            bad = moe.apply_moe(p, cfg, xf[None])[0][0].float()
+        finally:
+            moe.route = sound
+        fgap = float((bad - want).abs().max()) / scale
+    say(f"phase 10 {name} gate (c) dispatch vs per-token loop, {DISPATCH_TOKENS} tokens, C = {c}, "
+        f"{dropped} dropped: max |diff| / max |y| {gap:.4g} (limit {DISPATCH_GAP}); planted "
+        f"fault gates not renormalised {fgap:.4g}")
+    check(dropped == 0, f"{name} gate (c): {dropped} assignments dropped at no-drop capacity")
+    check(gap <= DISPATCH_GAP, f"{name} gate (c): dispatch differs from the loop by {gap:.4g}")
+    check(fgap > DISPATCH_GAP, f"{name} gate (c): planted fault passes ({fgap:.4g})")
+
+
+def check_caught_flash(results: dict, name: str, call, device: str = "cuda") -> float:
+    """Gate (d): the first flash-forward call of a model's prefill, caught on
+    the path, against the plain version (8 rows), two launches bit-identical;
+    timed beside the plain version and scaled_dot_product_attention, and
+    recorded among the kernel's checks."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention_fwd, flash_attention_plain
+
+    q, k, v, causal, scale = call
+    b, h, l, dk = q.shape
+    kvh, dv = k.shape[1], v.shape[3]
+    err = check_flash_fwd(results, f"{name} prefill", q, k, v, causal, rows=8, scale=scale)
+    first, again = flash_attention_fwd(q, k, v, causal, scale), flash_attention_fwd(
+        q, k, v, causal, scale)
+    same = all(bool(torch.equal(a, b_)) for a, b_ in zip(first, again))
+    del first, again
+    need(same, f"flash {name}: repeated launches differ")
+    if device != "cuda":  # a CPU rehearsal: the plain version against itself, nothing timed
+        return err
+    ms = time_ms(lambda: flash_attention_fwd(q, k, v, causal, scale), 5)
+    plain_ms = time_ms(lambda: [flash_attention_plain(q[i:i + 8], k[i:i + 8], v[i:i + 8], causal,
+                                                      scale) for i in range(0, b, 8)], 1, warm=1)
+    try:
+        sdpa = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal, scale=scale,
+                                                      enable_gqa=kvh != h)
+        sdpa()
+        library_ms = time_ms(sdpa, 5)
+    except RuntimeError as e:  # no SDPA backend for the shape: reported, not timed
+        say(f"phase 10 flash {name}: scaled_dot_product_attention refused the shape: "
+            f"{str(e).splitlines()[0][:120]}")
+        library_ms = None
+    torch.cuda.empty_cache()
+    nbytes, flops, rate = flash_work(q, k, v, causal)
+    b_ms, b_by = bound(nbytes, flops, rate)
+    shape = (f"{name}_prefill B={b} H={h} KV={kvh} L=S={l} dk={dk} dv={dv} scale={scale:.6g} "
+             f"causal {str(q.dtype)[6:]}")
+    results["flash_attention_fwd"]["checks"].append(dict(
+        shape=shape, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=library_ms, phase="phase 10"))
+    say(f"phase 10 gate (d) flash {shape}, caught on the path: max_abs_err (8 rows) {err:.3g}, "
+        f"two launches bit-identical; ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms {b_ms:.4f} "
+        f"({b_by}) sdpa_ms {library_ms if library_ms is None else round(library_ms, 4)}")
+    return err
+
+
+def serve_model(name: str, depth, requests: int, corpus_bundle, index, doc_tokens,
+                results: dict, check, device: str = "cuda") -> None:
+    """One config of phase 10 at full width (depth cut to ``depth`` layers
+    where given): random weights from a seed, served through its entry
+    points (RagPipeline over phase 4's index, or the engine alone), then
+    gates (a), (b), (d) and, for a moe config, (c)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.fused_topk import fused_topk
+    from repro_torch.kernels.hybrid_distance import hybrid_distance
+    from repro_torch.models import attention
+    from repro_torch.models import transformer as tfm
+    from repro_torch.obs.tracer import TraceContext
+    from repro_torch.serving.engine import ServeConfig, ServingEngine
+    from repro_torch.serving.hybrid_service import HybridSearchService
+    from repro_torch.serving.rag import RagConfig, RagPipeline
+
+    t_model = time.perf_counter()
+    cfg = dataclasses.replace(get_config(name), attn_impl="flash")
+    if depth:
+        cfg = dataclasses.replace(cfg, n_layers=depth)
+    moe = cfg.family == "moe"
+    cuda = device == "cuda"
+    gen = torch.Generator(device=device).manual_seed(0)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    params = tfm.init_params(cfg, gen, device)
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    sync()
+    n_params = sum(p.numel() for p in params.parameters())
+    p_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    l = RAG_TOP_K * RAG_CTX + RAG_PROMPT
+    say(f"phase 10 {name}: {cfg.n_layers} layers"
+        + (f" ({cfg.first_dense_layers} dense, {cfg.n_layers - cfg.first_dense_layers} MoE of "
+           f"{cfg.n_experts} experts top-{cfg.experts_per_token}"
+           + (", the MTP head" if cfg.mtp else "") + ")" if moe else "")
+        + f", d_model {cfg.d_model}, {cfg.n_heads} heads"
+        + (f" MLA (q_lora {cfg.q_lora_rank}, kv_lora {cfg.kv_lora_rank}, rope {cfg.rope_head_dim})"
+           if cfg.use_mla else f" / {cfg.n_kv_heads} kv, head_dim {cfg.head_dim}")
+        + f", vocab {cfg.vocab}, {cfg.dtype}: {n_params} parameters, {p_bytes / 1e9:.2f} GB "
+        f"(config n_params {cfg.n_params}), drawn in {time.perf_counter() - t:.1f} s")
+
+    engine = ServingEngine(cfg, params, ServeConfig(max_len=RAG_MAX_LEN))
+    prompts = torch.randint(0, cfg.vocab, (requests, RAG_PROMPT), generator=gen, device=device,
+                            dtype=torch.int32)
+    c = corpus_bundle
+    rag = None
+    if doc_tokens is not None:
+        rag_cfg = RagConfig(top_k=RAG_TOP_K, ctx_tokens_per_doc=RAG_CTX)
+        service = HybridSearchService(index, dataclasses.replace(rag_cfg.search, k=RAG_TOP_K))
+        rag = RagPipeline(engine, index, doc_tokens, rag_cfg, service=service)
+        rag.answer(c.queries[0:2], prompts[:2], 2)  # warm-up: library handles, allocator
+        inputs = None
+    else:
+        inputs = torch.randint(0, cfg.vocab, (requests, l), generator=gen, device=device,
+                               dtype=torch.int32)
+        engine.generate(inputs[:2, :64], 2)
+
+    # ---- the main path: counts zeroed just before, read just after --------
+    wrappers = {"flash_attention_fwd": flash_attention_fwd, "hybrid_distance": hybrid_distance,
+                "fused_topk": fused_topk}
+    for w in wrappers.values():
+        w.launches = 0
+    trace = TraceContext(name)
+    steps = RAG_GEN if rag else DENSE_STEPS + 1
+    with first_flash_call() as caught, moe_prefill_stats(requests * l) as stats:
+        sync()
+        t0 = time.perf_counter()
+        if rag:
+            out, res = rag.answer(c.queries[0:requests], prompts, steps, trace=trace)
+        else:
+            out = engine.generate(inputs, steps, trace=trace)
+        sync()
+        e2e = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 if cuda else float("nan")
+    span = lambda s: trace.find(s)[0]
+    prefill_s = span("prefill").t1 - span("prefill").t0
+    decode_s = span("decode").t1 - span("decode").t0
+    retrieval = (f"retrieval {span('context_assembly').t0 - t0:.3f} s, " if rag else "")
+    say(f"phase 10 {name} {'RAG ' if rag else ''}{requests} requests, L = {l}, {steps} tokens "
+        f"greedy: {retrieval}prefill {prefill_s:.3f} s ({requests * l / prefill_s:.1f} tokens/s), "
+        f"decode {decode_s:.3f} s ({requests * (steps - 1) / decode_s:.1f} tokens/s over "
+        f"{steps - 1} steps), {'RAG batch' if rag else 'end to end'} {e2e:.3f} s; parameters "
+        f"{p_bytes / 1e9:.2f} GB, peak memory {peak_gb:.2f} GB; launches {json.dumps(launches)}")
+    for i, st in enumerate(stats):
+        say(f"phase 10 {name} prefill MoE layer {i}: {st['dropped']} of {st['assignments']} "
+            f"assignments dropped at capacity {st['capacity']}; an expert took at most "
+            f"{st['max_load']}, on average {st['mean_load']:.1f}; aux loss {st['aux']:.6f}")
+    check(len(stats) == (cfg.n_layers - cfg.first_dense_layers if moe else 0),
+          f"{name}: {len(stats)} MoE layers seen in the prefill")
+    check(launches["flash_attention_fwd"] == (cfg.n_layers if cuda else 0),
+          f"{name}: {launches['flash_attention_fwd']} flash launches, not {cfg.n_layers}")
+    for k in launches:
+        results[k]["launches"] += launches[k]
+    if rag:
+        for k in ("hybrid_distance", "fused_topk"):
+            check(launches[k] > 0 or not cuda, f"{name}: {k} was not launched while RAG "
+                  "retrieved")
+        full = torch.cat([rag.build_context(res), prompts], dim=1)
+        check(bool((res.ids[:, :RAG_TOP_K] >= 0).all()), f"{name}: a request retrieved less")
+    else:
+        full = inputs
+    check(tuple(out.shape) == (requests, l + steps), f"{name}: output shape {tuple(out.shape)}")
+    check(torch.equal(out[:, :l], full), f"{name}: the output does not start with its prompt")
+    check(bool(((out >= 0) & (out < cfg.vocab)).all()), f"{name}: tokens out of range")
+
+    check(len(caught) == 1, f"{name}: no flash-forward call caught in the prefill")
+    check_caught_flash(results, name, caught[0], device)  # gate (d)
+    del caught
+
+    # ---- gate (a): flash vs naive prefill on the same rows -----------------
+    # in a moe config the naive pass takes the flash pass's expert choices:
+    # the two attention paths round apart, and a token whose k-th and
+    # (k+1)-th experts nearly tie changes expert, which moves its logits by
+    # far more than the rounding (kimi-k2: 0.37 on an H100, PERF.md)
+    rows = full[:GATE_ROWS]
+    naive_cfg = dataclasses.replace(cfg, attn_impl="naive")
+    picks: list = []
+    with pinned_routing(picks, record=True):
+        flash, _ = tfm.make_prefill(cfg, RAG_MAX_LEN)(params, rows)
+    need(bool(torch.isfinite(flash.float()).all()), f"{name}: non-finite prefill logits")
+    with pinned_routing(picks) as moved:
+        naive, _ = tfm.make_prefill(naive_cfg, RAG_MAX_LEN)(params, rows)
+    gap = float((flash.float() - naive.float()).abs().max())
+    agree = float((flash.argmax(-1) == naive.argmax(-1)).float().mean())
+    planted = ""
+    if cfg.use_mla:  # planted: MLA through the kernel at hd ** -0.5, not (hd + rh) ** -0.5
+        sound = attention._flash
+        try:
+            attention._flash = lambda q, k, v, scale=None: sound(q, k, v, cfg.head_dim ** -0.5)
+            with pinned_routing(picks):
+                bad, _ = tfm.make_prefill(cfg, RAG_MAX_LEN)(params, rows)
+        finally:
+            attention._flash = sound
+        fgap = float((bad.float() - naive.float()).abs().max())
+        planted = f"; planted fault scale hd ** -0.5: {fgap:.4g}"
+        check(fgap > MODEL_PREFILL_GAP, f"{name} gate (a): planted fault passes ({fgap:.4g})")
+    say(f"phase 10 {name} gate (a) prefill logits flash vs naive on {GATE_ROWS} rows: max |diff| "
+        f"{gap:.4g} (limit {MODEL_PREFILL_GAP}), argmax agreement {agree:.3f}{planted}"
+        + (f"; expert choices of the naive pass's own router that the flash pass's "
+           f"replaced, per MoE layer: {moved} of {rows.numel() * cfg.experts_per_token}"
+           if moe else ""))
+    check(gap <= MODEL_PREFILL_GAP, f"{name} gate (a): flash differs from naive by {gap:.4g}")
+    del flash, naive
+
+    # ---- gate (b): greedy decode vs the full forward -----------------------
+    r = 1 if moe else 2
+    dcfg = (dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.experts_per_token)
+            if moe else cfg)  # no drops: a single-token decode never drops
+    got, toks = greedy_logits(dcfg, params, full[:r], DECODE_CHECK)
+    with torch.inference_mode():
+        fwd, _, _ = tfm.make_forward(dcfg)(params, torch.cat([full[:r], toks], dim=1))
+    want = fwd[:, l - 1:].float()
+    del fwd
+    bgap = float((got.float() - want).abs().max())
+    bad, _ = greedy_logits(dcfg, params, full[:r], DECODE_CHECK, planted=True)
+    fgap = float((bad.float() - want).abs().max())
+    say(f"phase 10 {name} gate (b) greedy decode vs forward, {r} row(s), the prefill's and "
+        f"{DECODE_CHECK} decode steps' logits: max |diff| {bgap:.4g} (limit {DECODE_GAP}); "
+        f"planted fault decode without RoPE {fgap:.4g}")
+    check(bgap <= DECODE_GAP, f"{name} gate (b): decode differs from forward by {bgap:.4g}")
+    check(fgap > DECODE_GAP, f"{name} gate (b): planted fault passes ({fgap:.4g})")
+    del got, bad, want
+
+    if moe:
+        gate_dispatch(name, cfg, params, check, device)
+    del params, engine, rag
+    if cuda:
+        torch.cuda.empty_cache()
+    say(f"phase 10 {name}: {time.perf_counter() - t_model:.1f} s")
+
+
+def train_smoke(results: dict, check, device: str = "cuda") -> None:
+    """One training step of the deepseek-v3 and kimi-k2 smoke configs on the
+    card (bf16, flash, AdamW): the MoE backward through the dispatch and the
+    flash backward at the smoke configs' head dims (MLA: dk 48, dv 32)."""
+    import dataclasses
+    import math
+
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.training.optimizer import OptConfig
+    from repro_torch.training.train_loop import TrainConfig, make_train_state, make_train_step
+
+    for name in ("deepseek-v3-671b", "kimi-k2-1t-a32b"):
+        cfg = dataclasses.replace(get_smoke_config(name), attn_impl="flash")
+        tcfg = TrainConfig(opt=OptConfig(lr=3e-4, warmup_steps=1, total_steps=10))
+        state = make_train_state(cfg, tcfg, torch.Generator(device=device).manual_seed(0),
+                                 device)
+        batch = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=128, global_batch=8, seed=0),
+                              device=device).batch(0)
+        wrappers = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv)
+        before = [w.launches for w in wrappers]
+        t = time.perf_counter()
+        state, metrics = make_train_step(cfg, tcfg)(state, batch)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        counts = [w.launches - b for w, b in zip(wrappers, before)]
+        n_attn = cfg.n_layers + int(cfg.mtp)
+        loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+        finite = all(bool(torch.isfinite(p).all()) for p in state["params"].parameters())
+        say(f"phase 10 train {name} smoke ({cfg.n_layers} layers, d_model {cfg.d_model}, "
+            f"{cfg.n_experts} experts, {cfg.dtype}, flash, 8 x 128 tokens): one step "
+            f"{dt:.3f} s, loss {loss:.6f} (ln V = {math.log(cfg.vocab):.4f}), grad norm "
+            f"{gnorm:.6f}; flash forward / dQ / dK-dV launches {counts}")
+        check(math.isfinite(loss) and math.isfinite(gnorm) and gnorm > 0 and finite,
+              f"train {name}: loss {loss}, grad norm {gnorm}, parameters finite {finite}")
+        want = [n_attn if device == "cuda" else 0] * 3
+        check(counts == want, f"train {name}: flash launches {counts} != {want}")
+        for w, n in zip(("flash_attention_fwd", "flash_attention_bwd_dq",
+                         "flash_attention_bwd_dkv"), counts):
+            results[w]["launches"] += n
+        del state
+
+
+def phase_models(corpus_bundle, index, results: dict, device: str = "cuda") -> None:
+    """Phase 10: every dense and moe config but llama3.2-1b at full width,
+    random weights from a seed: qwen2-1.5b whole through RagPipeline at
+    phase 6's batch; deepseek-v3 (depth cut to 4: 3 dense MLA layers, 1 MoE
+    layer, the MTP head) and kimi-k2 (cut to 2: 1 dense, 1 MoE) through
+    RagPipeline at MOE_REQUESTS; deepseek-7b and starcoder2-15b whole, one
+    prefill of DENSE_ROWS and DENSE_STEPS decode steps; then a training step
+    of each moe smoke config. Every gate's reading is printed; the phase
+    fails at its end if any gate did. (``device`` lets the phase be
+    rehearsed on the CPU, with smaller configs patched in.)"""
+    import torch
+
+    t = time.perf_counter()
+    fails: list = []
+
+    def check(ok: bool, msg: str) -> None:
+        if not ok:
+            fails.append(msg)
+            say(f"phase 10 FAILED: {msg}")
+
+    from repro_torch.configs import get_config
+
+    served = (("qwen2-1.5b", None, RAG_REQUESTS, True),
+              ("deepseek-v3-671b", MOE_DEPTH["deepseek-v3-671b"], MOE_REQUESTS, True),
+              ("kimi-k2-1t-a32b", MOE_DEPTH["kimi-k2-1t-a32b"], MOE_REQUESTS, True),
+              ("deepseek-7b", None, DENSE_ROWS, False),
+              ("starcoder2-15b", None, DENSE_ROWS, False))
+    vocab = min(get_config(name).vocab for name, _, _, rag in served if rag)
+    gen = torch.Generator(device=device).manual_seed(1)
+    doc_tokens = torch.randint(0, vocab, (corpus_bundle.docs.n, RAG_CTX), generator=gen,
+                               device=device, dtype=torch.int32)
+    for name, depth, requests, rag in served:
+        serve_model(name, depth, requests, corpus_bundle, index, doc_tokens if rag else None,
+                    results, check, device)
+    del doc_tokens
+    train_smoke(results, check, device)
+    say(f"phase 10: {time.perf_counter() - t:.1f} s")
+    need(not fails, f"phase 10: {len(fails)} gate(s) failed: {fails}")
 
 
 def bwd_work(q, k, v, causal: bool, kernel: str) -> tuple[float, float, float]:
@@ -3350,7 +3919,26 @@ def phase_train(cfg, results: dict):
     torch.cuda.empty_cache()
 
 
-def main() -> int:
+PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10)
+
+
+def parse_phases(argv) -> set:
+    """``--phases 1,4,10``: a partial run, for finding faults (phase 1 always
+    runs; 8 needs 5, and 6 and 10 need 4). It prints no kernels line and no
+    last line. Without the flag, every phase."""
+    import argparse
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--phases", default=",".join(map(str, PHASES)))
+    chosen = {1} | {int(x) for x in ap.parse_args(argv).phases.split(",")}
+    if not chosen <= set(PHASES) or (8 in chosen and 5 not in chosen) or (
+            chosen & {6, 10} and 4 not in chosen):
+        raise SystemExit(f"chip_smoke: bad --phases {sorted(chosen)}")
+    return chosen
+
+
+def main(argv=None) -> int:
+    phases = parse_phases(argv)
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found next to this script", file=sys.stderr)
         return 2
@@ -3373,35 +3961,49 @@ def main() -> int:
         torch.cuda.synchronize()
         say(f"phase 4 corpus: {N_FULL} docs x 1024 dense + 32/16 ELL, {N_QUERIES} queries "
             f"in {time.perf_counter() - t:.1f} s")
-        results: dict = {}
-        phase_kernels(full.docs, full.queries, results)
-        phase_insert_kernels(full.docs, results)
-        phase_small_e2e()
-        index = phase_full(full, results)
+        # each kernel's readings: launches on the paths, max error, checks by shape
+        results: dict = collections.defaultdict(
+            lambda: {"launches": 0, "max_abs_err": 0.0, "checks": []})
+        if 2 in phases:
+            phase_kernels(full.docs, full.queries, results)
+            phase_insert_kernels(full.docs, results)
+        if 3 in phases:
+            phase_small_e2e()
+        index = phase_full(full, results) if 4 in phases else None
         torch.cuda.empty_cache()
-        pool_q, int8_recall = phase_serving(full, results)
-        torch.cuda.empty_cache()
-        phase_write(full, pool_q, results, int8_recall)
-        del pool_q
-        torch.cuda.empty_cache()
-        phase_rag(full, index, results)
+        if 5 in phases:
+            pool_q, int8_recall = phase_serving(full, results)
+            torch.cuda.empty_cache()
+            if 8 in phases:
+                phase_write(full, pool_q, results, int8_recall)
+            del pool_q
+            torch.cuda.empty_cache()
+        if 6 in phases:
+            phase_rag(full, index, results)
+        if 10 in phases:  # while phase 4's index lives; all of it freed before phase 7
+            phase_models(full, index, results)
         del full, index
         torch.cuda.empty_cache()
         from repro_torch.configs import get_config
 
-        train_cfg = dataclasses.replace(get_config("llama3.2-1b"), attn_impl="flash")
-        phase_flash_bwd(train_cfg, results)
-        phase_train(train_cfg, results)
-        torch.cuda.empty_cache()
+        if 7 in phases:
+            train_cfg = dataclasses.replace(get_config("llama3.2-1b"), attn_impl="flash")
+            phase_flash_bwd(train_cfg, results)
+            phase_train(train_cfg, results)
+            torch.cuda.empty_cache()
         # last, not after phase 8: run before phase 7, phase 9 leaves phase
         # 7's profiled step one flash-forward record short (the first one
         # of the backward) while the wrapper counts all 32 and the step's
         # loss and grad norm equal those of a run with all 32 recorded: a
         # fault of the trace, not yet explained (ROADMAP Queue 3)
-        phase_text(results)
+        if 9 in phases:
+            phase_text(results)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
+    if phases != set(PHASES):
+        say(f"chip_smoke: phases {sorted(phases)} passed (a partial run: no kernels line)")
+        return 0
 
     src = {
         "hybrid_distance": ("src/repro_torch/kernels/csrc/hybrid_distance.cu",
@@ -3442,6 +4044,9 @@ def main() -> int:
             kernels[-1]["variant"] = variants[name]
         if chk.get("device_ms") is not None:  # host-bound shapes: the kernels' own time
             kernels[-1]["device_ms"] = chk["device_ms"]
+        extra = [ch for ch in r["checks"] if ch.get("phase") == "phase 10"]
+        if extra:  # the shapes phase 10's models gave the kernel, caught on their paths
+            kernels[-1]["checks"] = extra
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)  # name, power limit: as nvidia-smi prints them
     print(json.dumps({"ok": True, "device": {

@@ -128,12 +128,13 @@ def ingest_pipeline_from_arrays(pipe, device):
 
 def _param_paths(model: Transformer):
     """(name, parameter, path in ``repro``'s tree, layer index or None):
-    block parameters ``layers.<i>.<rest>`` sit at ``("layers", *rest)[i]``
-    in ``repro``'s layer-stacked tree."""
+    block parameters ``layers.<i>.<rest>`` and ``dense_layers.<i>.<rest>``
+    sit at ``(group, *rest)[i]`` in ``repro``'s layer-stacked tree; the rest,
+    the MTP head's block among them, is not stacked."""
     for name, p in model.named_parameters():
         parts = name.split(".")
-        if parts[0] == "layers":
-            yield name, p, ("layers",) + tuple(parts[2:]), int(parts[1])
+        if parts[0] in ("layers", "dense_layers"):
+            yield name, p, (parts[0],) + tuple(parts[2:]), int(parts[1])
         else:
             yield name, p, tuple(parts), None
 

@@ -211,34 +211,6 @@ def _path_refinement(
 
 
 # ---------------------------------------------------------------------------
-# Stages 2-3: pruning + keyword recycling
-# ---------------------------------------------------------------------------
-
-
-def _prune_all(
-    corpus: FusedVectors,
-    knn_ids: torch.Tensor,
-    knn_scores: torch.Tensor,
-    cself: torch.Tensor,
-    path_ids: torch.Tensor | None,
-    cfg: pruning.PruneConfig,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """RNG-IP pruning over node chunks."""
-    n = corpus.n
-    rev = knn_graph.reverse_neighbors(knn_ids, max(cfg.degree // 4, 1))
-    node_ids = torch.arange(n, dtype=torch.int32, device=knn_ids.device)
-    sems, kws = [], []
-    for s, e in _chunks(n, cfg.node_chunk):
-        sem, kw, _ = pruning._prune_chunk(
-            corpus, corpus[s:e], node_ids[s:e], knn_ids[s:e], knn_scores[s:e], cself,
-            rev[s:e], None if path_ids is None else path_ids[s:e], cfg,
-        )
-        sems.append(sem)
-        kws.append(kw)
-    return torch.cat(sems), torch.cat(kws)
-
-
-# ---------------------------------------------------------------------------
 # Entry points (paper §4.2.1)
 # ---------------------------------------------------------------------------
 
@@ -314,7 +286,7 @@ def build_graph(
         path_ids = _path_refinement(corpus, knn_ids, cfg, _graph_pk(cfg), generator, draws)
     clock.mark("refinement")
     cself = pruning.self_scores(corpus, use_kernel=cfg.prune.use_kernel)
-    sem, kw = _prune_all(corpus, knn_ids, knn_scores, cself, path_ids, cfg.prune)
+    sem, kw = pruning.prune_all(corpus, knn_ids, knn_scores, cself, path_ids, cfg.prune)
     clock.mark("prune")
     entries = _entry_points(corpus, cself, min(cfg.n_entry, corpus.n), cfg.prune.use_kernel)
     clock.mark("entry_points")

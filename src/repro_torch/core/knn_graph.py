@@ -11,12 +11,15 @@ chunk over nodes.
 from __future__ import annotations
 
 import dataclasses
+from typing import Sequence
 
+import numpy as np
 import torch
 
 from repro_torch.core.usms import PAD_IDX, FusedVectors
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import topk_desc
+from repro_torch.runtime import dispatch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,6 +91,69 @@ def _init_graph(n: int, k: int, generator: torch.Generator, device) -> torch.Ten
     ids = torch.randint(0, n, (n, k), generator=generator, device=device, dtype=torch.int32)
     own = torch.arange(n, dtype=torch.int32, device=device)[:, None]
     return torch.where(ids == own, (ids + 1) % n, ids)
+
+
+def build_knn_graph(
+    corpus: FusedVectors,
+    cfg: KnnConfig,
+    generator: torch.Generator,
+    *,
+    queries: FusedVectors | None = None,
+    init_ids: torch.Tensor | None = None,
+    rounds: Sequence[torch.Tensor] | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """NN-Descent over the fused corpus, host-driven (``repro``'s legacy
+    path, the reference its pipeline is held against). Returns (nbr_ids
+    (N, K), scores (N, K)) sorted by hybrid score, descending per row.
+
+    queries: optional weight-scaled view of the corpus (Theorem 1), for the
+        per-path refinement rounds.
+    init_ids: optional (N, >= K) warm-start graph; narrower ones are widened
+        with random ids.
+    rounds: optional (N, extra_random) random-candidate tables, one per
+        round, in place of the draws from ``generator`` (a test feeds in
+        ``repro``'s).
+    Every launch goes through the ``fused_topk`` wrapper."""
+    n, k, dev = corpus.n, cfg.k, corpus.device
+    queries = corpus if queries is None else queries
+    if init_ids is None:
+        nbr_ids = _init_graph(n, k, generator, dev)
+    else:
+        nbr_ids = init_ids[:, :k].to(device=dev, dtype=torch.int32)
+        if nbr_ids.shape[1] < k:
+            extra = _init_graph(n, k - nbr_ids.shape[1], generator, dev)
+            nbr_ids = torch.cat([nbr_ids, extra], dim=1)
+    node_ids = torch.arange(n, dtype=torch.int32, device=dev)
+    dispatch.tick()
+    # k == row width, so the fused top-k of the initial rows is their sort
+    top, pos = ops.fused_topk_vs_ids(queries, corpus, nbr_ids.contiguous(), k,
+                                     use_kernel=cfg.use_kernel)
+    nbr_ids = ops.take_topk_ids(nbr_ids, pos)
+    scores = torch.where(nbr_ids >= 0, top, torch.full_like(top, float("-inf")))
+    for it in range(cfg.iters):
+        if rounds is None:
+            rand_ids = torch.randint(0, n, (n, cfg.extra_random), generator=generator,
+                                     device=dev, dtype=torch.int32)
+        else:
+            rand_ids = torch.as_tensor(rounds[it]).to(device=dev, dtype=torch.int32)
+        ids_out, sc_out = [], []
+        for s in range(0, n, cfg.node_chunk):
+            e = min(s + cfg.node_chunk, n)
+            dispatch.tick()
+            ids_c, sc_c = _descent_round_chunk(corpus, nbr_ids, queries[s:e], node_ids[s:e],
+                                               nbr_ids[s:e], scores[s:e], rand_ids[s:e], cfg)
+            ids_out.append(ids_c)
+            sc_out.append(sc_c)
+        nbr_ids, scores = torch.cat(ids_out), torch.cat(sc_out)
+    return nbr_ids, scores
+
+
+def knn_recall(nbr_ids, truth_ids) -> float:
+    """Fraction of the true k-NN recovered (NN-Descent's quality)."""
+    as_np = lambda a: a.detach().cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
+    nbr, truth = as_np(nbr_ids), as_np(truth_ids)
+    hits = sum(len(set(a.tolist()) & set(b.tolist())) for a, b in zip(nbr, truth))
+    return hits / truth.size
 
 
 def reverse_neighbors(nbr_ids: torch.Tensor, cap: int) -> torch.Tensor:

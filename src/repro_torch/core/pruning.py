@@ -17,8 +17,10 @@ import dataclasses
 
 import torch
 
+from repro_torch.core.knn_graph import reverse_neighbors
 from repro_torch.core.usms import PAD_IDX, FusedVectors, PathWeights, weighted_query
 from repro_torch.kernels import ops
+from repro_torch.runtime import dispatch
 
 NEG = -1e30
 _INT32_MAX = 2**31 - 1
@@ -219,3 +221,45 @@ def self_scores(corpus: FusedVectors, use_kernel: bool | None = None) -> torch.T
     ids = arange(N)[:, None] (no second copy of the corpus)."""
     ids = torch.arange(corpus.n, dtype=torch.int32, device=corpus.device)[:, None]
     return ops.hybrid_scores_vs_ids(corpus, corpus, ids, use_kernel=use_kernel)[:, 0]
+
+
+
+def prune_all(
+    corpus: FusedVectors,
+    knn_ids: torch.Tensor,
+    knn_scores: torch.Tensor,
+    cself: torch.Tensor,
+    path_ids: torch.Tensor | None,
+    cfg: PruneConfig,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """RNG-IP pruning over node chunks, given the self scores (the build
+    pipeline's stages 2-3)."""
+    n = corpus.n
+    rev = reverse_neighbors(knn_ids, max(cfg.degree // 4, 1))
+    node_ids = torch.arange(n, dtype=torch.int32, device=knn_ids.device)
+    sems, kws = [], []
+    for s in range(0, n, cfg.node_chunk):
+        e = min(s + cfg.node_chunk, n)
+        sem, kw, _ = _prune_chunk(corpus, corpus[s:e], node_ids[s:e], knn_ids[s:e],
+                                  knn_scores[s:e], cself, rev[s:e],
+                                  None if path_ids is None else path_ids[s:e], cfg)
+        sems.append(sem)
+        kws.append(kw)
+    return torch.cat(sems), torch.cat(kws)
+
+
+def rng_ip_prune(
+    corpus: FusedVectors,
+    knn_ids: torch.Tensor,  # (N, K) NN-Descent output, score-sorted desc
+    knn_scores: torch.Tensor,  # (N, K)
+    cfg: PruneConfig,
+    *,
+    path_ids: torch.Tensor | None = None,  # (N, 3, pk) per-path neighbors
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The full pruning pass, host-driven (``repro``'s legacy path): self
+    scores, then ``prune_all``. Returns (semantic_edges (N, d),
+    keyword_edges (N, dk)). Counts one dispatch, for the self scores;
+    ``repro`` also counts one per node chunk."""
+    dispatch.tick()
+    cself = self_scores(corpus, use_kernel=cfg.use_kernel)
+    return prune_all(corpus, knn_ids, knn_scores, cself, path_ids, cfg)

@@ -251,6 +251,36 @@ def weighted_query(q: FusedVectors, w: PathWeights) -> FusedVectors:
     )
 
 
+def sparse_from_dense(x: torch.Tensor, nnz_cap: int) -> SparseVec:
+    """Keep the top-``nnz_cap`` entries by magnitude (SEISMIC-style static
+    pruning), ties to the lowest index as ``lax.top_k``: (..., V) dense ->
+    SparseVec (..., nnz_cap); zero entries become PAD slots."""
+    mag, idx = torch.sort(torch.abs(x), dim=-1, descending=True, stable=True)
+    mag, idx = mag[..., :nnz_cap], idx[..., :nnz_cap]
+    keep = mag > 0
+    return SparseVec(torch.where(keep, idx, torch.full_like(idx, PAD_IDX)).to(torch.int32),
+                     torch.where(keep, torch.gather(x, -1, idx), torch.zeros_like(mag)))
+
+
+def sparse_to_dense(s: SparseVec, vocab: int) -> torch.Tensor:
+    """Scatter an ELL sparse vector back to dense, duplicates summed
+    (oracle / testing only): (..., P) -> (..., vocab)."""
+    idx = s.idx.reshape(-1, s.idx.shape[-1]).long()
+    val = s.val.reshape(-1, s.val.shape[-1])
+    live = idx >= 0
+    out = torch.zeros((idx.shape[0], vocab), dtype=val.dtype, device=val.device)
+    out.scatter_add_(1, torch.where(live, idx, torch.zeros_like(idx)),
+                     torch.where(live, val, torch.zeros_like(val)))
+    return out.reshape(tuple(s.idx.shape[:-1]) + (vocab,))
+
+
+def concat_dense(f: FusedVectors, vocab_s: int, vocab_f: int) -> torch.Tensor:
+    """f_concat(d) = [dense, sparse, full] as one dense vector (oracle /
+    testing only, never at scale)."""
+    return torch.cat([f.dense, sparse_to_dense(f.learned, vocab_s),
+                      sparse_to_dense(f.lexical, vocab_f)], dim=-1)
+
+
 def keyword_overlap(a_idx: torch.Tensor, b_idx: torch.Tensor) -> torch.Tensor:
     """|K(a) ∩ K(b)| for PAD-padded keyword id arrays: (..., Pa) x (..., Pb)
     -> (...,) int32. Assumes unique ids per row."""

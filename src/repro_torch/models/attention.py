@@ -1,11 +1,14 @@
-"""GQA self-attention (``repro/models/attention.py``, the GQA half): train /
-prefill over a full sequence, naive or flash, and single-token cached
-decode.
+"""Self-attention (``repro/models/attention.py``): GQA (with qwen2's QKV
+bias) and MLA (DeepSeek-V3), each over a full sequence (train / prefill,
+naive or flash) and as single-token cached decode.
 
 Layouts and casts are ``repro``'s: activations (B, L, H, hd); scores in
 float32; softmax weights cast to ``x.dtype`` before the value product; the
-flash output cast to ``x.dtype`` before ``wo``. MLA and cross-attention
-decode wait for later slices (ROADMAP Queue 1 item 10).
+flash output cast to ``x.dtype`` before ``wo``. MLA's full-sequence form is
+the expanded one (per-head K and V, the shared rope key broadcast over the
+heads); its decode is the absorbed one, attending in the ``kv_lora`` latent,
+so its cache holds only the latent and the rope key. Cross-attention and its
+decode wait for the vlm and audio families (ROADMAP Queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -17,16 +20,22 @@ from torch import nn
 
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import apply_rope, dtype_of, ninit, param
+from repro_torch.models.layers import RMSNorm, apply_rope, dtype_of, ninit, param, rms_norm
 
 NEG_INF = -1e30
 
 TensorSpec = namedtuple("TensorSpec", "shape dtype")
 
 
+# ---------------------------------------------------------------------------
+# GQA attention
+# ---------------------------------------------------------------------------
+
+
 class Attention(nn.Module):
     """GQA projections under ``repro``'s keys: wq (d, H, hd), wk / wv
-    (d, KV, hd), wo (H, hd, d). (qwen2's ``qkv_bias`` waits for its config.)"""
+    (d, KV, hd), wo (H, hd, d); with ``qkv_bias`` also bq (H, hd) and bk /
+    bv (KV, hd), initialised to zeros."""
 
     def __init__(self, cfg: ModelConfig, dtype, device):
         super().__init__()
@@ -35,6 +44,10 @@ class Attention(nn.Module):
         self.wk = param((d, kv, hd), dtype, device)
         self.wv = param((d, kv, hd), dtype, device)
         self.wo = param((h, hd, d), dtype, device)
+        if cfg.qkv_bias:
+            self.bq = param((h, hd), dtype, device)
+            self.bk = param((kv, hd), dtype, device)
+            self.bv = param((kv, hd), dtype, device)
 
     @torch.no_grad()
     def init(self, generator: torch.Generator, cfg: ModelConfig) -> None:
@@ -42,12 +55,17 @@ class Attention(nn.Module):
         s = d**-0.5
         for w, scale in ((self.wq, s), (self.wk, s), (self.wv, s), (self.wo, (h * hd) ** -0.5)):
             w.copy_(ninit(generator, w.shape, scale, w.dtype))
+        if cfg.qkv_bias:
+            for b in (self.bq, self.bk, self.bv):
+                b.zero_()
 
 
-def _project_qkv(p, x):
+def _project_qkv(p, cfg: ModelConfig, x):
     q = torch.einsum("bld,dhk->blhk", x, p.wq)
     k = torch.einsum("bld,dhk->blhk", x, p.wk)
     v = torch.einsum("bld,dhk->blhk", x, p.wv)
+    if cfg.qkv_bias:
+        q, k, v = q + p.bq, k + p.bk, v + p.bv
     return q, k, v
 
 
@@ -70,29 +88,39 @@ def _gqa_out(weights, v, p):
     return torch.einsum("blhd,hdk->blk", ctx, p.wo)
 
 
-def _flash(q, k, v):
-    """The causal flash kernel on (B, L, H, d)-layout tensors: the kernel
-    reads the transposed views by stride, no copy."""
+def _flash(q, k, v, scale=None):
+    """The causal flash kernel on (B, L, H, d)-layout tensors (``repro``'s
+    ``_flash_scaled``; ``scale`` defaults to q's head dim ** -0.5): the
+    kernel reads the transposed views by stride, no copy."""
     out, _ = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), True,
-                             q.shape[-1] ** -0.5)
+                             q.shape[-1] ** -0.5 if scale is None else scale)
     return out.transpose(1, 2)
+
+
+def _causal(scores):
+    """``repro``'s bottom-right causal mask, ``tril(k = S - L)``."""
+    l, s = scores.shape[-2], scores.shape[-1]
+    mask = torch.tril(torch.ones((l, s), dtype=torch.bool, device=scores.device), diagonal=s - l)
+    return torch.where(mask, scores, torch.full_like(scores, NEG_INF))
+
+
+def _up_to(scores, pos: int):
+    """Decode's mask: cache positions [0, pos] only."""
+    valid = torch.arange(scores.shape[-1], device=scores.device) <= pos
+    return torch.where(valid, scores, torch.full_like(scores, NEG_INF))
 
 
 def apply_attention(p, cfg: ModelConfig, x, positions):
     """Full-sequence causal self-attention (train / prefill). x: (B, L, D);
     positions: (B, L) or (1, L). Returns (y, {"k", "v"}). (The non-causal
     and cross-attention forms wait for the vlm and audio families.)"""
-    q, k, v = _project_qkv(p, x)
+    q, k, v = _project_qkv(p, cfg, x)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     if cfg.attn_impl == "flash":
         y = torch.einsum("blhd,hdk->blk", _flash(q, k, v).to(x.dtype), p.wo)
         return y, {"k": k, "v": v}
-    scores = _gqa_scores(q, k)
-    l, s = scores.shape[-2], scores.shape[-1]
-    mask = torch.tril(torch.ones((l, s), dtype=torch.bool, device=x.device), diagonal=s - l)
-    scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
-    weights = torch.softmax(scores, dim=-1).to(x.dtype)
+    weights = torch.softmax(_causal(_gqa_scores(q, k)), dim=-1).to(x.dtype)
     return _gqa_out(weights, v, p), {"k": k, "v": v}
 
 
@@ -101,16 +129,14 @@ def apply_attention_decode(p, cfg: ModelConfig, x, cache: dict, pos: int):
     ``cache`` {"k", "v": (B, S, KV, hd)} in place (``repro`` returns an
     updated copy; the port keeps one cache buffer) and attends to positions
     [0, pos]. Returns (y, cache)."""
-    q, k_new, v_new = _project_qkv(p, x)
+    q, k_new, v_new = _project_qkv(p, cfg, x)
     posv = torch.full((x.shape[0], 1), pos, dtype=torch.int32, device=x.device)
     q = apply_rope(q, posv, cfg.rope_theta)
     k_new = apply_rope(k_new, posv, cfg.rope_theta)
     k, v = cache["k"], cache["v"]
     k[:, pos:pos + 1] = k_new.to(k.dtype)
     v[:, pos:pos + 1] = v_new.to(v.dtype)
-    scores = _gqa_scores(q, k)  # (B, KV, G, 1, S)
-    valid = torch.arange(k.shape[1], device=x.device) <= pos
-    scores = torch.where(valid, scores, torch.full_like(scores, NEG_INF))
+    scores = _up_to(_gqa_scores(q, k), pos)  # (B, KV, G, 1, S)
     weights = torch.softmax(scores, dim=-1).to(x.dtype)
     return _gqa_out(weights, v, p), cache
 
@@ -119,3 +145,108 @@ def kv_cache_shape(cfg: ModelConfig, batch: int, max_len: int) -> dict:
     shp = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
     dt = dtype_of(cfg)
     return {"k": TensorSpec(shp, dt), "v": TensorSpec(shp, dt)}
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V3)
+# ---------------------------------------------------------------------------
+
+
+class MLA(nn.Module):
+    """MLA projections under ``repro``'s keys: wq_a (d, q_lora), q_norm,
+    wq_b (q_lora, H, hd + rh), wkv_a (d, kv_lora + rh), kv_norm, wk_b / wv_b
+    (kv_lora, H, hd), wo (H, hd, d)."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__()
+        d, h, hd = cfg.d_model, cfg.n_heads, cfg.head_dim
+        ql, kl, rh = cfg.q_lora_rank, cfg.kv_lora_rank, cfg.rope_head_dim
+        self.wq_a = param((d, ql), dtype, device)
+        self.q_norm = RMSNorm(ql, dtype, device)
+        self.wq_b = param((ql, h, hd + rh), dtype, device)
+        self.wkv_a = param((d, kl + rh), dtype, device)
+        self.kv_norm = RMSNorm(kl, dtype, device)
+        self.wk_b = param((kl, h, hd), dtype, device)
+        self.wv_b = param((kl, h, hd), dtype, device)
+        self.wo = param((h, hd, d), dtype, device)
+
+    @torch.no_grad()
+    def init(self, generator: torch.Generator, cfg: ModelConfig) -> None:
+        d, h, hd = cfg.d_model, cfg.n_heads, cfg.head_dim
+        ql, kl = cfg.q_lora_rank, cfg.kv_lora_rank
+        for w, scale in ((self.wq_a, d**-0.5), (self.wq_b, ql**-0.5), (self.wkv_a, d**-0.5),
+                         (self.wk_b, kl**-0.5), (self.wv_b, kl**-0.5),
+                         (self.wo, (h * hd) ** -0.5)):
+            w.copy_(ninit(generator, w.shape, scale, w.dtype))
+        self.q_norm.scale.fill_(1.0)
+        self.kv_norm.scale.fill_(1.0)
+
+
+def _mla_q(p, cfg: ModelConfig, x, positions):
+    """(q_nope (B, L, H, hd), q_rope (B, L, H, rh) rotated)."""
+    cq = rms_norm(p.q_norm, torch.einsum("bld,dq->blq", x, p.wq_a))
+    q = torch.einsum("blq,qhk->blhk", cq, p.wq_b)
+    q_nope, q_rope = q[..., :cfg.head_dim], q[..., cfg.head_dim:]
+    return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
+
+
+def _mla_latents(p, cfg: ModelConfig, x, positions):
+    """(ckv (B, L, kv_lora) normed, k_rope (B, L, rh) rotated): the
+    compressed cache entries."""
+    kv = torch.einsum("bld,dk->blk", x, p.wkv_a)
+    ckv = rms_norm(p.kv_norm, kv[..., :cfg.kv_lora_rank])
+    k_rope = apply_rope(kv[:, :, None, cfg.kv_lora_rank:], positions, cfg.rope_theta)
+    return ckv, k_rope[:, :, 0, :]
+
+
+def apply_mla(p, cfg: ModelConfig, x, positions):
+    """Full-sequence MLA (train / prefill), expanded form. Returns (y, the
+    compressed cache {"ckv", "krope"}). Under ``attn_impl="flash"`` the
+    kernel takes q = [q_nope ; q_rope] and k = [k_nope ; k_rope] (dk = hd +
+    rh, dv = hd) at scale (hd + rh) ** -0.5."""
+    hd, rh = cfg.head_dim, cfg.rope_head_dim
+    q_nope, q_rope = _mla_q(p, cfg, x, positions)
+    ckv, k_rope = _mla_latents(p, cfg, x, positions)
+    k_nope = torch.einsum("blk,khd->blhd", ckv, p.wk_b)
+    v = torch.einsum("blk,khd->blhd", ckv, p.wv_b)
+    scale = (hd + rh) ** -0.5
+    if cfg.attn_impl == "flash":
+        q_full = torch.cat([q_nope, q_rope], dim=-1)  # (B, L, H, hd + rh)
+        k_full = torch.cat([k_nope, k_rope[:, :, None, :].expand(*k_nope.shape[:3], rh)], dim=-1)
+        ctx = _flash(q_full, k_full, v, scale)
+        y = torch.einsum("blhd,hdk->blk", ctx.to(x.dtype), p.wo)
+        return y, {"ckv": ckv, "krope": k_rope}
+    scores = (torch.einsum("blhd,bshd->bhls", q_nope, k_nope)
+              + torch.einsum("blhr,bsr->bhls", q_rope, k_rope)).float() * scale
+    w = torch.softmax(_causal(scores), dim=-1).to(x.dtype)
+    ctx = torch.einsum("bhls,bshd->blhd", w, v)
+    return torch.einsum("blhd,hdk->blk", ctx, p.wo), {"ckv": ckv, "krope": k_rope}
+
+
+def apply_mla_decode(p, cfg: ModelConfig, x, cache: dict, pos: int):
+    """Compressed-cache MLA decode by projection absorption: W_uk folds into
+    the query and W_uv into the output, so attention runs in the
+    ``kv_lora`` latent and per-head K/V are never materialised. Writes the
+    new latent and rope key at ``pos`` of ``cache`` {"ckv": (B, S, kv_lora),
+    "krope": (B, S, rh)} in place. Returns (y, cache)."""
+    hd, rh = cfg.head_dim, cfg.rope_head_dim
+    posv = torch.full((x.shape[0], 1), pos, dtype=torch.int32, device=x.device)
+    q_nope, q_rope = _mla_q(p, cfg, x, posv)  # (B, 1, H, hd / rh)
+    ckv_new, krope_new = _mla_latents(p, cfg, x, posv)
+    ckv, krope = cache["ckv"], cache["krope"]
+    ckv[:, pos:pos + 1] = ckv_new.to(ckv.dtype)
+    krope[:, pos:pos + 1] = krope_new.to(krope.dtype)
+    q_eff = torch.einsum("blhd,khd->blhk", q_nope, p.wk_b)  # (B, 1, H, kv_lora)
+    scale = 1.0 / torch.sqrt(torch.tensor(float(hd + rh), dtype=torch.float32, device=x.device))
+    scores = (torch.einsum("blhk,bsk->bhls", q_eff, ckv)
+              + torch.einsum("blhr,bsr->bhls", q_rope, krope)).float() * scale
+    w = torch.softmax(_up_to(scores, pos), dim=-1).to(x.dtype)
+    ctx = torch.einsum("bhls,bsk->blhk", w, ckv)  # the latent context
+    v = torch.einsum("blhk,khd->blhd", ctx, p.wv_b)  # W_uv absorbed
+    return torch.einsum("blhd,hdk->blk", v, p.wo), cache
+
+
+def mla_cache_shape(cfg: ModelConfig, batch: int, max_len: int) -> dict:
+    dt = dtype_of(cfg)
+    return {"ckv": TensorSpec((batch, max_len, cfg.kv_lora_rank), dt),
+            "krope": TensorSpec((batch, max_len, cfg.rope_head_dim), dt)}

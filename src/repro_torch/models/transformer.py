@@ -1,14 +1,19 @@
-"""Model assembly for the dense family (``repro/models/transformer.py``):
-init, forward (with ``repro``'s remat policies), the training loss, prefill
-and cached decode.
+"""Model assembly for the dense and moe families
+(``repro/models/transformer.py``): init, forward (with ``repro``'s remat
+policies and the moe family's MTP head), the training loss, prefill and
+cached decode.
 
-``repro`` scans over layer-stacked parameters; the port holds a
-``ModuleList`` of blocks and loops over it, and ``jax.checkpoint`` over the
-scan body becomes ``torch.utils.checkpoint`` around each block. The decode cache keeps
-``repro``'s tree and layout, ``{"layers": {"k", "v": (n_layers, B, max_len,
-KV, hd)}}``, as one buffer that prefill fills and each decode step updates
-in place. The other families (moe, ssm, hybrid, vlm, audio) raise
-``NotImplementedError`` (ROADMAP Queue 1 item 10).
+``repro`` scans over layer-stacked parameters; the port holds ``ModuleList``s
+of blocks and loops over them, and ``jax.checkpoint`` over the scan body
+becomes ``torch.utils.checkpoint`` around each block. A moe model runs its
+``dense_layers`` (``first_dense_layers`` dense blocks) before its MoE
+``layers``; attention is MLA where ``use_mla``, else GQA. The decode cache
+keeps ``repro``'s tree and layout, ``{"layers": ..., "dense_layers": ...}``
+of ``{"k", "v": (n, B, max_len, KV, hd)}`` or, under MLA, ``{"ckv":
+(n, B, max_len, kv_lora), "krope": (n, B, max_len, rh)}``, as one buffer
+per leaf that prefill fills and each decode step updates in place. The other
+families (ssm, hybrid, vlm, audio) raise ``NotImplementedError`` (ROADMAP
+Queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ from torch.utils import checkpoint as ckpt
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
     MLP,
@@ -29,47 +35,100 @@ from repro_torch.models.layers import (
     apply_mlp,
     dtype_of,
     embed_tokens,
+    ninit,
+    param,
     rms_norm,
     unembed,
 )
 
 
 AUX_LOSS_COEF = 0.01
+MTP_LOSS_COEF = 0.3
 
 
-def _dense_only(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or cfg.use_mla or cfg.qkv_bias:
+def _check_family(cfg: ModelConfig) -> None:
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense family without MLA or qkv bias is ported "
-            "(ROADMAP Queue 1 item 10)")
+            f"{cfg.name}: the {cfg.family} family is not ported yet; the dense and moe "
+            "families are (ROADMAP Queue 1 item 10)")
+
+
+def _attention(cfg: ModelConfig, dtype, device) -> nn.Module:
+    return attn.MLA(cfg, dtype, device) if cfg.use_mla else attn.Attention(cfg, dtype, device)
 
 
 class DenseBlock(nn.Module):
     def __init__(self, cfg: ModelConfig, dtype, device):
         super().__init__()
         self.ln1 = RMSNorm(cfg.d_model, dtype, device)
-        self.attn = attn.Attention(cfg, dtype, device)
+        self.attn = _attention(cfg, dtype, device)
         self.ln2 = RMSNorm(cfg.d_model, dtype, device)
         self.mlp = MLP(cfg.d_model, cfg.d_ff, dtype, device)
 
 
+class MoEBlock(nn.Module):
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__()
+        self.ln1 = RMSNorm(cfg.d_model, dtype, device)
+        self.attn = _attention(cfg, dtype, device)
+        self.ln2 = RMSNorm(cfg.d_model, dtype, device)
+        self.moe = moe_mod.MoE(cfg, dtype, device)
+
+
+class MTPHead(nn.Module):
+    """The multi-token-prediction head: ``proj`` (2d, d) over [h_t ;
+    emb(t_{t+1})], one dense block, a norm."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__()
+        self.proj = param((2 * cfg.d_model, cfg.d_model), dtype, device)
+        self.block = DenseBlock(cfg, dtype, device)
+        self.norm = RMSNorm(cfg.d_model, dtype, device)
+
+
 class Transformer(nn.Module):
-    """The dense model's parameters under ``repro``'s tree keys: ``embed``,
-    ``final_norm`` and ``layers`` (one ``DenseBlock`` per layer where
-    ``repro`` stacks the leaves on axis 0)."""
+    """Parameters under ``repro``'s tree keys: ``embed``, ``final_norm``,
+    ``layers`` (one block per layer where ``repro`` stacks the leaves on
+    axis 0) and, for the moe family, ``dense_layers`` and ``mtp``."""
 
     def __init__(self, cfg: ModelConfig, device):
         super().__init__()
-        _dense_only(cfg)
+        _check_family(cfg)
         dtype = dtype_of(cfg)
         self.cfg = cfg
         self.embed = Embed(cfg, dtype, device)
         self.final_norm = RMSNorm(cfg.d_model, dtype, device)
-        self.layers = nn.ModuleList(DenseBlock(cfg, dtype, device) for _ in range(cfg.n_layers))
+        if cfg.family == "dense":
+            self.layers = nn.ModuleList(DenseBlock(cfg, dtype, device)
+                                        for _ in range(cfg.n_layers))
+            return
+        nd = cfg.first_dense_layers
+        if nd:
+            self.dense_layers = nn.ModuleList(DenseBlock(cfg, dtype, device) for _ in range(nd))
+        self.layers = nn.ModuleList(MoEBlock(cfg, dtype, device)
+                                    for _ in range(cfg.n_layers - nd))
+        if cfg.mtp:
+            self.mtp = MTPHead(cfg, dtype, device)
 
     @property
     def device(self) -> torch.device:
         return self.embed.tok.device
+
+    def groups(self):
+        """(cache key, blocks) in the order the forward runs them."""
+        if hasattr(self, "dense_layers"):
+            yield "dense_layers", self.dense_layers
+        yield "layers", self.layers
+
+
+def _init_block(blk, generator: torch.Generator, cfg: ModelConfig) -> None:
+    blk.ln1.scale.fill_(1.0)
+    blk.ln2.scale.fill_(1.0)
+    blk.attn.init(generator, cfg)
+    if isinstance(blk, MoEBlock):
+        blk.moe.init(generator, cfg)
+    else:
+        blk.mlp.init(generator)
 
 
 @torch.no_grad()
@@ -83,25 +142,50 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None) -> Tr
         raise ValueError(f"generator lies on {generator.device}, parameters on {dev}")
     model = Transformer(cfg, dev)
     model.embed.init(generator, cfg)
-    for norm in [model.final_norm] + [m for blk in model.layers for m in (blk.ln1, blk.ln2)]:
-        norm.scale.fill_(1.0)
-    for blk in model.layers:
-        blk.attn.init(generator, cfg)
-        blk.mlp.init(generator)
+    model.final_norm.scale.fill_(1.0)
+    for _, blocks in model.groups():
+        for blk in blocks:
+            _init_block(blk, generator, cfg)
+    if hasattr(model, "mtp"):
+        d2 = 2 * cfg.d_model
+        model.mtp.proj.copy_(ninit(generator, model.mtp.proj.shape, d2**-0.5,
+                                   model.mtp.proj.dtype))
+        _init_block(model.mtp.block, generator, cfg)
+        model.mtp.norm.scale.fill_(1.0)
     return model
 
 
-def _block_seq(p: DenseBlock, cfg: ModelConfig, h, positions):
-    """One dense block over a full sequence. Returns (h, cache_kv)."""
-    y, cache = attn.apply_attention(p.attn, cfg, rms_norm(p.ln1, h), positions)
-    h = h + y
-    return h + apply_mlp(p.mlp, rms_norm(p.ln2, h)), cache
+def _moe_fn(cfg: ModelConfig):
+    return moe_mod.apply_moe_ep if cfg.moe_impl == "ep_manual" else moe_mod.apply_moe
 
 
-def _block_decode(p: DenseBlock, cfg: ModelConfig, h, cache: dict, pos: int):
-    y, cache = attn.apply_attention_decode(p.attn, cfg, rms_norm(p.ln1, h), cache, pos)
+def _block_seq(p, cfg: ModelConfig, h, positions):
+    """One dense or MoE block over a full sequence. Returns (h, aux or None
+    for a dense block, the attention's cache entries)."""
+    if cfg.use_mla:
+        y, cache = attn.apply_mla(p.attn, cfg, rms_norm(p.ln1, h), positions)
+    else:
+        y, cache = attn.apply_attention(p.attn, cfg, rms_norm(p.ln1, h), positions)
     h = h + y
-    return h + apply_mlp(p.mlp, rms_norm(p.ln2, h)), cache
+    hn = rms_norm(p.ln2, h)
+    if isinstance(p, MoEBlock):
+        y2, aux = _moe_fn(cfg)(p.moe, cfg, hn)
+    else:
+        y2, aux = apply_mlp(p.mlp, hn), None
+    return h + y2, aux, cache
+
+
+def _block_decode(p, cfg: ModelConfig, h, cache: dict, pos: int):
+    hn = rms_norm(p.ln1, h)
+    if cfg.use_mla:
+        y, _ = attn.apply_mla_decode(p.attn, cfg, hn, cache, pos)
+    else:
+        y, _ = attn.apply_attention_decode(p.attn, cfg, hn, cache, pos)
+    h = h + y
+    hn = rms_norm(p.ln2, h)
+    if isinstance(p, MoEBlock):
+        return h + _moe_fn(cfg)(p.moe, cfg, hn)[0]
+    return h + apply_mlp(p.mlp, hn)
 
 
 def _positions(l: int, device) -> torch.Tensor:
@@ -141,19 +225,31 @@ def _remat(fn, cfg: ModelConfig):
 
 
 def make_forward(cfg: ModelConfig):
-    """Returns fn(params, tokens) -> (logits (B, L, V), aux_loss, None), as
-    ``repro``'s dense forward (the third slot is the MTP head's logits).
+    """Returns fn(params, tokens) -> (logits (B, L, V), aux_loss, logits_mtp
+    (B, L, V) or None), as ``repro``'s forward: aux is the MoE blocks' aux
+    losses summed; the MTP head runs here only (prefill and decode skip it).
     Each block runs under ``cfg.remat`` when autograd records."""
-    _dense_only(cfg)
+    _check_family(cfg)
 
     def fwd(params: Transformer, tokens: torch.Tensor):
         positions = _positions(tokens.shape[1], tokens.device)
         h = embed_tokens(params.embed, tokens)
-        for blk in params.layers:
-            h = _remat(lambda x, blk=blk: _block_seq(blk, cfg, x, positions)[0], cfg)(h)
-        h = rms_norm(params.final_norm, h)
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
-        return unembed(params.embed, h, cfg), aux, None
+        for _, blocks in params.groups():
+            for blk in blocks:
+                h, a = _remat(lambda x, blk=blk: _block_seq(blk, cfg, x, positions)[:2], cfg)(h)
+                if a is not None:
+                    aux = aux + a
+        h = rms_norm(params.final_norm, h)
+        logits = unembed(params.embed, h, cfg)
+        if not (cfg.family == "moe" and cfg.mtp):
+            return logits, aux, None
+        # multi-token prediction: one extra block over [h_t ; emb(t_{t+1})]
+        emb_next = torch.roll(embed_tokens(params.embed, tokens), -1, dims=1)
+        mtp_in = torch.einsum("blf,fd->bld", torch.cat([h.to(dtype_of(cfg)), emb_next], dim=-1),
+                              params.mtp.proj)
+        h2 = rms_norm(params.mtp.norm, _block_seq(params.mtp.block, cfg, mtp_in, positions)[0])
+        return logits, aux, unembed(params.embed, h2, cfg)
 
     return fwd
 
@@ -170,8 +266,9 @@ def _cross_entropy(logits, labels, mask):
 def make_loss_fn(cfg: ModelConfig):
     """Returns fn(params, batch) -> scalar float32 loss, as ``repro``'s
     ``make_loss_fn``: labels are the tokens rolled by -1, the last position
-    is masked, and the aux loss is added at ``AUX_LOSS_COEF``. (The MTP term
-    comes with the moe family.)"""
+    is masked, and the aux loss is added at ``AUX_LOSS_COEF``; with the MTP
+    head, ``MTP_LOSS_COEF`` times its loss on the tokens rolled by -2, the
+    last two positions masked."""
     fwd = make_forward(cfg)
 
     def loss_fn(params: Transformer, batch: dict) -> torch.Tensor:
@@ -180,65 +277,77 @@ def make_loss_fn(cfg: ModelConfig):
                                       "families (ROADMAP Queue 1 item 10)")
         tokens = batch["tokens"]
         logits, aux, logits_mtp = fwd(params, tokens)
-        if logits_mtp is not None:
-            raise NotImplementedError("the MTP loss comes with the moe family "
-                                      "(ROADMAP Queue 1 item 10)")
         labels = torch.roll(tokens, -1, dims=1)
         mask = torch.ones(tokens.shape, dtype=torch.float32, device=tokens.device)
         mask[:, -1] = 0.0
-        return _cross_entropy(logits, labels, mask) + AUX_LOSS_COEF * aux
+        loss = _cross_entropy(logits, labels, mask) + AUX_LOSS_COEF * aux
+        if logits_mtp is not None:
+            mask2 = mask.clone()
+            mask2[:, -2] = 0.0
+            loss = loss + MTP_LOSS_COEF * _cross_entropy(
+                logits_mtp, torch.roll(tokens, -2, dims=1), mask2)
+        return loss
 
     return loss_fn
 
 
 def cache_shape(cfg: ModelConfig, batch: int, max_len: int) -> dict:
-    """Shape/dtype tree of the decode cache."""
-    _dense_only(cfg)
-    a = attn.kv_cache_shape(cfg, batch, max_len)
-    return {"layers": {k: attn.TensorSpec((cfg.n_layers,) + s.shape, s.dtype)
-                       for k, s in a.items()}}
+    """Shape/dtype tree of the decode cache: ``{"layers"}`` (dense) or
+    ``{"layers", "dense_layers"}`` (moe with leading dense layers), each a
+    stack over its blocks of ``{"k", "v"}`` or, under MLA, ``{"ckv",
+    "krope"}``."""
+    _check_family(cfg)
+    a = (attn.mla_cache_shape if cfg.use_mla else attn.kv_cache_shape)(cfg, batch, max_len)
+    stack = lambda n: {k: attn.TensorSpec((n,) + s.shape, s.dtype) for k, s in a.items()}
+    if cfg.family == "dense":
+        return {"layers": stack(cfg.n_layers)}
+    out = {"layers": stack(cfg.n_layers - cfg.first_dense_layers)}
+    if cfg.first_dense_layers:
+        out["dense_layers"] = stack(cfg.first_dense_layers)
+    return out
 
 
 def make_prefill(cfg: ModelConfig, max_len: int):
     """Returns fn(params, tokens) -> (last_logits (B, V), cache): the cache
-    holds K/V for positions [0, L) and zeros up to ``max_len``, as
-    ``_pad_cache_len`` pads. Runs under ``torch.inference_mode``."""
-    _dense_only(cfg)
+    holds the attention entries for positions [0, L) and zeros up to
+    ``max_len``, as ``_pad_cache_len`` pads. Runs under
+    ``torch.inference_mode``."""
+    _check_family(cfg)
 
     @torch.inference_mode()
     def prefill(params: Transformer, tokens: torch.Tensor):
         b, l = tokens.shape
         if l > max_len:
             raise ValueError(f"prompt length {l} exceeds max_len {max_len}")
-        spec = cache_shape(cfg, b, max_len)["layers"]
-        cache = {k: torch.zeros(s.shape, dtype=s.dtype, device=tokens.device)
-                 for k, s in spec.items()}
+        cache = {g: {k: torch.zeros(s.shape, dtype=s.dtype, device=tokens.device)
+                     for k, s in spec.items()}
+                 for g, spec in cache_shape(cfg, b, max_len).items()}
         positions = _positions(l, tokens.device)
         h = embed_tokens(params.embed, tokens)
-        for i, blk in enumerate(params.layers):
-            h, c = _block_seq(blk, cfg, h, positions)
-            cache["k"][i, :, :l] = c["k"]
-            cache["v"][i, :, :l] = c["v"]
+        for g, blocks in params.groups():
+            for i, blk in enumerate(blocks):
+                h, _, c = _block_seq(blk, cfg, h, positions)
+                for key, t in c.items():
+                    cache[g][key][i, :, :l] = t
         h = rms_norm(params.final_norm, h[:, -1:])
-        return unembed(params.embed, h, cfg)[:, 0], {"layers": cache}
+        return unembed(params.embed, h, cfg)[:, 0], cache
 
     return prefill
 
 
 def make_decode_step(cfg: ModelConfig):
     """Returns fn(params, token (B,), cache, pos) -> (logits (B, V), cache).
-    The cache is updated in place (one 2.4 GB buffer at llama3.2-1b's width,
-    batch 64 and 1152 positions; ``repro`` returns a functional copy) and
+    The cache is updated in place (at llama3.2-1b's width, batch 64 and 1152
+    positions, one 2.4 GB buffer; ``repro`` returns a functional copy) and
     returned. Runs under ``torch.inference_mode``."""
-    _dense_only(cfg)
+    _check_family(cfg)
 
     @torch.inference_mode()
     def decode(params: Transformer, token: torch.Tensor, cache: dict, pos: int):
         h = embed_tokens(params.embed, token[:, None])
-        layers = cache["layers"]
-        for i, blk in enumerate(params.layers):
-            h, _ = _block_decode(blk, cfg, h, {"k": layers["k"][i], "v": layers["v"][i]},
-                                 int(pos))
+        for g, blocks in params.groups():
+            for i, blk in enumerate(blocks):
+                h = _block_decode(blk, cfg, h, {k: t[i] for k, t in cache[g].items()}, int(pos))
         h = rms_norm(params.final_norm, h)
         return unembed(params.embed, h, cfg)[:, 0], cache
 

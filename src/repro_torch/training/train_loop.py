@@ -18,7 +18,7 @@ from repro_torch.models import transformer as tfm
 from repro_torch.models.config import ModelConfig
 from repro_torch.training import optimizer as opt
 
-_MULTI_GPU = "comes with the multi-GPU slice (ROADMAP Queue 1 item 10)"
+_MULTI_GPU = "comes with the multi-GPU slice (ROADMAP Queue 1 item 5)"
 
 
 @dataclasses.dataclass(frozen=True)

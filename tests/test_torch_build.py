@@ -137,7 +137,7 @@ def test_prune_all_matches_repro(ref, with_paths):
     pids = path_ids if with_paths else None
     want_sem, want_kw = rbp._prune_all(docs, g.knn_ids, g.knn_scores, g.self_ip, pids,
                                        R_CFG.prune)
-    got_sem, got_kw = tbp._prune_all(tdocs, t(g.knn_ids), t(g.knn_scores), t(g.self_ip),
+    got_sem, got_kw = tpr.prune_all(tdocs, t(g.knn_ids), t(g.knn_scores), t(g.self_ip),
                                      None if pids is None else t(pids), T_CFG.prune)
     assert rows_equal_as_sets(got_sem, want_sem) == 1.0
     assert rows_equal_as_sets(got_kw, want_kw) == 1.0
@@ -150,7 +150,7 @@ def test_prune_ablation_modes_match_repro(ref, mode):
     rc = dataclasses.replace(R_CFG.prune, mode=mode)
     tc = dataclasses.replace(T_CFG.prune, mode=mode)
     want_sem, _ = rbp._prune_all(docs, g.knn_ids, g.knn_scores, g.self_ip, path_ids, rc)
-    got_sem, _ = tbp._prune_all(tdocs, t(g.knn_ids), t(g.knn_scores), t(g.self_ip),
+    got_sem, _ = tpr.prune_all(tdocs, t(g.knn_ids), t(g.knn_scores), t(g.self_ip),
                                 t(path_ids), tc)
     assert rows_equal_as_sets(got_sem, want_sem) == 1.0
 

@@ -163,7 +163,7 @@ def test_int8_quantization_matches_repro_and_bound():
     np.testing.assert_allclose(float(scale), float(rscale), rtol=1e-7)
     deq = dequantize_int8(q, scale)
     assert float((deq - torch.tensor(g)).abs().max()) <= float(scale) / 2 + 1e-9
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    with pytest.raises(NotImplementedError, match=r"multi-GPU slice \(ROADMAP Queue 1 item 5\)"):
         compressed_psum_mean({"w": torch.tensor(g)}, ("data",))
 
 
@@ -321,9 +321,9 @@ def test_loss_decreases():
 
 def test_train_step_rejects_mesh_and_compression():
     _, cfg = _cfgs()
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    with pytest.raises(NotImplementedError, match=r"multi-GPU slice \(ROADMAP Queue 1 item 5\)"):
         make_train_step(cfg, TrainConfig(), mesh=object())
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    with pytest.raises(NotImplementedError, match=r"multi-GPU slice \(ROADMAP Queue 1 item 5\)"):
         make_train_step(cfg, TrainConfig(grad_compression=True))
 
 
