@@ -127,6 +127,28 @@ Phases (each prints its own lines; any failure exits nonzero):
      rows, bit-identical twice, timed and recorded among the kernel's
      checks; then one training step of the deepseek-v3 and kimi-k2 smoke
      configs (bf16, flash, AdamW) with its flash launches;
+  11. the recurrent families at full width (after phase 10, while phase 4's
+     index lives), random weights from a seed: rwkv6-7b (32 RWKV6 layers,
+     d_model 4096, 64 WKV heads of 64) and zamba2-1.2b (38 Mamba2 layers,
+     the shared attention block after every 6) whole through RagPipeline at
+     phase 6's batch (L = 1088, 17 chunks of 64): parameter bytes, retrieval
+     / prefill / decode seconds and tokens/s, peak memory, the recurrent
+     state's bytes, the chunked scan's share of the prefill (the first
+     layer's scan call caught and timed alone); the first flash call of
+     zamba2's prefill against the plain version, timed and recorded among
+     the kernel's checks; gates, each with a planted fault that must fail
+     it: (d) the state's bytes equal after the prefill, after 64 decode
+     steps and at two max_lens, written in place (fault: a state kept per
+     position); on fp32 copies of the weights, the bf16 readings printed
+     beside: (a) each recurrent block of a forward over 2 rows, chunked
+     scan against the per-step recurrence on the same input (fault: the
+     carry across chunks dropped), (b) a prefill of 1088 and 64 decode
+     steps against one prefill of 1152 (fault: the token-shift / conv
+     state zeroed between steps), (c) zamba2's flash prefill against naive
+     on 8 rows (phase 6's two faults); then one
+     training step of zamba2 at full width (4 x 2048 tokens, remat full:
+     12 / 6 / 6 flash forward / dQ / dK-dV launches) and of each recurrent
+     smoke config;
   9. the text path and the replica tier (run last; ROADMAP Queue 3 says
      why not after phase 8):
      65,536 SynCorpus docs (fig14's 100,000 cut to fit the script's
@@ -157,15 +179,16 @@ Phases (each prints its own lines; any failure exits nonzero):
      in none, (8) the bundled text corpus: hybrid recall@10 no lower than
      dense-only and retrieve_text equal to a direct search;
   then the kernels line: launches on each variant's path (phases 4, 6, 8,
-     9 and 10 plus the fp32 pool's serving for the fp32 variants, phases 4,
-     8 and 9 for pairwise_tile, the int8 pool's serving and phase 8 for the
-     int8 variants, phases 6, 7 and 10 for flash_attention_fwd, phases 7 and
-     10 for the backward kernels), errors, times and bounds at the shape the
-     path runs most (the flash kernels with their route by dtype as
-     ``variant``; the forward with phase 10's shapes under ``checks``);
+     9, 10 and 11 plus the fp32 pool's serving for the fp32 variants, phases
+     4, 8 and 9 for pairwise_tile, the int8 pool's serving and phase 8 for
+     the int8 variants, phases 6, 7, 10 and 11 for flash_attention_fwd,
+     phases 7, 10 and 11 for the backward kernels), errors, times and bounds
+     at the shape the path runs most (the flash kernels with their route by
+     dtype as ``variant``; the forward with phases 10 and 11's shapes under
+     ``checks``);
   and the last line: {"ok": true, "device": {...}}.
 
-``--phases 1,4,10`` runs a subset, for finding faults: no kernels line and
+``--phases 1,4,11`` runs a subset, for finding faults: no kernels line and
 no last line. Imports nothing of JAX. Needs one CUDA card; exits nonzero
 without one.
 """
@@ -176,6 +199,7 @@ import collections
 import contextlib
 import dataclasses
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -252,6 +276,30 @@ DISPATCH_TOKENS = 256  # gate (c)
 MODEL_PREFILL_GAP = 0.25  # gate (a), max |logit difference|
 DECODE_GAP = 0.25  # gate (b), max |logit difference|
 DISPATCH_GAP = 2e-2  # gate (c), max |difference| / max |output|
+# phase 11: rwkv6-7b and zamba2-1.2b whole at full width, RAG at phase 6's
+# batch (L = 1088 = 17 chunks of 64: prefill takes the chunked scan). Gates
+# (a), chunked vs per-step scan, and (b), a prefill of L and 64 decode steps
+# vs one prefill of L + 64 (1152, chunked), run on 2 rows: the per-step form
+# is a loop of ~12 launches a step a layer
+SCAN_ROWS, CARRY_STEPS = 2, 64
+# gates (a)-(c) read fp32 copies of the weights: in bf16 the sound readings
+# reach 0.52-4.64 at full width on an H100, as large as the planted faults'
+# 0.72-8.22 (PERF.md, Findings), because a random-init model turns rounding
+# into O(1) logit gaps; the bf16 readings are printed beside. Even in fp32
+# rwkv6-7b's logits from the chunked and the per-step scan part by 3.89 at
+# some position (0.117 at the last; zamba2's 0.0026), from block outputs
+# that part by ~5e-7 of their size (CPU, 4 layers), so gate (a) reads block
+# by block
+SCAN_GAP = 1e-3  # gate (a): max over blocks of |chunked - per-step| / max |output|
+# gate (b): max |last-position logit difference|; on an H100 in fp32 sound
+# 0.1011 (rwkv6-7b) and 0.000775 (zamba2), planted 6.524 and 5.882
+CARRY_GAP = 0.5
+# gate (c): max |last-position logit difference|, fp32; sound 7.1e-5,
+# planted 0.1563 (causal mask off) and 0.4248 (last key tile dropped)
+HYBRID_FLASH_GAP = 0.05
+# zamba2's training step at full width: 1.2 B parameters, bf16, with fp32
+# AdamW moments (~15 GB of state); rwkv6-7b's (~91 GB) does not fit one card
+TRAIN_RECURRENT = (4, 2048)
 # phase 7: training at llama3.2-1b's full width
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_TIMED = 8, 2048, 8  # one warm-up step, then 8 timed
 # backward kernels vs the plain version, elementwise |g - w| <= atol + rtol |w|
@@ -3197,11 +3245,13 @@ def gate_dispatch(name: str, cfg, params, check, device: str = "cuda") -> None:
     check(fgap > DISPATCH_GAP, f"{name} gate (c): planted fault passes ({fgap:.4g})")
 
 
-def check_caught_flash(results: dict, name: str, call, device: str = "cuda") -> float:
-    """Gate (d): the first flash-forward call of a model's prefill, caught on
-    the path, against the plain version (8 rows), two launches bit-identical;
-    timed beside the plain version and scaled_dot_product_attention, and
-    recorded among the kernel's checks."""
+def check_caught_flash(results: dict, name: str, call, device: str = "cuda",
+                       phase: str = "phase 10", gate: str = "gate (d)") -> float:
+    """The first flash-forward call of a model's prefill, caught on the path
+    (phase 10's gate (d)), against the plain version (8 rows), two launches
+    bit-identical; timed beside the plain version and
+    scaled_dot_product_attention, and recorded among the kernel's checks
+    under ``phase``."""
     import torch
     import torch.nn.functional as F
 
@@ -3227,7 +3277,7 @@ def check_caught_flash(results: dict, name: str, call, device: str = "cuda") -> 
         sdpa()
         library_ms = time_ms(sdpa, 5)
     except RuntimeError as e:  # no SDPA backend for the shape: reported, not timed
-        say(f"phase 10 flash {name}: scaled_dot_product_attention refused the shape: "
+        say(f"{phase} flash {name}: scaled_dot_product_attention refused the shape: "
             f"{str(e).splitlines()[0][:120]}")
         library_ms = None
     torch.cuda.empty_cache()
@@ -3237,8 +3287,8 @@ def check_caught_flash(results: dict, name: str, call, device: str = "cuda") -> 
              f"causal {str(q.dtype)[6:]}")
     results["flash_attention_fwd"]["checks"].append(dict(
         shape=shape, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-        library_ms=library_ms, phase="phase 10"))
-    say(f"phase 10 gate (d) flash {shape}, caught on the path: max_abs_err (8 rows) {err:.3g}, "
+        library_ms=library_ms, phase=phase))
+    say(f"{phase} {gate} flash {shape}, caught on the path: max_abs_err (8 rows) {err:.3g}, "
         f"two launches bit-identical; ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms {b_ms:.4f} "
         f"({b_by}) sdpa_ms {library_ms if library_ms is None else round(library_ms, 4)}")
     return err
@@ -3507,6 +3557,430 @@ def phase_models(corpus_bundle, index, results: dict, device: str = "cuda") -> N
     train_smoke(results, check, device)
     say(f"phase 10: {time.perf_counter() - t:.1f} s")
     need(not fails, f"phase 10: {len(fails)} gate(s) failed: {fails}")
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the recurrent families (ssm and hybrid) at full width
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def first_call(module, name: str):
+    """``[(args, kwargs)]`` of the first call of ``module.name`` made inside
+    the block (every call runs as it is); yields the list."""
+    sound, caught = getattr(module, name), []
+
+    def catch(*args, **kwargs):
+        if not caught:
+            caught.append((args, kwargs))
+        return sound(*args, **kwargs)
+
+    setattr(module, name, catch)
+    try:
+        yield caught
+    finally:
+        setattr(module, name, sound)
+
+
+def recurrent_modules(cfg):
+    """(the scan's module, its chunked form's name, the state group of the
+    cache, the state leaf gate (b)'s planted fault zeroes)."""
+    from repro_torch.models import mamba2, rwkv6
+
+    if cfg.family == "ssm":
+        return rwkv6, "wkv6_chunked", "layers", "tm_x"
+    return mamba2, "ssd_chunked", "mamba", "conv"
+
+
+def state_bytes(cache: dict, group: str) -> int:
+    """Bytes of the recurrent state the cache holds (the shared block's KV
+    of a hybrid model left out)."""
+    return sum(t.numel() * t.element_size() for t in cache[group].values())
+
+
+@contextlib.contextmanager
+def carry_dropped(module):
+    """Planted fault (a): the chunked scan without the carry across chunks
+    (every chunk starts from a zero state; the final state is kept)."""
+    import torch
+
+    sound = module._chunk_states
+
+    def dropped(decay, chunk_state, s0):
+        before, s_fin = sound(decay, chunk_state, s0)
+        return torch.zeros_like(before), s_fin
+
+    module._chunk_states = dropped
+    try:
+        yield
+    finally:
+        module._chunk_states = sound
+
+
+def recurrent_readings(cfg, params, full, out, planted: bool) -> list:
+    """Phase 11's gates (a)-(c) on ``params`` at ``cfg``'s dtype, as
+    (label, reading, limit, kind) with kind "sound", "planted" (must read
+    above the limit) or "info" (printed): (a) each recurrent block of a
+    forward over SCAN_ROWS rows, chunked scan against the per-step
+    recurrence on the same input, max |difference| / max |output| over the
+    blocks (block by block: a random-init rwkv6-7b turns fp32 rounding at
+    one block into logit gaps of 3.9 by the last, PERF.md); (b) the
+    last logits of a prefill of L and CARRY_STEPS decode steps against one
+    prefill of L + CARRY_STEPS, and the state; (c) for a hybrid model, flash
+    against naive prefill on GATE_ROWS rows. With ``planted``, each gate's
+    planted faults too: (a) the carry across chunks dropped, (b) the
+    token-shift / conv state zeroed between steps, (c) phase 6's two faults
+    in the flash path."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.models import attention
+    from repro_torch.models import transformer as tfm
+
+    module, _, group, zeroed = recurrent_modules(cfg)
+    apply_name = "apply_rwkv6_block" if cfg.family == "ssm" else "apply_mamba2_block"
+    gap = lambda a, b: float((a.float() - b.float()).abs().max())
+    l = full.shape[1]
+    rows = full[:SCAN_ROWS]
+    r = []
+
+    sound_apply, gaps = getattr(module, apply_name), []
+
+    def both_forms(p, cfg_, x, state, chunked=True):
+        y, s = sound_apply(p, cfg_, x, state, chunked=chunked)
+        y_bad = None
+        if planted:
+            with carry_dropped(module):
+                y_bad = sound_apply(p, cfg_, x, state)[0]
+        stepped = sound_apply(p, cfg_, x, state, chunked=False)[0]
+        scale = float(stepped.float().abs().max())
+        gaps.append((gap(y, stepped) / scale, None if y_bad is None else gap(y_bad, stepped) / scale))
+        return y, s
+
+    setattr(module, apply_name, both_forms)
+    try:
+        with torch.inference_mode():
+            tfm.make_forward(cfg)(params, rows)
+    finally:
+        setattr(module, apply_name, sound_apply)
+    r.append(("(a) max over blocks of |chunked - per-step| / max |out|",
+              max(g for g, _ in gaps), SCAN_GAP, "sound"))
+    if planted:
+        r.append(("(a) planted: carry dropped", max(b for _, b in gaps), SCAN_GAP, "planted"))
+
+    prefill = tfm.make_prefill(cfg, RAG_MAX_LEN)
+    decode = tfm.make_decode_step(cfg)
+    want, want_cache = prefill(params, out[:SCAN_ROWS, :l + CARRY_STEPS])
+    for fault in (False, True) if planted else (False,):
+        logits, cache = prefill(params, rows)
+        for i in range(CARRY_STEPS):
+            logits, cache = decode(params, out[:SCAN_ROWS, l + i], cache, l + i)
+            if fault:
+                with torch.inference_mode():
+                    cache[group][zeroed].zero_()
+        if fault:
+            r.append((f"(b) planted: {zeroed} zeroed", gap(logits, want), CARRY_GAP, "planted"))
+        else:
+            r.append(("(b) prefill + decode vs one prefill", gap(logits, want), CARRY_GAP,
+                      "sound"))
+            r.append(("(b) the state, max |difference| / max |value|", max(
+                gap(cache[group][k], want_cache[group][k])
+                / float(want_cache[group][k].float().abs().max()) for k in cache[group]),
+                None, "info"))
+    del want, want_cache, cache
+
+    if cfg.family == "hybrid":
+        rows8 = full[:GATE_ROWS]
+        naive, _ = tfm.make_prefill(dataclasses.replace(cfg, attn_impl="naive"), RAG_MAX_LEN)(
+            params, rows8)
+        r.append(("(c) flash vs naive", gap(prefill(params, rows8)[0], naive), HYBRID_FLASH_GAP,
+                  "sound"))
+        sound = attention._flash
+        try:
+            for label, causal, drop in ((("causal mask off", False, 0),
+                                         ("last key tile dropped", True, 64)) if planted else ()):
+                attention._flash = planted_flash(flash_attention_fwd, causal, drop)
+                r.append((f"(c) planted: {label}", gap(prefill(params, rows8)[0], naive),
+                          HYBRID_FLASH_GAP, "planted"))
+        finally:
+            attention._flash = sound
+    return r
+
+def serve_recurrent(name: str, corpus_bundle, index, doc_tokens, results: dict, check,
+                    device: str = "cuda") -> None:
+    """One recurrent config at full width and depth, random weights from a
+    seed, through RagPipeline over phase 4's index at phase 6's batch; the
+    chunked scan's share of the prefill; the first flash-forward call of a
+    hybrid model's prefill against the plain version; gate (d), the state's
+    bytes; then gates (a)-(c) (``recurrent_readings``) printed in bf16 and
+    held on fp32 copies of the weights, each with its planted faults."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.fused_topk import fused_topk
+    from repro_torch.kernels.hybrid_distance import hybrid_distance
+    from repro_torch.models import transformer as tfm
+    from repro_torch.obs.tracer import TraceContext
+    from repro_torch.serving.engine import ServeConfig, ServingEngine
+    from repro_torch.serving.hybrid_service import HybridSearchService
+    from repro_torch.serving.rag import RagConfig, RagPipeline
+
+    t_model = time.perf_counter()
+    cfg = dataclasses.replace(get_config(name), attn_impl="flash")
+    hybrid = cfg.family == "hybrid"
+    n_groups = cfg.n_layers // cfg.attn_every if hybrid else 0
+    module, scan_name, group, _ = recurrent_modules(cfg)
+    cuda = device == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    gen = torch.Generator(device=device).manual_seed(0)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    params = tfm.init_params(cfg, gen, device)
+    sync()
+    n_params = sum(p.numel() for p in params.parameters())
+    p_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    l = RAG_TOP_K * RAG_CTX + RAG_PROMPT
+    say(f"phase 11 {name}: {cfg.n_layers} "
+        + (f"Mamba2 layers (d_inner {2 * cfg.d_model}, {2 * cfg.d_model // cfg.ssm_head_dim} "
+           f"heads of {cfg.ssm_head_dim}, ssm_state {cfg.ssm_state}), the shared attention "
+           f"block ({cfg.n_heads} heads / {cfg.n_kv_heads} kv, head_dim {cfg.head_dim}, d_ff "
+           f"{cfg.d_ff}) after every {cfg.attn_every}: {n_groups} applications"
+           if hybrid else
+           f"RWKV6 layers ({cfg.d_model // cfg.ssm_head_dim} WKV heads of {cfg.ssm_head_dim}, "
+           f"channel mix {int(3.5 * cfg.d_model)}, decay LoRA {cfg.wkv_lora})")
+        + f", d_model {cfg.d_model}, vocab {cfg.vocab}, ssm_chunk {cfg.ssm_chunk}, {cfg.dtype}: "
+        f"{n_params} parameters, {p_bytes / 1e9:.2f} GB (config n_params {cfg.n_params}), drawn "
+        f"in {time.perf_counter() - t:.1f} s")
+
+    c = corpus_bundle
+    engine = ServingEngine(cfg, params, ServeConfig(max_len=RAG_MAX_LEN))
+    prompts = torch.randint(0, cfg.vocab, (RAG_REQUESTS, RAG_PROMPT), generator=gen,
+                            device=device, dtype=torch.int32)
+    rag_cfg = RagConfig(top_k=RAG_TOP_K, ctx_tokens_per_doc=RAG_CTX)
+    service = HybridSearchService(index, dataclasses.replace(rag_cfg.search, k=RAG_TOP_K))
+    rag = RagPipeline(engine, index, doc_tokens, rag_cfg, service=service)
+    rag.answer(c.queries[0:2], prompts[:2], 2)  # warm-up: library handles, allocator
+
+    # ---- the main path: counts zeroed just before, read just after --------
+    wrappers = {"flash_attention_fwd": flash_attention_fwd, "hybrid_distance": hybrid_distance,
+                "fused_topk": fused_topk}
+    for w in wrappers.values():
+        w.launches = 0
+    trace = TraceContext(name)
+    with first_flash_call() as caught, first_call(module, scan_name) as scans:
+        sync()
+        t0 = time.perf_counter()
+        out, res = rag.answer(c.queries[0:RAG_REQUESTS], prompts, RAG_GEN, trace=trace)
+        sync()
+        e2e = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 if cuda else float("nan")
+    span = lambda s: trace.find(s)[0]
+    retrieval_s = span("context_assembly").t0 - t0
+    prefill_s = span("prefill").t1 - span("prefill").t0
+    decode_s = span("decode").t1 - span("decode").t0
+    shapes = tfm.cache_shape(cfg, RAG_REQUESTS, RAG_MAX_LEN)
+    nbytes = lambda tree: sum(math.prod(s.shape) * s.dtype.itemsize for s in tree.values())
+    say(f"phase 11 {name} RAG {RAG_REQUESTS} requests, L = {l}, {RAG_GEN} tokens greedy: "
+        f"retrieval {retrieval_s:.3f} s, prefill {prefill_s:.3f} s "
+        f"({RAG_REQUESTS * l / prefill_s:.1f} tokens/s), decode {decode_s:.3f} s "
+        f"({RAG_REQUESTS * (RAG_GEN - 1) / decode_s:.1f} tokens/s over {RAG_GEN - 1} steps), "
+        f"RAG batch {e2e:.3f} s; parameters {p_bytes / 1e9:.2f} GB, peak memory {peak_gb:.2f} GB; "
+        f"recurrent state {nbytes(shapes[group]) / 1e6:.1f} MB for the batch"
+        + (f", the shared block's KV {nbytes(shapes['shared']) / 1e6:.1f} MB at max_len "
+           f"{RAG_MAX_LEN}" if hybrid else "")
+        + f"; launches {json.dumps(launches)}")
+    want_flash = n_groups if cuda else 0
+    check(launches["flash_attention_fwd"] == want_flash,
+          f"{name}: {launches['flash_attention_fwd']} flash launches, not {want_flash}")
+    for k in launches:
+        results[k]["launches"] += launches[k]
+    for k in ("hybrid_distance", "fused_topk"):
+        check(launches[k] > 0 or not cuda, f"{name}: {k} was not launched while RAG retrieved")
+    full = torch.cat([rag.build_context(res), prompts], dim=1)
+    check(bool((res.ids[:, :RAG_TOP_K] >= 0).all()), f"{name}: a request retrieved less")
+    check(tuple(out.shape) == (RAG_REQUESTS, l + RAG_GEN), f"{name}: output shape "
+          f"{tuple(out.shape)}")
+    check(torch.equal(out[:, :l], full), f"{name}: the output does not start with its prompt")
+    check(bool(((out >= 0) & (out < cfg.vocab)).all()), f"{name}: tokens out of range")
+
+    # ---- the chunked scan's share of the prefill ----------------------------
+    check(len(scans) == 1, f"{name}: no chunked {scan_name} call caught in the prefill")
+    args, kwargs = scans[0]
+    del scans
+    sound_scan = getattr(module, scan_name)
+    if cuda:
+        scan_ms = time_ms(lambda: sound_scan(*args, **kwargs), 3, warm=1)
+        dims = ", ".join(str(tuple(a.shape)) for a in args if hasattr(a, "shape"))
+        say(f"phase 11 {name} {scan_name} at the prefill's shapes ({dims}): {scan_ms:.3f} ms a "
+            f"layer, x {cfg.n_layers} layers = "
+            f"{scan_ms * cfg.n_layers / 1e3:.3f} s, {scan_ms * cfg.n_layers / 1e3 / prefill_s:.3f} "
+            f"of the prefill's {prefill_s:.3f} s")
+    del args, kwargs
+    if cuda:
+        torch.cuda.empty_cache()
+
+    if hybrid:
+        check(len(caught) == 1, f"{name}: no flash-forward call caught in the prefill")
+        if caught:
+            check_caught_flash(results, name, caught[0], device, phase="phase 11",
+                               gate="kernel check")
+    del caught
+
+    # ---- gate (d): the state does not grow, and is written in place --------
+    prefill = tfm.make_prefill(cfg, RAG_MAX_LEN)
+    decode = tfm.make_decode_step(cfg)
+    rows = full[:SCAN_ROWS]
+    _, cache = prefill(params, rows)
+    b_prefill = state_bytes(cache, group)
+    ptrs = [t.data_ptr() for t in cache[group].values()]
+    for i in range(CARRY_STEPS):
+        _, cache = decode(params, out[:SCAN_ROWS, l + i], cache, l + i)
+    b_decode = state_bytes(cache, group)
+    in_place = ptrs == [t.data_ptr() for t in cache[group].values()]
+    _, long_cache = tfm.make_prefill(cfg, 2 * RAG_MAX_LEN)(params, rows)
+    b_long = state_bytes(long_cache, group)
+
+    # planted fault (d): the state kept per position, as a KV cache is
+    def per_position(max_len):
+        cache_ = tfm.make_prefill(cfg, max_len)(params, rows)[1]
+        cache_[group]["history"] = torch.zeros(
+            (cfg.n_layers, SCAN_ROWS, max_len, cfg.d_model), dtype=params.embed.tok.dtype,
+            device=rows.device)
+        return state_bytes(cache_, group)
+
+    planted = [per_position(m) for m in (RAG_MAX_LEN, 2 * RAG_MAX_LEN)]
+    say(f"phase 11 {name} gate (d) recurrent state bytes for {SCAN_ROWS} rows: after the prefill "
+        f"{b_prefill}, after {CARRY_STEPS} decode steps {b_decode} (written in place: "
+        f"{in_place}), at max_len {2 * RAG_MAX_LEN} {b_long}"
+        + (f"; the shared block's KV {state_bytes(cache, 'shared')} at max_len {RAG_MAX_LEN}, "
+           f"{state_bytes(long_cache, 'shared')} at {2 * RAG_MAX_LEN}" if hybrid else "")
+        + f"; planted fault state kept per position {planted[0]} / {planted[1]}")
+    check(b_prefill == b_decode == b_long and in_place,
+          f"{name} gate (d): state bytes {b_prefill} / {b_decode} / {b_long}, in place {in_place}")
+    check(planted[0] != planted[1], f"{name} gate (d): planted fault passes ({planted})")
+    del cache, long_cache
+
+    # ---- gates (a)-(c): bf16 readings printed, fp32 copies gated ------------
+    # a random-init model at full width turns bf16's rounding into O(1)
+    # logit gaps between any two orders of the same sums (PERF.md), as
+    # phase 7's gradients do; in fp32 the sound readings stay small
+    bf16 = recurrent_readings(cfg, params, full, out, planted=False)
+    say(f"phase 11 {name} gates (a)-(c) in bf16 (printed, not gated): "
+        + "; ".join(f"{label} {v:.4g}" for label, v, _, _ in bf16))
+    del engine, rag, service
+    params.float()  # in place: the gates read fp32 copies of the same weights
+    if cuda:
+        torch.cuda.empty_cache()
+    fp32 = recurrent_readings(dataclasses.replace(cfg, dtype="float32"), params, full, out,
+                              planted=True)
+    say(f"phase 11 {name} gates (a)-(c) in fp32: "
+        + "; ".join(f"{label} {v:.4g}" + (f" (limit {lim})" if lim is not None else "")
+                    for label, v, lim, _ in fp32))
+    for label, v, lim, kind in fp32:
+        if kind != "info":
+            ok = v > lim if kind == "planted" else v <= lim
+            check(ok, f"{name} {label}: {v:.4g} {'<=' if kind == 'planted' else '>'} {lim}")
+
+    del params
+    if cuda:
+        torch.cuda.empty_cache()
+    say(f"phase 11 {name}: {time.perf_counter() - t_model:.1f} s")
+
+
+def train_recurrent(results: dict, check, device: str = "cuda") -> None:
+    """One training step of zamba2-1.2b at full width and depth (bf16,
+    flash, remat full, AdamW with fp32 moments) and one of each recurrent
+    smoke config, with their flash launches against what remat predicts:
+    under remat "full" each shared-block application's forward runs twice."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.training.optimizer import OptConfig
+    from repro_torch.training.train_loop import TrainConfig, make_train_state, make_train_step
+
+    cuda = device == "cuda"
+    runs = (("zamba2-1.2b", get_config("zamba2-1.2b"), TRAIN_RECURRENT),
+            ("rwkv6-7b smoke", get_smoke_config("rwkv6-7b"), (8, 128)),
+            ("zamba2-1.2b smoke", get_smoke_config("zamba2-1.2b"), (8, 128)))
+    for label, cfg, (batch, seq) in runs:
+        cfg = dataclasses.replace(cfg, attn_impl="flash")
+        tcfg = TrainConfig(opt=OptConfig(lr=3e-4, warmup_steps=1, total_steps=10))
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        state = make_train_state(cfg, tcfg, torch.Generator(device=device).manual_seed(0),
+                                 device)
+        data = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=batch, seed=0),
+                             device=device).batch(0)
+        wrappers = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv)
+        before = [w.launches for w in wrappers]
+        t = time.perf_counter()
+        state, metrics = make_train_step(cfg, tcfg)(state, data)
+        if cuda:
+            torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        counts = [w.launches - b for w, b in zip(wrappers, before)]
+        n_apply = cfg.n_layers // cfg.attn_every if cfg.family == "hybrid" else 0
+        # remat full: the forward again in the backward, once per application
+        want = [(2 if cfg.remat == "full" else 1) * n_apply, n_apply, n_apply]
+        want = want if cuda else [0, 0, 0]
+        loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+        finite = all(bool(torch.isfinite(p).all()) for p in state["params"].parameters())
+        peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else float("nan")
+        say(f"phase 11 train {label} ({cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.dtype}, "
+            f"remat {cfg.remat}, {batch} x {seq} tokens): one step {dt:.3f} s, loss {loss:.6f} "
+            f"(ln V = {math.log(cfg.vocab):.4f}), grad norm {gnorm:.6f}, peak memory {peak:.2f} GB; "
+            f"flash forward / dQ / dK-dV launches {counts} (remat predicts {want})")
+        check(math.isfinite(loss) and math.isfinite(gnorm) and gnorm > 0 and finite,
+              f"train {label}: loss {loss}, grad norm {gnorm}, parameters finite {finite}")
+        check(counts == want, f"train {label}: flash launches {counts} != {want}")
+        for w, n in zip(("flash_attention_fwd", "flash_attention_bwd_dq",
+                         "flash_attention_bwd_dkv"), counts):
+            results[w]["launches"] += n
+        del state, data
+        if cuda:
+            torch.cuda.empty_cache()
+
+
+def phase_recurrent(corpus_bundle, index, results: dict, device: str = "cuda") -> None:
+    """Phase 11: rwkv6-7b and zamba2-1.2b whole at full width, random
+    weights from a seed, each through RagPipeline over phase 4's index at
+    phase 6's batch, with gates (a)-(d); then one training step of zamba2 at
+    full width and one of each recurrent smoke config. Every gate's reading
+    is printed; the phase fails at its end if any gate did. (``device`` lets
+    the phase be rehearsed on the CPU, with smaller configs patched in.)"""
+    import torch
+
+    from repro_torch.configs import get_config
+
+    t = time.perf_counter()
+    fails: list = []
+
+    def check(ok: bool, msg: str) -> None:
+        if not ok:
+            fails.append(msg)
+            say(f"phase 11 FAILED: {msg}")
+
+    vocab = min(get_config(name).vocab for name in ("rwkv6-7b", "zamba2-1.2b"))
+    gen = torch.Generator(device=device).manual_seed(2)
+    doc_tokens = torch.randint(0, vocab, (corpus_bundle.docs.n, RAG_CTX), generator=gen,
+                               device=device, dtype=torch.int32)
+    for name in ("rwkv6-7b", "zamba2-1.2b"):
+        serve_recurrent(name, corpus_bundle, index, doc_tokens, results, check, device)
+    del doc_tokens
+    train_recurrent(results, check, device)
+    say(f"phase 11: {time.perf_counter() - t:.1f} s")
+    need(not fails, f"phase 11: {len(fails)} gate(s) failed: {fails}")
 
 
 def bwd_work(q, k, v, causal: bool, kernel: str) -> tuple[float, float, float]:
@@ -3919,20 +4393,20 @@ def phase_train(cfg, results: dict):
     torch.cuda.empty_cache()
 
 
-PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10)
+PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11)
 
 
 def parse_phases(argv) -> set:
-    """``--phases 1,4,10``: a partial run, for finding faults (phase 1 always
-    runs; 8 needs 5, and 6 and 10 need 4). It prints no kernels line and no
-    last line. Without the flag, every phase."""
+    """``--phases 1,4,11``: a partial run, for finding faults (phase 1 always
+    runs; 8 needs 5, and 6, 10 and 11 need 4). It prints no kernels line and
+    no last line. Without the flag, every phase."""
     import argparse
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default=",".join(map(str, PHASES)))
     chosen = {1} | {int(x) for x in ap.parse_args(argv).phases.split(",")}
     if not chosen <= set(PHASES) or (8 in chosen and 5 not in chosen) or (
-            chosen & {6, 10} and 4 not in chosen):
+            chosen & {6, 10, 11} and 4 not in chosen):
         raise SystemExit(f"chip_smoke: bad --phases {sorted(chosen)}")
     return chosen
 
@@ -3982,6 +4456,8 @@ def main(argv=None) -> int:
             phase_rag(full, index, results)
         if 10 in phases:  # while phase 4's index lives; all of it freed before phase 7
             phase_models(full, index, results)
+        if 11 in phases:  # likewise
+            phase_recurrent(full, index, results)
         del full, index
         torch.cuda.empty_cache()
         from repro_torch.configs import get_config
@@ -4044,8 +4520,8 @@ def main(argv=None) -> int:
             kernels[-1]["variant"] = variants[name]
         if chk.get("device_ms") is not None:  # host-bound shapes: the kernels' own time
             kernels[-1]["device_ms"] = chk["device_ms"]
-        extra = [ch for ch in r["checks"] if ch.get("phase") == "phase 10"]
-        if extra:  # the shapes phase 10's models gave the kernel, caught on their paths
+        extra = [ch for ch in r["checks"] if ch.get("phase") in ("phase 10", "phase 11")]
+        if extra:  # the shapes phases 10-11's models gave the kernel, caught on their paths
             kernels[-1]["checks"] = extra
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)  # name, power limit: as nvidia-smi prints them

@@ -1,13 +1,15 @@
 """Does chip_smoke.py's phase 9 make torch.profiler lose a record of phase
 7's training step? On one GPU:
 
-    python3 examples/torch_profile_after_text.py [--docs 8192]
+    python3 examples/torch_profile_after_text.py [--docs 8192] [--bwd-checks]
 
 It builds the kernels (phase 1), then profiles one phase 7 training step
 (llama3.2-1b at full width and depth, 8 x 2048 tokens, bf16, flash) with
 the profiler's CPU activity off and on; runs phase 9 with ``--docs`` docs
 (its stream and deletes cut in proportion; its gates are printed, not
-required); then profiles the same step again, CPU activity off and on.
+required); with ``--bwd-checks`` then phase 7's backward checks
+(``phase_flash_bwd``), as the whole script runs them just before its
+profiled step; then profiles the same step again, CPU activity off and on.
 Each profiled step prints one JSON line: the flash records by symbol
 (``F`` the forward, ``Q`` dQ, ``K`` dK/dV) against the 32 / 16 / 16 the
 wrappers count, the records in time order, and what CUPTI says of dropped
@@ -79,6 +81,8 @@ def profiled(label: str, step, cpu: bool) -> None:
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--docs", type=int, default=8192)
+    ap.add_argument("--bwd-checks", action="store_true",
+                    help="run phase 7's backward checks after phase 9")
     args = ap.parse_args(argv)
 
     import torch
@@ -110,8 +114,14 @@ def main(argv=None) -> None:
     except cs.SmokeFailure as e:  # the trace is the question here, not the gates
         print(f"phase 9 at {args.docs} docs: a gate failed: {e}", flush=True)
     torch.cuda.empty_cache()
+    label = f"after phase 9 at {args.docs} docs"
+    if args.bwd_checks:
+        cs.phase_flash_bwd(cfg, collections.defaultdict(
+            lambda: {"launches": 0, "max_abs_err": 0.0, "checks": []}))
+        torch.cuda.empty_cache()
+        label += " and phase 7's backward checks"
     for cpu in (False, True):
-        profiled(f"after phase 9 at {args.docs} docs", step, cpu)
+        profiled(label, step, cpu)
 
 
 if __name__ == "__main__":

@@ -2,10 +2,10 @@
 ported architecture, each exporting ``CONFIG`` (the published configuration)
 and ``smoke_config()`` (a reduced same-family config for CPU tests).
 
-``list_archs`` names every architecture of the reference. The dense and moe
-families are ported; ``get_config`` and ``get_smoke_config`` raise
-``NotImplementedError`` for an architecture of the ssm, hybrid, vlm or audio
-family (ROADMAP Queue 1 item 10).
+``list_archs`` names every architecture of the reference. The dense, moe,
+ssm and hybrid families are ported; ``get_config`` and ``get_smoke_config``
+raise ``NotImplementedError`` for an architecture of the vlm or audio family
+(ROADMAP Queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -25,7 +25,7 @@ ARCHS = [
     "whisper-large-v3",
 ]
 PORTED = ("llama3.2-1b", "starcoder2-15b", "qwen2-1.5b", "deepseek-7b", "kimi-k2-1t-a32b",
-          "deepseek-v3-671b")
+          "deepseek-v3-671b", "rwkv6-7b", "zamba2-1.2b")
 
 _MODULES = {name: name.replace("-", "_").replace(".", "_") for name in ARCHS}
 

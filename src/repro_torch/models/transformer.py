@@ -1,4 +1,4 @@
-"""Model assembly for the dense and moe families
+"""Model assembly for the dense, moe, ssm and hybrid families
 (``repro/models/transformer.py``): init, forward (with ``repro``'s remat
 policies and the moe family's MTP head), the training loss, prefill and
 cached decode.
@@ -11,9 +11,19 @@ becomes ``torch.utils.checkpoint`` around each block. A moe model runs its
 keeps ``repro``'s tree and layout, ``{"layers": ..., "dense_layers": ...}``
 of ``{"k", "v": (n, B, max_len, KV, hd)}`` or, under MLA, ``{"ckv":
 (n, B, max_len, kv_lora), "krope": (n, B, max_len, rh)}``, as one buffer
-per leaf that prefill fills and each decode step updates in place. The other
-families (ssm, hybrid, vlm, audio) raise ``NotImplementedError`` (ROADMAP
-Queue 1 item 10).
+per leaf that prefill fills and each decode step updates in place.
+
+The ssm family (rwkv6-7b) is a stack of ``RWKV6Block``s; the hybrid family
+(zamba2-1.2b) groups its Mamba2 ``layers`` by ``attn_every``, each group
+followed by the one weight-shared ``shared_attn`` (a ``DenseBlock``), the
+``n_layers % attn_every`` remainder layers after the last group. Their
+decode "cache" is the recurrent state, whose size does not depend on
+``max_len``: ``{"layers": {"tm_x", "cm_x", "wkv"}}`` stacked over the rwkv6
+blocks, or ``{"mamba": {"conv", "ssm"}}`` stacked over the Mamba2 blocks
+beside ``{"shared": {"k", "v"}}``, the shared block's KV per group
+application (n_groups, B, max_len, KV, hd). Prefill writes the state after
+the prompt; each decode step overwrites it in place. The vlm and audio
+families raise ``NotImplementedError`` (ROADMAP Queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -26,7 +36,9 @@ from torch.utils import checkpoint as ckpt
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba2
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import rwkv6
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
     MLP,
@@ -47,10 +59,10 @@ MTP_LOSS_COEF = 0.3
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet; the dense and moe "
-            "families are (ROADMAP Queue 1 item 10)")
+            f"{cfg.name}: the {cfg.family} family is not ported yet; the vlm and audio "
+            "families wait (ROADMAP Queue 1 item 10)")
 
 
 def _attention(cfg: ModelConfig, dtype, device) -> nn.Module:
@@ -89,7 +101,8 @@ class MTPHead(nn.Module):
 class Transformer(nn.Module):
     """Parameters under ``repro``'s tree keys: ``embed``, ``final_norm``,
     ``layers`` (one block per layer where ``repro`` stacks the leaves on
-    axis 0) and, for the moe family, ``dense_layers`` and ``mtp``."""
+    axis 0), for the moe family ``dense_layers`` and ``mtp``, for the hybrid
+    family ``shared_attn`` (unstacked)."""
 
     def __init__(self, cfg: ModelConfig, device):
         super().__init__()
@@ -98,9 +111,12 @@ class Transformer(nn.Module):
         self.cfg = cfg
         self.embed = Embed(cfg, dtype, device)
         self.final_norm = RMSNorm(cfg.d_model, dtype, device)
-        if cfg.family == "dense":
-            self.layers = nn.ModuleList(DenseBlock(cfg, dtype, device)
-                                        for _ in range(cfg.n_layers))
+        block = {"dense": DenseBlock, "ssm": rwkv6.RWKV6Block,
+                 "hybrid": mamba2.Mamba2Block}.get(cfg.family)
+        if block is not None:
+            self.layers = nn.ModuleList(block(cfg, dtype, device) for _ in range(cfg.n_layers))
+            if cfg.family == "hybrid":
+                self.shared_attn = DenseBlock(cfg, dtype, device)
             return
         nd = cfg.first_dense_layers
         if nd:
@@ -115,13 +131,20 @@ class Transformer(nn.Module):
         return self.embed.tok.device
 
     def groups(self):
-        """(cache key, blocks) in the order the forward runs them."""
+        """(tree key, blocks): every block, in the order the dense and moe
+        forwards run them (where the key is also the cache's); the hybrid
+        family's shared block comes last."""
         if hasattr(self, "dense_layers"):
             yield "dense_layers", self.dense_layers
         yield "layers", self.layers
+        if hasattr(self, "shared_attn"):
+            yield "shared_attn", (self.shared_attn,)
 
 
 def _init_block(blk, generator: torch.Generator, cfg: ModelConfig) -> None:
+    if isinstance(blk, (rwkv6.RWKV6Block, mamba2.Mamba2Block)):
+        blk.init(generator, cfg)
+        return
     blk.ln1.scale.fill_(1.0)
     blk.ln2.scale.fill_(1.0)
     blk.attn.init(generator, cfg)
@@ -224,6 +247,33 @@ def _remat(fn, cfg: ModelConfig):
     return run
 
 
+def _zero_state(spec: dict, device) -> dict:
+    return {k: torch.zeros(s.shape, dtype=s.dtype, device=device) for k, s in spec.items()}
+
+
+def _hybrid_groups(cfg: ModelConfig):
+    """[(Mamba2 layer indices, the shared block's application index or
+    None)]: ``n_layers // attn_every`` groups of ``attn_every`` layers, each
+    followed by the shared block, then the remainder layers alone (zamba2:
+    38 = 6 x 6 + 2), as ``repro``'s ``_hybrid_forward`` runs them."""
+    ae = cfg.attn_every
+    n_groups = cfg.n_layers // ae
+    out = [(range(g * ae, (g + 1) * ae), g) for g in range(n_groups)]
+    if cfg.n_layers % ae:
+        out.append((range(n_groups * ae, cfg.n_layers), None))
+    return out
+
+
+def _hybrid_group(params, cfg: ModelConfig, idx, shared: bool, h, positions):
+    """The forward over one group: its Mamba2 layers from a zero state, then
+    (``shared``) the shared block. ``repro`` remats a whole group, and runs
+    the remainder layers outside the remat."""
+    for i in idx:
+        zero = _zero_state(mamba2.mamba2_state_shape(cfg, h.shape[0]), h.device)
+        h = mamba2.apply_mamba2_block(params.layers[i], cfg, h, zero)[0]
+    return _block_seq(params.shared_attn, cfg, h, positions)[0] if shared else h
+
+
 def make_forward(cfg: ModelConfig):
     """Returns fn(params, tokens) -> (logits (B, L, V), aux_loss, logits_mtp
     (B, L, V) or None), as ``repro``'s forward: aux is the MoE blocks' aux
@@ -235,11 +285,23 @@ def make_forward(cfg: ModelConfig):
         positions = _positions(tokens.shape[1], tokens.device)
         h = embed_tokens(params.embed, tokens)
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
-        for _, blocks in params.groups():
-            for blk in blocks:
-                h, a = _remat(lambda x, blk=blk: _block_seq(blk, cfg, x, positions)[:2], cfg)(h)
-                if a is not None:
-                    aux = aux + a
+        if cfg.family == "ssm":
+            for blk in params.layers:
+                h = _remat(lambda x, blk=blk: rwkv6.apply_rwkv6_block(
+                    blk, cfg, x, _zero_state(rwkv6.rwkv6_state_shape(cfg, x.shape[0]),
+                                             x.device))[0], cfg)(h)
+        elif cfg.family == "hybrid":
+            for idx, g in _hybrid_groups(cfg):
+                run = functools.partial(_hybrid_group, params, cfg, idx, g is not None,
+                                        positions=positions)
+                h = _remat(run, cfg)(h) if g is not None else run(h)
+        else:
+            for _, blocks in params.groups():
+                for blk in blocks:
+                    h, a = _remat(lambda x, blk=blk: _block_seq(blk, cfg, x, positions)[:2],
+                                  cfg)(h)
+                    if a is not None:
+                        aux = aux + a
         h = rms_norm(params.final_norm, h)
         logits = unembed(params.embed, h, cfg)
         if not (cfg.family == "moe" and cfg.mtp):
@@ -295,23 +357,37 @@ def cache_shape(cfg: ModelConfig, batch: int, max_len: int) -> dict:
     """Shape/dtype tree of the decode cache: ``{"layers"}`` (dense) or
     ``{"layers", "dense_layers"}`` (moe with leading dense layers), each a
     stack over its blocks of ``{"k", "v"}`` or, under MLA, ``{"ckv",
-    "krope"}``."""
+    "krope"}``; ``{"layers": {"tm_x", "cm_x", "wkv"}}`` (ssm) or
+    ``{"mamba": {"conv", "ssm"}, "shared": {"k", "v"}}`` (hybrid)."""
     _check_family(cfg)
     a = (attn.mla_cache_shape if cfg.use_mla else attn.kv_cache_shape)(cfg, batch, max_len)
-    stack = lambda n: {k: attn.TensorSpec((n,) + s.shape, s.dtype) for k, s in a.items()}
+    stack = lambda n, tree=a: {k: attn.TensorSpec((n,) + s.shape, s.dtype)
+                               for k, s in tree.items()}
     if cfg.family == "dense":
         return {"layers": stack(cfg.n_layers)}
+    if cfg.family == "ssm":
+        return {"layers": stack(cfg.n_layers, rwkv6.rwkv6_state_shape(cfg, batch))}
+    if cfg.family == "hybrid":
+        return {"mamba": stack(cfg.n_layers, mamba2.mamba2_state_shape(cfg, batch)),
+                "shared": stack(cfg.n_layers // cfg.attn_every)}
     out = {"layers": stack(cfg.n_layers - cfg.first_dense_layers)}
     if cfg.first_dense_layers:
         out["dense_layers"] = stack(cfg.first_dense_layers)
     return out
 
 
+def _store(tree: dict, i: int, state: dict) -> None:
+    """Block ``i``'s state into its slot of the stacked cache, in place."""
+    for key, t in state.items():
+        tree[key][i].copy_(t)
+
+
 def make_prefill(cfg: ModelConfig, max_len: int):
     """Returns fn(params, tokens) -> (last_logits (B, V), cache): the cache
     holds the attention entries for positions [0, L) and zeros up to
-    ``max_len``, as ``_pad_cache_len`` pads. Runs under
-    ``torch.inference_mode``."""
+    ``max_len``, as ``_pad_cache_len`` pads, and the recurrent state after
+    the prompt (each block from a zero state, chunked where L is a multiple
+    of ``ssm_chunk`` above 1). Runs under ``torch.inference_mode``."""
     _check_family(cfg)
 
     @torch.inference_mode()
@@ -319,16 +395,31 @@ def make_prefill(cfg: ModelConfig, max_len: int):
         b, l = tokens.shape
         if l > max_len:
             raise ValueError(f"prompt length {l} exceeds max_len {max_len}")
-        cache = {g: {k: torch.zeros(s.shape, dtype=s.dtype, device=tokens.device)
-                     for k, s in spec.items()}
+        cache = {g: _zero_state(spec, tokens.device)
                  for g, spec in cache_shape(cfg, b, max_len).items()}
         positions = _positions(l, tokens.device)
         h = embed_tokens(params.embed, tokens)
-        for g, blocks in params.groups():
-            for i, blk in enumerate(blocks):
-                h, _, c = _block_seq(blk, cfg, h, positions)
-                for key, t in c.items():
-                    cache[g][key][i, :, :l] = t
+        if cfg.family == "ssm":
+            for i, blk in enumerate(params.layers):
+                zero = _zero_state(rwkv6.rwkv6_state_shape(cfg, b), h.device)
+                h, st = rwkv6.apply_rwkv6_block(blk, cfg, h, zero)
+                _store(cache["layers"], i, st)
+        elif cfg.family == "hybrid":
+            for idx, g in _hybrid_groups(cfg):
+                for i in idx:
+                    zero = _zero_state(mamba2.mamba2_state_shape(cfg, b), h.device)
+                    h, st = mamba2.apply_mamba2_block(params.layers[i], cfg, h, zero)
+                    _store(cache["mamba"], i, st)
+                if g is not None:
+                    h, _, c = _block_seq(params.shared_attn, cfg, h, positions)
+                    for key, t in c.items():
+                        cache["shared"][key][g, :, :l] = t
+        else:
+            for g, blocks in params.groups():
+                for i, blk in enumerate(blocks):
+                    h, _, c = _block_seq(blk, cfg, h, positions)
+                    for key, t in c.items():
+                        cache[g][key][i, :, :l] = t
         h = rms_norm(params.final_norm, h[:, -1:])
         return unembed(params.embed, h, cfg)[:, 0], cache
 
@@ -339,15 +430,32 @@ def make_decode_step(cfg: ModelConfig):
     """Returns fn(params, token (B,), cache, pos) -> (logits (B, V), cache).
     The cache is updated in place (at llama3.2-1b's width, batch 64 and 1152
     positions, one 2.4 GB buffer; ``repro`` returns a functional copy) and
-    returned. Runs under ``torch.inference_mode``."""
+    returned; a recurrent state is overwritten by the step's (the per-step
+    forms, as ``repro`` decodes). Runs under ``torch.inference_mode``."""
     _check_family(cfg)
 
     @torch.inference_mode()
     def decode(params: Transformer, token: torch.Tensor, cache: dict, pos: int):
         h = embed_tokens(params.embed, token[:, None])
-        for g, blocks in params.groups():
-            for i, blk in enumerate(blocks):
-                h = _block_decode(blk, cfg, h, {k: t[i] for k, t in cache[g].items()}, int(pos))
+        layer = lambda tree, i: {k: t[i] for k, t in tree.items()}
+        if cfg.family == "ssm":
+            for i, blk in enumerate(params.layers):
+                h, st = rwkv6.apply_rwkv6_block(blk, cfg, h, layer(cache["layers"], i),
+                                                chunked=False)
+                _store(cache["layers"], i, st)
+        elif cfg.family == "hybrid":
+            for idx, g in _hybrid_groups(cfg):
+                for i in idx:
+                    h, st = mamba2.apply_mamba2_block(params.layers[i], cfg, h,
+                                                      layer(cache["mamba"], i), chunked=False)
+                    _store(cache["mamba"], i, st)
+                if g is not None:
+                    h = _block_decode(params.shared_attn, cfg, h, layer(cache["shared"], g),
+                                      int(pos))
+        else:
+            for g, blocks in params.groups():
+                for i, blk in enumerate(blocks):
+                    h = _block_decode(blk, cfg, h, layer(cache[g], i), int(pos))
         h = rms_norm(params.final_norm, h)
         return unembed(params.embed, h, cfg)[:, 0], cache
 

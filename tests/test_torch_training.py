@@ -271,6 +271,36 @@ def test_three_train_steps_match_repro(impl):
     _assert_trees_close(got["opt"]["v"], rstate["opt"]["v"], 1e-5)
 
 
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "zamba2-1.2b"])
+def test_recurrent_train_steps_match_repro(arch):
+    """Two make_train_step steps of the ssm and hybrid smoke configs from
+    one carried-across fp32 state (remat "full": zamba2 recomputes whole
+    groups of Mamba2 layers and the shared block), on repro's batches:
+    losses to 1e-5, grad norms to 1e-4, lr to 1e-6, and the float32
+    parameters (w0, u / a_log, d_skip, dt_bias) stay float32."""
+    kw = dict(dtype="float32", remat="full")
+    rcfg = dataclasses.replace(r_smoke_config(arch), **kw)
+    cfg = dataclasses.replace(get_smoke_config(arch), **kw)
+    ocfg = dict(lr=3e-4, warmup_steps=2, total_steps=10)
+    rparams = rtfm.init_params(jax.random.key(3), rcfg)
+    rstate = {"params": rparams, "opt": ropt.init_opt_state(rparams, ropt.OptConfig(**ocfg))}
+    state = train_state_from_numpy(cfg, jax.tree.map(np.asarray, rstate), "cpu")
+    rpipe = RTokenPipeline(RDataConfig(vocab=rcfg.vocab, seq_len=L, global_batch=2))
+    pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=L, global_batch=2), device="cpu")
+    rstep = r_make_train_step(rcfg, RTrainConfig(opt=ropt.OptConfig(**ocfg)), None, None)
+    step = make_train_step(cfg, TrainConfig(opt=opt.OptConfig(**ocfg)))
+    for s in range(2):
+        rstate, rmet = rstep(rstate, rpipe.batch(s))
+        state, met = step(state, pipe.batch(s))
+        np.testing.assert_allclose(float(met["loss"]), float(rmet["loss"]), rtol=1e-5)
+        np.testing.assert_allclose(float(met["grad_norm"]), float(rmet["grad_norm"]),
+                                   rtol=1e-4)
+        np.testing.assert_allclose(float(met["lr"]), float(rmet["lr"]), rtol=1e-6)
+    f32 = {n: p.dtype for n, p in state["params"].named_parameters()
+           if n.split(".")[-1] in ("w0", "u", "a_log", "d_skip", "dt_bias")}
+    assert f32 and set(f32.values()) == {torch.float32}
+
+
 def test_microbatch_accumulation_equivalence(fp32_model):
     """Four microbatches of 2 against one batch of 8 (repro's tolerances),
     and against repro's four microbatches (1e-4); several microbatches give
