@@ -198,6 +198,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import inspect
 import json
 import math
 import re
@@ -282,15 +283,21 @@ DISPATCH_GAP = 2e-2  # gate (c), max |difference| / max |output|
 # vs one prefill of L + 64 (1152, chunked), run on 2 rows: the per-step form
 # is a loop of ~12 launches a step a layer
 SCAN_ROWS, CARRY_STEPS = 2, 64
-# gates (a)-(c) read fp32 copies of the weights: in bf16 the sound readings
-# reach 0.52-4.64 at full width on an H100, as large as the planted faults'
-# 0.72-8.22 (PERF.md, Findings), because a random-init model turns rounding
-# into O(1) logit gaps; the bf16 readings are printed beside. Even in fp32
-# rwkv6-7b's logits from the chunked and the per-step scan part by 3.89 at
-# some position (0.117 at the last; zamba2's 0.0026), from block outputs
-# that part by ~5e-7 of their size (CPU, 4 layers), so gate (a) reads block
-# by block
+# gates (a)-(c) are held on fp32 copies of the weights: in bf16 the logit
+# readings reach 0.52-4.64 at full width on an H100, as large as the planted
+# faults' 0.72-8.22 (PERF.md, Findings), because a random-init model turns
+# rounding into O(1) logit gaps; (b) and (c) are printed in bf16 beside.
+# Even in fp32 rwkv6-7b's logits from the chunked and the per-step scan part
+# by 3.89 at some position (0.117 at the last; zamba2's 0.0026), from block
+# outputs ~1e-6 of their size apart, and repro's own two scans part the same
+# way (tests/rwkv6_drift.py), so gate (a) reads block by block, which holds
+# in bf16 too: it is gated in both. In fp32, gate (c)'s flash runs the
+# CUDA-core kernel; the served bf16 tensor-core kernel is held by the caught
+# call (check_caught_flash)
 SCAN_GAP = 1e-3  # gate (a): max over blocks of |chunked - per-step| / max |output|
+# gate (a) in bf16, on the served weights: sound 0.007634 (rwkv6-7b) and
+# 0.006289 (zamba2) on an H100; planted in fp32 0.7487-1.153 (PERF.md)
+SCAN_GAP_BF16 = 0.05
 # gate (b): max |last-position logit difference|; on an H100 in fp32 sound
 # 0.1011 (rwkv6-7b) and 0.000775 (zamba2), planted 6.524 and 5.882
 CARRY_GAP = 0.5
@@ -3063,26 +3070,38 @@ def phase_rag(corpus_bundle, index, results: dict):
 
 
 @contextlib.contextmanager
-def first_flash_call():
-    """``[(q, k, v, causal, scale)]`` of the first flash-forward launch made
-    inside the block; every call runs as it is, and counts its launch."""
-    from repro_torch.kernels import flash_attention as fa
+def first_call(module, name: str, keep: bool = False):
+    """``[(args, kwargs)]`` of the first call of ``module.name`` made inside
+    the block, ``[(args, kwargs, result)]`` with ``keep``; every call runs as
+    it is. A kernel wrapper counts its launches through its module's name,
+    which names the catcher inside the block, so its ``launches`` count is
+    handed to the catcher and back."""
+    sound, caught = getattr(module, name), []
 
-    sound, caught = fa.flash_attention_fwd, []
-
-    def catch(q, k, v, causal=True, sm_scale=None):
+    def catch(*args, **kwargs):
+        result = sound(*args, **kwargs)
         if not caught:
-            caught.append((q, k, v, causal, sm_scale))
-        return sound(q, k, v, causal, sm_scale)
+            caught.append((args, kwargs, result) if keep else (args, kwargs))
+        return result
 
-    # the wrapper counts through its module's name, which names ``catch`` here
-    catch.launches = sound.launches
-    fa.flash_attention_fwd = catch
+    counted = hasattr(sound, "launches")
+    if counted:
+        catch.launches = sound.launches
+    setattr(module, name, catch)
     try:
         yield caught
     finally:
-        fa.flash_attention_fwd = sound
-        sound.launches = catch.launches
+        setattr(module, name, sound)
+        if counted:
+            sound.launches = catch.launches
+
+
+def bound_args(fn, call) -> list:
+    """The arguments of a call caught by ``first_call``, defaults filled in,
+    in ``fn``'s order."""
+    ba = inspect.signature(fn).bind(*call[0], **call[1])
+    ba.apply_defaults()
+    return list(ba.arguments.values())
 
 
 @contextlib.contextmanager
@@ -3246,21 +3265,24 @@ def gate_dispatch(name: str, cfg, params, check, device: str = "cuda") -> None:
 
 
 def check_caught_flash(results: dict, name: str, call, device: str = "cuda",
-                       phase: str = "phase 10", gate: str = "gate (d)") -> float:
-    """The first flash-forward call of a model's prefill, caught on the path
-    (phase 10's gate (d)), against the plain version (8 rows), two launches
-    bit-identical; timed beside the plain version and
-    scaled_dot_product_attention, and recorded among the kernel's checks
-    under ``phase``."""
+                       phase: str = "phase 10", gate: str = "gate (d)",
+                       part: str = "prefill") -> float:
+    """The first flash-forward call of a model's prefill (or ``part``),
+    caught on the path by ``first_call`` (phase 10's gate (d)), against the
+    plain version (8 rows), two launches bit-identical; timed beside the
+    plain version and scaled_dot_product_attention, and recorded among the
+    kernel's checks under ``phase``."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import flash_attention_fwd, flash_attention_plain
 
-    q, k, v, causal, scale = call
+    q, k, v, causal, scale = bound_args(flash_attention_fwd, call)
+    q, k, v = (t.detach() for t in (q, k, v))  # a training step's carry autograd's flags
+    scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
     b, h, l, dk = q.shape
     kvh, dv = k.shape[1], v.shape[3]
-    err = check_flash_fwd(results, f"{name} prefill", q, k, v, causal, rows=8, scale=scale)
+    err = check_flash_fwd(results, f"{name} {part}", q, k, v, causal, rows=8, scale=scale)
     first, again = flash_attention_fwd(q, k, v, causal, scale), flash_attention_fwd(
         q, k, v, causal, scale)
     same = all(bool(torch.equal(a, b_)) for a, b_ in zip(first, again))
@@ -3283,7 +3305,7 @@ def check_caught_flash(results: dict, name: str, call, device: str = "cuda",
     torch.cuda.empty_cache()
     nbytes, flops, rate = flash_work(q, k, v, causal)
     b_ms, b_by = bound(nbytes, flops, rate)
-    shape = (f"{name}_prefill B={b} H={h} KV={kvh} L=S={l} dk={dk} dv={dv} scale={scale:.6g} "
+    shape = (f"{name}_{part} B={b} H={h} KV={kvh} L=S={l} dk={dk} dv={dv} scale={scale:.6g} "
              f"causal {str(q.dtype)[6:]}")
     results["flash_attention_fwd"]["checks"].append(dict(
         shape=shape, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
@@ -3292,6 +3314,104 @@ def check_caught_flash(results: dict, name: str, call, device: str = "cuda",
         f"two launches bit-identical; ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms {b_ms:.4f} "
         f"({b_by}) sdpa_ms {library_ms if library_ms is None else round(library_ms, 4)}")
     return err
+
+
+def check_caught_bwd(results: dict, name: str, call, device: str = "cuda",
+                     phase: str = "phase 11", rows: int = 2) -> dict:
+    """The first flash backward of a training step, caught on the path by
+    ``first_call(fa, "flash_attention_bwd", keep=True)``: the dQ and dK-dV
+    kernels launched again on its operands give the step's gradients bit
+    for bit, and, on its dO scaled by a power of two to unit size, agree
+    with ``flash_attention_bwd_plain`` on ``rows`` batch rows within
+    GRAD_TOL; timed beside the plain version and the SDPA
+    backward, and recorded among each kernel's checks under ``phase``.
+    Returns {kernel: (max |error|, max |error| / its limit)}."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (
+        _delta,
+        flash_attention_bwd,
+        flash_attention_bwd_dkv,
+        flash_attention_bwd_dq,
+        flash_attention_bwd_plain,
+    )
+
+    q, k, v, out, lse, do, causal, scale = bound_args(flash_attention_bwd, call)
+    q, k, v, out, lse, do = (t.detach() for t in (q, k, v, out, lse, do))
+    scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
+    step_dq, step_dk, step_dv = call[2]
+    atol, rtol = GRAD_TOL[str(q.dtype).removeprefix("torch.")]
+    delta = _delta(out, do)
+    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, causal, scale)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal, scale)
+    same = all(bool(torch.equal(a, b_)) for a, b_ in
+               ((dq, step_dq), (dk, step_dk), (dv, step_dv)))
+    need(same, f"flash bwd {name}: the kernels launched again differ from the step's gradients")
+    # a step's dO is the mean loss's (~1e-7 a value), where GRAD_TOL's atol
+    # would pass any error; the kernels are linear in dO, so they are held
+    # against the plain version on dO scaled by a power of two to max |dO| in
+    # [1, 2), which rounds nothing, as phase 7 holds them on unit-scale dO
+    top = float(do.abs().max())
+    need(top > 0, f"flash bwd {name}: the caught dO is zero")
+    pow2 = 2.0 ** -math.floor(math.log2(top))
+    do_s = do * pow2
+    delta_s = _delta(out, do_s)
+    dq = flash_attention_bwd_dq(q, k, v, do_s, lse, delta_s, causal, scale)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do_s, lse, delta_s, causal, scale)
+    want = flash_attention_bwd_plain(q[:rows], k[:rows], v[:rows], out[:rows], lse[:rows],
+                                     do_s[:rows], causal, scale)
+    worst: dict = {}
+    size = collections.Counter()
+    for kname, got, w in (("flash_attention_bwd_dq", dq[:rows], want[0]),
+                          ("flash_attention_bwd_dkv", dk[:rows], want[1]),
+                          ("flash_attention_bwd_dkv", dv[:rows], want[2])):
+        got, w = got.float(), w.float()
+        size[kname] = max(size[kname], float(w.abs().max()))
+        need(bool(torch.isfinite(got).all()), f"flash bwd {name}: non-finite {kname}")
+        diff = (got - w).abs()
+        reading = float((diff / (atol + rtol * w.abs())).max())
+        need(reading <= 1, f"flash bwd {name} {kname}: error {float(diff.max()):.3g}, "
+             f"{reading:.3g} of its limit {atol:.3g} + {rtol:.3g} |w|")
+        err, rd = worst.get(kname, (0.0, 0.0))
+        worst[kname] = (max(err, float(diff.max())), max(rd, reading))
+    del want, do_s, delta_s, dq, dk, dv
+    b, h, l, d = q.shape
+    kvh = k.shape[1]
+    shape = (f"{name} B={b} H={h} KV={kvh} L=S={l} d={d} {'causal ' if causal else ''}"
+             f"{str(q.dtype)[6:]}")
+    times = dict.fromkeys(worst)
+    plain_ms = library_ms = None
+    if device == "cuda":
+        times = {"flash_attention_bwd_dq": time_ms(
+            lambda: flash_attention_bwd_dq(q, k, v, do, lse, delta, causal, scale), 5),
+            "flash_attention_bwd_dkv": time_ms(
+            lambda: flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal, scale), 5)}
+        plain_ms = time_ms(lambda: [flash_attention_bwd_plain(
+            q[i:i + rows], k[i:i + rows], v[i:i + rows], out[i:i + rows], lse[i:i + rows],
+            do[i:i + rows], causal, scale) for i in range(0, b, rows)], 2, warm=1)
+        qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
+        lib_out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal, scale=scale,
+                                                 enable_gqa=kvh != h)
+        library_ms = time_ms(lambda: torch.autograd.grad(lib_out, (qs, ks, vs), do,
+                                                         retain_graph=True), 5)
+        del qs, ks, vs, lib_out
+        torch.cuda.empty_cache()
+    for kname, (err, rd) in worst.items():
+        results[kname]["max_abs_err"] = max(results[kname]["max_abs_err"], err)
+        part = kname.removeprefix("flash_attention_bwd_")
+        nbytes, flops, rate = bwd_work(q, k, v, causal, part)
+        b_ms, b_by = bound(nbytes, flops, rate)
+        results[kname]["checks"].append(dict(
+            shape=shape, max_abs_err=err, ms=times[kname], plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=library_ms, phase=phase))
+        say(f"{phase} {kname} {shape}, caught on the path: the step's gradients again bit for "
+            f"bit; on dO x {pow2:.6g} (max |dO| {top:.4g}; max |w| {size[kname]:.4g}): "
+            f"max_abs_err ({rows} rows) {err:.3g}, reading {rd:.3g} of the limit "
+            f"{atol:.3g} + {rtol:.3g} |w|; ms {times[kname]} bound_ms {b_ms:.4f} ({b_by}) plain_ms "
+            f"(dQ, dK and dV in {rows}-row calls) {plain_ms} sdpa_bwd_ms (dQ, dK and dV) "
+            f"{library_ms}")
+    return worst
 
 
 def serve_model(name: str, depth, requests: int, corpus_bundle, index, doc_tokens,
@@ -3305,6 +3425,7 @@ def serve_model(name: str, depth, requests: int, corpus_bundle, index, doc_token
     import torch
 
     from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.flash_attention import flash_attention_fwd
     from repro_torch.kernels.fused_topk import fused_topk
     from repro_torch.kernels.hybrid_distance import hybrid_distance
@@ -3364,7 +3485,8 @@ def serve_model(name: str, depth, requests: int, corpus_bundle, index, doc_token
         w.launches = 0
     trace = TraceContext(name)
     steps = RAG_GEN if rag else DENSE_STEPS + 1
-    with first_flash_call() as caught, moe_prefill_stats(requests * l) as stats:
+    with (first_call(fa, "flash_attention_fwd") as caught,
+          moe_prefill_stats(requests * l) as stats):
         sync()
         t0 = time.perf_counter()
         if rag:
@@ -3564,24 +3686,6 @@ def phase_models(corpus_bundle, index, results: dict, device: str = "cuda") -> N
 # ---------------------------------------------------------------------------
 
 
-@contextlib.contextmanager
-def first_call(module, name: str):
-    """``[(args, kwargs)]`` of the first call of ``module.name`` made inside
-    the block (every call runs as it is); yields the list."""
-    sound, caught = getattr(module, name), []
-
-    def catch(*args, **kwargs):
-        if not caught:
-            caught.append((args, kwargs))
-        return sound(*args, **kwargs)
-
-    setattr(module, name, catch)
-    try:
-        yield caught
-    finally:
-        setattr(module, name, sound)
-
-
 def recurrent_modules(cfg):
     """(the scan's module, its chunked form's name, the state group of the
     cache, the state leaf gate (b)'s planted fault zeroes)."""
@@ -3617,18 +3721,19 @@ def carry_dropped(module):
         module._chunk_states = sound
 
 
-def recurrent_readings(cfg, params, full, out, planted: bool) -> list:
+def recurrent_readings(cfg, params, full, out, plant: str, scan_gap: float) -> list:
     """Phase 11's gates (a)-(c) on ``params`` at ``cfg``'s dtype, as
     (label, reading, limit, kind) with kind "sound", "planted" (must read
     above the limit) or "info" (printed): (a) each recurrent block of a
     forward over SCAN_ROWS rows, chunked scan against the per-step
     recurrence on the same input, max |difference| / max |output| over the
-    blocks (block by block: a random-init rwkv6-7b turns fp32 rounding at
-    one block into logit gaps of 3.9 by the last, PERF.md); (b) the
+    blocks, limit ``scan_gap`` (block by block: a random-init rwkv6-7b turns
+    fp32 rounding at one block into logit gaps of 3.9 by the last,
+    PERF.md); (b) the
     last logits of a prefill of L and CARRY_STEPS decode steps against one
     prefill of L + CARRY_STEPS, and the state; (c) for a hybrid model, flash
-    against naive prefill on GATE_ROWS rows. With ``planted``, each gate's
-    planted faults too: (a) the carry across chunks dropped, (b) the
+    against naive prefill on GATE_ROWS rows. The gates named in ``plant``
+    read their planted faults too: (a) the carry across chunks dropped, (b) the
     token-shift / conv state zeroed between steps, (c) phase 6's two faults
     in the flash path."""
     import dataclasses
@@ -3651,7 +3756,7 @@ def recurrent_readings(cfg, params, full, out, planted: bool) -> list:
     def both_forms(p, cfg_, x, state, chunked=True):
         y, s = sound_apply(p, cfg_, x, state, chunked=chunked)
         y_bad = None
-        if planted:
+        if "a" in plant:
             with carry_dropped(module):
                 y_bad = sound_apply(p, cfg_, x, state)[0]
         stepped = sound_apply(p, cfg_, x, state, chunked=False)[0]
@@ -3666,14 +3771,14 @@ def recurrent_readings(cfg, params, full, out, planted: bool) -> list:
     finally:
         setattr(module, apply_name, sound_apply)
     r.append(("(a) max over blocks of |chunked - per-step| / max |out|",
-              max(g for g, _ in gaps), SCAN_GAP, "sound"))
-    if planted:
-        r.append(("(a) planted: carry dropped", max(b for _, b in gaps), SCAN_GAP, "planted"))
+              max(g for g, _ in gaps), scan_gap, "sound"))
+    if "a" in plant:
+        r.append(("(a) planted: carry dropped", max(b for _, b in gaps), scan_gap, "planted"))
 
     prefill = tfm.make_prefill(cfg, RAG_MAX_LEN)
     decode = tfm.make_decode_step(cfg)
     want, want_cache = prefill(params, out[:SCAN_ROWS, :l + CARRY_STEPS])
-    for fault in (False, True) if planted else (False,):
+    for fault in (False, True) if "b" in plant else (False,):
         logits, cache = prefill(params, rows)
         for i in range(CARRY_STEPS):
             logits, cache = decode(params, out[:SCAN_ROWS, l + i], cache, l + i)
@@ -3700,7 +3805,8 @@ def recurrent_readings(cfg, params, full, out, planted: bool) -> list:
         sound = attention._flash
         try:
             for label, causal, drop in ((("causal mask off", False, 0),
-                                         ("last key tile dropped", True, 64)) if planted else ()):
+                                         ("last key tile dropped", True, 64)) if "c" in plant
+                                        else ()):
                 attention._flash = planted_flash(flash_attention_fwd, causal, drop)
                 r.append((f"(c) planted: {label}", gap(prefill(params, rows8)[0], naive),
                           HYBRID_FLASH_GAP, "planted"))
@@ -3714,13 +3820,16 @@ def serve_recurrent(name: str, corpus_bundle, index, doc_tokens, results: dict, 
     seed, through RagPipeline over phase 4's index at phase 6's batch; the
     chunked scan's share of the prefill; the first flash-forward call of a
     hybrid model's prefill against the plain version; gate (d), the state's
-    bytes; then gates (a)-(c) (``recurrent_readings``) printed in bf16 and
-    held on fp32 copies of the weights, each with its planted faults."""
+    bytes; then gates (a)-(c) (``recurrent_readings``): (a) held on the
+    served bf16 weights and on fp32 copies of them, (b) and (c) held on the
+    fp32 copies and printed in bf16, each held gate with its planted
+    faults."""
     import dataclasses
 
     import torch
 
     from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.flash_attention import flash_attention_fwd
     from repro_torch.kernels.fused_topk import fused_topk
     from repro_torch.kernels.hybrid_distance import hybrid_distance
@@ -3773,7 +3882,8 @@ def serve_recurrent(name: str, corpus_bundle, index, doc_tokens, results: dict, 
     for w in wrappers.values():
         w.launches = 0
     trace = TraceContext(name)
-    with first_flash_call() as caught, first_call(module, scan_name) as scans:
+    with (first_call(fa, "flash_attention_fwd") as caught,
+          first_call(module, scan_name) as scans):
         sync()
         t0 = time.perf_counter()
         out, res = rag.answer(c.queries[0:RAG_REQUESTS], prompts, RAG_GEN, trace=trace)
@@ -3847,7 +3957,8 @@ def serve_recurrent(name: str, corpus_bundle, index, doc_tokens, results: dict, 
     _, long_cache = tfm.make_prefill(cfg, 2 * RAG_MAX_LEN)(params, rows)
     b_long = state_bytes(long_cache, group)
 
-    # planted fault (d): the state kept per position, as a KV cache is
+    # planted fault (d), a check of the measurement (state_bytes), not of the
+    # program: a per-position tensor, as a KV cache keeps, added to the cache
     def per_position(max_len):
         cache_ = tfm.make_prefill(cfg, max_len)(params, rows)[1]
         cache_[group]["history"] = torch.zeros(
@@ -3867,26 +3978,29 @@ def serve_recurrent(name: str, corpus_bundle, index, doc_tokens, results: dict, 
     check(planted[0] != planted[1], f"{name} gate (d): planted fault passes ({planted})")
     del cache, long_cache
 
-    # ---- gates (a)-(c): bf16 readings printed, fp32 copies gated ------------
+    # ---- gates (a)-(c): (a) held in bf16, all three on fp32 copies ----------
     # a random-init model at full width turns bf16's rounding into O(1)
     # logit gaps between any two orders of the same sums (PERF.md), as
-    # phase 7's gradients do; in fp32 the sound readings stay small
-    bf16 = recurrent_readings(cfg, params, full, out, planted=False)
-    say(f"phase 11 {name} gates (a)-(c) in bf16 (printed, not gated): "
-        + "; ".join(f"{label} {v:.4g}" for label, v, _, _ in bf16))
+    # phase 7's gradients do, so (b) and (c) are only printed in bf16; gate
+    # (a) reads block by block, where bf16's sound readings stay small
+    bf16 = recurrent_readings(cfg, params, full, out, plant="a", scan_gap=SCAN_GAP_BF16)
     del engine, rag, service
-    params.float()  # in place: the gates read fp32 copies of the same weights
+    params.float()  # in place: the fp32 gates read copies of the same weights
     if cuda:
         torch.cuda.empty_cache()
     fp32 = recurrent_readings(dataclasses.replace(cfg, dtype="float32"), params, full, out,
-                              planted=True)
-    say(f"phase 11 {name} gates (a)-(c) in fp32: "
-        + "; ".join(f"{label} {v:.4g}" + (f" (limit {lim})" if lim is not None else "")
-                    for label, v, lim, _ in fp32))
-    for label, v, lim, kind in fp32:
-        if kind != "info":
-            ok = v > lim if kind == "planted" else v <= lim
-            check(ok, f"{name} {label}: {v:.4g} {'<=' if kind == 'planted' else '>'} {lim}")
+                              plant="abc", scan_gap=SCAN_GAP)
+    for dtype, readings in (("bf16", bf16), ("fp32", fp32)):
+        gated = lambda label, kind, dtype=dtype: kind != "info" and (
+            dtype == "fp32" or label.startswith("(a)"))
+        say(f"phase 11 {name} gates (a)-(c) in {dtype}: " + "; ".join(
+            f"{label} {v:.4g}" + (f" (limit {lim})" if gated(label, kind) else " (printed)")
+            for label, v, lim, kind in readings))
+        for label, v, lim, kind in readings:
+            if gated(label, kind):
+                ok = v > lim if kind == "planted" else v <= lim
+                check(ok, f"{name} {dtype} {label}: {v:.4g} "
+                      f"{'<=' if kind == 'planted' else '>'} {lim}")
 
     del params
     if cuda:
@@ -3898,7 +4012,10 @@ def train_recurrent(results: dict, check, device: str = "cuda") -> None:
     """One training step of zamba2-1.2b at full width and depth (bf16,
     flash, remat full, AdamW with fp32 moments) and one of each recurrent
     smoke config, with their flash launches against what remat predicts:
-    under remat "full" each shared-block application's forward runs twice."""
+    under remat "full" each shared-block application's forward runs twice.
+    The full-width step's first flash forward and first flash backward are
+    caught on the path and held against the plain versions on 2 rows
+    (``check_caught_flash``, ``check_caught_bwd``)."""
     import dataclasses
 
     import torch
@@ -3910,10 +4027,10 @@ def train_recurrent(results: dict, check, device: str = "cuda") -> None:
     from repro_torch.training.train_loop import TrainConfig, make_train_state, make_train_step
 
     cuda = device == "cuda"
-    runs = (("zamba2-1.2b", get_config("zamba2-1.2b"), TRAIN_RECURRENT),
-            ("rwkv6-7b smoke", get_smoke_config("rwkv6-7b"), (8, 128)),
-            ("zamba2-1.2b smoke", get_smoke_config("zamba2-1.2b"), (8, 128)))
-    for label, cfg, (batch, seq) in runs:
+    runs = (("zamba2-1.2b", get_config("zamba2-1.2b"), TRAIN_RECURRENT, True),
+            ("rwkv6-7b smoke", get_smoke_config("rwkv6-7b"), (8, 128), False),
+            ("zamba2-1.2b smoke", get_smoke_config("zamba2-1.2b"), (8, 128), False))
+    for label, cfg, (batch, seq), catch in runs:
         cfg = dataclasses.replace(cfg, attn_impl="flash")
         tcfg = TrainConfig(opt=OptConfig(lr=3e-4, warmup_steps=1, total_steps=10))
         if cuda:
@@ -3924,11 +4041,14 @@ def train_recurrent(results: dict, check, device: str = "cuda") -> None:
                              device=device).batch(0)
         wrappers = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv)
         before = [w.launches for w in wrappers]
-        t = time.perf_counter()
-        state, metrics = make_train_step(cfg, tcfg)(state, data)
-        if cuda:
-            torch.cuda.synchronize()
-        dt = time.perf_counter() - t
+        step = make_train_step(cfg, tcfg)
+        with (first_call(fa, "flash_attention_fwd") as fwd_calls,
+              first_call(fa, "flash_attention_bwd", keep=True) as bwd_calls):
+            t = time.perf_counter()
+            state, metrics = step(state, data)
+            if cuda:
+                torch.cuda.synchronize()
+            dt = time.perf_counter() - t
         counts = [w.launches - b for w, b in zip(wrappers, before)]
         n_apply = cfg.n_layers // cfg.attn_every if cfg.family == "hybrid" else 0
         # remat full: the forward again in the backward, once per application
@@ -3948,6 +4068,17 @@ def train_recurrent(results: dict, check, device: str = "cuda") -> None:
                          "flash_attention_bwd_dkv"), counts):
             results[w]["launches"] += n
         del state, data
+        if catch:
+            check(len(fwd_calls) == len(bwd_calls) == 1,
+                  f"train {label}: no flash forward or backward caught in the step")
+            if cuda:
+                torch.cuda.empty_cache()
+            if fwd_calls:
+                check_caught_flash(results, label, fwd_calls[0], device, phase="phase 11",
+                                   gate="kernel check", part="train")
+            if bwd_calls:
+                check_caught_bwd(results, f"{label}_train", bwd_calls[0], device)
+        del fwd_calls, bwd_calls
         if cuda:
             torch.cuda.empty_cache()
 
