@@ -149,6 +149,30 @@ Phases (each prints its own lines; any failure exits nonzero):
      training step of zamba2 at full width (4 x 2048 tokens, remat full:
      12 / 6 / 6 flash forward / dQ / dK-dV launches) and of each recurrent
      smoke config;
+  12. the vlm and audio families at full width (after phase 4's index is
+     freed, before phase 7), random weights and stub frontends
+     (normal(0, 0.02)) from a seed: llama-3.2-vision-90b cut to 4 of its 20
+     groups (16 self + 4 cross-attention layers, 19.2 B parameters) at 8
+     prompts of 1,088 tokens over 1,600 patch embeddings each and 16 decode
+     steps; whisper-large-v3 whole (32 + 32 layers) at 64 requests of 1,500
+     frames, a 4-token prompt and 64 greedy tokens; both through
+     ServingEngine.generate(..., frontend=): encoder / prefill / decode
+     seconds, the cross cache's bytes, peak memory, flash launches (20 and
+     96 a prefill); gates, each with a planted fault that must fail it:
+     (a) every attention call of a prefill on 8 rows, flash against naive,
+     read call by call (the vlm's unnormalised frontend moves its logits by
+     ~1e-4; faults in the cross calls: made causal, the last 64 keys
+     dropped), (b) a prefill and 16 teacher-forced decode steps against one
+     forward, logits and each cross-attention output (fault: decode reads
+     the next layer's cross cache), and decode leaving the cross cache as
+     the prefill wrote it, (c) the cross cache's bytes against its shapes
+     (the fault checks the measurement), (d) the first flash call of each
+     kind against the plain version, timed beside SDPA and recorded among
+     the kernel's checks; (a) and (b) held in bf16 for the vlm, on fp32
+     copies for whisper; then one training step of whisper at full width (8
+     x 448 decoder tokens over 1,500 frames, remat full: 192 / 96 / 96
+     flash forward / dQ / dK-dV launches, the first backward of each kind
+     held against the plain version) and of each vlm / audio smoke config;
   9. the text path and the replica tier (run last; ROADMAP Queue 3 says
      why not after phase 8):
      65,536 SynCorpus docs (fig14's 100,000 cut to fit the script's
@@ -181,10 +205,10 @@ Phases (each prints its own lines; any failure exits nonzero):
   then the kernels line: launches on each variant's path (phases 4, 6, 8,
      9, 10 and 11 plus the fp32 pool's serving for the fp32 variants, phases
      4, 8 and 9 for pairwise_tile, the int8 pool's serving and phase 8 for
-     the int8 variants, phases 6, 7, 10 and 11 for flash_attention_fwd,
-     phases 7, 10 and 11 for the backward kernels), errors, times and bounds
-     at the shape the path runs most (the flash kernels with their route by
-     dtype as ``variant``; the forward with phases 10 and 11's shapes under
+     the int8 variants, phases 6, 7, 10, 11 and 12 for flash_attention_fwd,
+     phases 7, 10, 11 and 12 for the backward kernels), errors, times and
+     bounds at the shape the path runs most (the flash kernels with their
+     route by dtype as ``variant``, and phases 10-12's shapes under
      ``checks``);
   and the last line: {"ok": true, "device": {...}}.
 
@@ -307,6 +331,35 @@ HYBRID_FLASH_GAP = 0.05
 # zamba2's training step at full width: 1.2 B parameters, bf16, with fp32
 # AdamW moments (~15 GB of state); rwkv6-7b's (~91 GB) does not fit one card
 TRAIN_RECURRENT = (4, 2048)
+# phase 12: the vlm and audio families at full width. llama-3.2-vision-90b
+# is cut to 4 of its 20 groups (16 self + 4 cross layers: 19.2 B parameters,
+# 38.4 GB of bf16; the whole model's ~175 GB does not fit one card) and
+# served at phase 10's dense rows; whisper-large-v3 whole (2.02 B) at 64
+# requests of 1,500 frames (its 30 s window), a 4-token prompt (its
+# start-of-transcript prefix) and 64 greedy tokens, then trained one step at
+# 8 x 448 decoder tokens (its decoder context) over 1,500 frames each
+VLM_GROUPS = 4
+WHISPER_REQUESTS, WHISPER_PROMPT, WHISPER_GEN = 64, 4, 64
+WHISPER_TRAIN = (8, 448)
+FRONTEND_SCALE = 0.02  # the stub frontend: normal(0, 0.02), as repro's launchers draw it
+# gates (a) and (b) read each attention call's output, not the logits: the
+# vlm's frontend enters its cross-attention unnormalised at 0.02, so the
+# cross layers move its logits by ~1e-4 of their size, under bf16's
+# rounding, and a planted fault there would not show. Gate (a): max over
+# the prefill's attention calls of |flash - naive| / max |naive| on
+# GATE_ROWS rows; planted faults in the cross calls only: made causal, and
+# the last FRONTEND_DROP keys dropped. Gate (b): FRONTEND_STEPS decode steps
+# after a prefill on FRONTEND_ROWS rows against one teacher-forced forward:
+# the logits (limit DECODE_GAP) and each cross-attention output, max |diff|
+# / max |forward's| (planted: decode reads the next layer's cross cache).
+# The vlm is read in bf16 (fp32 copies of 19 B parameters would not fit),
+# whisper on fp32 copies of its weights (its bf16 readings printed beside).
+# On an H100: sound 0.0072-0.0075 (vlm, bf16) and 2.9e-7-2.1e-6 (whisper,
+# fp32); planted 0.2148-46.83 and 0.003825-1.693 (PERF.md). In bf16
+# whisper's dropped keys (0.4% of its cross output) sit under the rounding
+FRONTEND_DROP = 64
+FRONTEND_ROWS, FRONTEND_STEPS = 2, 16
+FRONTEND_GAP = {"bfloat16": 0.05, "float32": 1e-3}
 # phase 7: training at llama3.2-1b's full width
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_TIMED = 8, 2048, 8  # one warm-up step, then 8 timed
 # backward kernels vs the plain version, elementwise |g - w| <= atol + rtol |w|
@@ -2890,6 +2943,10 @@ def phase_flash(cfg, results: dict):
         ("dk=dv=256 L=S=150", (1, 2, 1, 150, 150, 256, 256), True),
         ("dk=192 dv=128 L=S=130", (2, 4, 1, 130, 130, 192, 128), True),
         ("dk=dv=20 L=S=70", (2, 4, 2, 70, 70, 20, 20), True),
+        # phase 12's kinds: cross-attention (S > L, S off the tile, GQA 8)
+        # and whisper's encoder (non-causal, L = S off the tile)
+        ("non-causal L=136 S=200 g=8 d=128", (2, 16, 2, 136, 200, 128, 128), False),
+        ("non-causal L=S=333 d=64", (2, 4, 4, 333, 333, 64, 64), False),
     ]
     for label, shape, causal in edges:
         for dtype in (torch.float32, torch.bfloat16):
@@ -2933,14 +2990,15 @@ def phase_flash(cfg, results: dict):
     torch.cuda.empty_cache()
 
 
-def planted_flash(kernel, causal: bool, drop: int):
+def planted_flash(kernel, planted_causal: bool, drop: int):
     """A faulty stand-in for ``models.attention._flash`` that still runs the
-    kernel: the causal mask off, or the last ``drop`` keys left out."""
+    kernel: the causal mask off, or the last ``drop`` keys left out. The
+    caller's ``causal`` is overridden by ``planted_causal``."""
 
-    def flash(q, k, v, scale=None):  # (B, L, H, d), as _flash takes them
+    def flash(q, k, v, scale=None, causal=True):  # as _flash takes them
         s = k.shape[1] - drop
         out, _ = kernel(q.transpose(1, 2), k[:, :s].transpose(1, 2), v[:, :s].transpose(1, 2),
-                        causal, scale)
+                        planted_causal, scale)
         return out.transpose(1, 2)
 
     return flash
@@ -3070,18 +3128,20 @@ def phase_rag(corpus_bundle, index, results: dict):
 
 
 @contextlib.contextmanager
-def first_call(module, name: str, keep: bool = False):
-    """``[(args, kwargs)]`` of the first call of ``module.name`` made inside
-    the block, ``[(args, kwargs, result)]`` with ``keep``; every call runs as
-    it is. A kernel wrapper counts its launches through its module's name,
-    which names the catcher inside the block, so its ``launches`` count is
-    handed to the catcher and back."""
-    sound, caught = getattr(module, name), []
+def first_calls(module, name: str, key, keep: bool = False):
+    """``{key(args, kwargs): (args, kwargs)}`` of the first call of
+    ``module.name`` made inside the block for each key (``(args, kwargs,
+    result)`` with ``keep``); every call runs as it is. A kernel wrapper
+    counts its launches through its module's name, which names the catcher
+    inside the block, so its ``launches`` count is handed to the catcher
+    and back."""
+    sound, caught = getattr(module, name), {}
 
     def catch(*args, **kwargs):
         result = sound(*args, **kwargs)
-        if not caught:
-            caught.append((args, kwargs, result) if keep else (args, kwargs))
+        k = key(args, kwargs)
+        if k not in caught:
+            caught[k] = (args, kwargs, result) if keep else (args, kwargs)
         return result
 
     counted = hasattr(sound, "launches")
@@ -3094,6 +3154,16 @@ def first_call(module, name: str, keep: bool = False):
         setattr(module, name, sound)
         if counted:
             sound.launches = catch.launches
+
+
+@contextlib.contextmanager
+def first_call(module, name: str, keep: bool = False):
+    """``[(args, kwargs)]`` of the first call of ``module.name`` made inside
+    the block (``first_calls`` under one key), filled when the block ends."""
+    caught: list = []
+    with first_calls(module, name, lambda args, kwargs: None, keep) as by_key:
+        yield caught
+    caught.extend(by_key.values())
 
 
 def bound_args(fn, call) -> list:
@@ -3264,6 +3334,10 @@ def gate_dispatch(name: str, cfg, params, check, device: str = "cuda") -> None:
     check(fgap > DISPATCH_GAP, f"{name} gate (c): planted fault passes ({fgap:.4g})")
 
 
+def lengths(l: int, s: int) -> str:
+    return f"L=S={l}" if l == s else f"L={l} S={s}"
+
+
 def check_caught_flash(results: dict, name: str, call, device: str = "cuda",
                        phase: str = "phase 10", gate: str = "gate (d)",
                        part: str = "prefill") -> float:
@@ -3305,8 +3379,8 @@ def check_caught_flash(results: dict, name: str, call, device: str = "cuda",
     torch.cuda.empty_cache()
     nbytes, flops, rate = flash_work(q, k, v, causal)
     b_ms, b_by = bound(nbytes, flops, rate)
-    shape = (f"{name}_{part} B={b} H={h} KV={kvh} L=S={l} dk={dk} dv={dv} scale={scale:.6g} "
-             f"causal {str(q.dtype)[6:]}")
+    shape = (f"{name}_{part} B={b} H={h} KV={kvh} {lengths(l, k.shape[2])} dk={dk} dv={dv} "
+             f"scale={scale:.6g} {'causal' if causal else 'non-causal'} {str(q.dtype)[6:]}")
     results["flash_attention_fwd"]["checks"].append(dict(
         shape=shape, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
         library_ms=library_ms, phase=phase))
@@ -3378,8 +3452,8 @@ def check_caught_bwd(results: dict, name: str, call, device: str = "cuda",
     del want, do_s, delta_s, dq, dk, dv
     b, h, l, d = q.shape
     kvh = k.shape[1]
-    shape = (f"{name} B={b} H={h} KV={kvh} L=S={l} d={d} {'causal ' if causal else ''}"
-             f"{str(q.dtype)[6:]}")
+    shape = (f"{name} B={b} H={h} KV={kvh} {lengths(l, k.shape[2])} d={d} "
+             f"{'causal' if causal else 'non-causal'} {str(q.dtype)[6:]}")
     times = dict.fromkeys(worst)
     plain_ms = library_ms = None
     if device == "cuda":
@@ -4114,6 +4188,435 @@ def phase_recurrent(corpus_bundle, index, results: dict, device: str = "cuda") -
     need(not fails, f"phase 11: {len(fails)} gate(s) failed: {fails}")
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the vlm and audio families (cross-attention) at full width
+# ---------------------------------------------------------------------------
+
+
+def call_kind(fn):
+    """A ``first_calls`` key for flash calls: (causal, L, S) of the call's
+    q, k and causal flag, bound as ``fn`` takes them."""
+    sig = inspect.signature(fn)
+
+    def key(args, kwargs):
+        a = sig.bind(*args, **kwargs)
+        a.apply_defaults()
+        return bool(a.arguments["causal"]), a.arguments["q"].shape[2], a.arguments["k"].shape[2]
+
+    return key
+
+
+def attn_kind(key) -> str:
+    """The attention a flash call of (causal, L, S) serves: causal self-
+    attention, cross-attention (L != S), or whisper's encoder."""
+    causal, l, s = key
+    return "self" if causal else ("cross" if l != s else "encoder")
+
+
+@contextlib.contextmanager
+def timed_calls(module, name: str, sync):
+    """Seconds of each call of ``module.name`` inside the block, the device
+    synchronised before and after it."""
+    sound, spent = getattr(module, name), []
+
+    def run(*args, **kwargs):
+        sync()
+        t = time.perf_counter()
+        out = sound(*args, **kwargs)
+        sync()
+        spent.append(time.perf_counter() - t)
+        return out
+
+    setattr(module, name, run)
+    try:
+        yield spent
+    finally:
+        setattr(module, name, sound)
+
+
+def frontend_readings(cfg, params, out, frontend, l: int):
+    """Phase 12's gates (a) and (b) on ``params`` at their dtype, as
+    (label, reading, limit, kind) with kind "sound", "planted" (must read
+    above the limit) or "info" (printed), and whether decode left the cross
+    cache as the prefill wrote it. (a): a flash prefill of GATE_ROWS rows
+    in which every attention call also runs through naive attention and,
+    if it is a cross-attention call, through two planted faults (the call
+    made causal; its last FRONTEND_DROP keys dropped) on the same input: max
+    |difference| / max |naive output| over the calls of each kind. (b): a
+    prefill of FRONTEND_ROWS rows and FRONTEND_STEPS teacher-forced decode
+    steps against one forward over the same tokens: the logits, and each
+    cross-attention output of each step against the forward's at that
+    position, max |difference| / max |forward's| over the layers; planted:
+    decode's cross-attention reads the next layer's cross cache."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import attention
+    from repro_torch.models import transformer as tfm
+
+    lim = FRONTEND_GAP[str(params.embed.tok.dtype).removeprefix("torch.")]
+    gap = lambda a, b: float((a.float() - b.float()).abs().max())
+    naive_cfg = dataclasses.replace(cfg, attn_impl="naive")
+    max_len = l + FRONTEND_STEPS
+    sound_apply, sound_flash, sound_dec = (attention.apply_attention, attention._flash,
+                                           attention.apply_cross_attention_decode)
+    r = []
+
+    # ---- gate (a): every attention call, flash against naive --------------
+    faults = (("made causal", lambda q, k, v, scale=None, causal=True:
+               sound_flash(q, k, v, scale, True)),
+              (f"last {FRONTEND_DROP} keys dropped", lambda q, k, v, scale=None, causal=True:
+               sound_flash(q, k[:, :-FRONTEND_DROP], v[:, :-FRONTEND_DROP], scale, causal)))
+    gaps = collections.defaultdict(float)
+
+    def both(p, cfg_, x, positions, *, causal=True, kv_src=None):
+        y, c = sound_apply(p, cfg_, x, positions, causal=causal, kv_src=kv_src)
+        want = sound_apply(p, naive_cfg, x, positions, causal=causal, kv_src=kv_src)[0]
+        scale = float(want.float().abs().max())
+        kind = "cross" if kv_src is not None else ("self" if causal else "encoder")
+        gaps[kind] = max(gaps[kind], gap(y, want) / scale)
+        for label, fault in faults if kv_src is not None else ():
+            attention._flash = fault
+            try:
+                bad = sound_apply(p, cfg_, x, positions, causal=causal, kv_src=kv_src)[0]
+            finally:
+                attention._flash = sound_flash
+            gaps[label] = max(gaps[label], gap(bad, want) / scale)
+        return y, c
+
+    rows, fe = out[:GATE_ROWS, :l], frontend[:GATE_ROWS]
+    attention.apply_attention = both
+    try:
+        flash = tfm.make_prefill(cfg, max_len)(params, rows, fe)[0]
+    finally:
+        attention.apply_attention = sound_apply
+    for kind in ("encoder", "self", "cross"):
+        if kind in gaps:
+            r.append((f"(a) {kind}-attention calls, flash vs naive", gaps[kind], lim, "sound"))
+    for label, _ in faults:
+        r.append((f"(a) planted: cross {label}", gaps[label], lim, "planted"))
+    naive = tfm.make_prefill(naive_cfg, max_len)(params, rows, fe)[0]
+    r.append(("(a) prefill logits, flash vs naive", gap(flash, naive), None, "info"))
+    del flash, naive
+
+    # ---- gate (b): prefill + decode against one teacher-forced forward ----
+    toks, fe = out[:FRONTEND_ROWS, :max_len], frontend[:FRONTEND_ROWS]
+    fwd_cross = []
+
+    def record(p, cfg_, x, positions, *, causal=True, kv_src=None):
+        y, c = sound_apply(p, cfg_, x, positions, causal=causal, kv_src=kv_src)
+        if kv_src is not None:
+            fwd_cross.append(y[:, l:])
+        return y, c
+
+    attention.apply_attention = record
+    try:
+        with torch.inference_mode():
+            want = tfm.make_forward(cfg)(params, toks, fe)[0][:, l - 1:]
+    finally:
+        attention.apply_attention = sound_apply
+    n = len(fwd_cross)
+    decode = tfm.make_decode_step(cfg)
+
+    def prefill_decode(plant: bool):
+        logits, cache = tfm.make_prefill(cfg, max_len)(params, toks[:, :l], fe)
+        before = {k: (t.data_ptr(), t.clone()) for k, t in cache["cross"].items()}
+        dec_cross = []
+
+        def dec(p, cfg_, x, ctx):
+            if plant:  # the next layer's (or group's) cross cache
+                ctx = {k: t[(len(dec_cross) + 1) % n] for k, t in cache["cross"].items()}
+            dec_cross.append(sound_dec(p, cfg_, x, ctx))
+            return dec_cross[-1]
+
+        got = [logits]
+        attention.apply_cross_attention_decode = dec
+        try:
+            for i in range(FRONTEND_STEPS):
+                logits, cache = decode(params, toks[:, l + i], cache, l + i)
+                got.append(logits)
+        finally:
+            attention.apply_cross_attention_decode = sound_dec
+        kept = all(cache["cross"][k].data_ptr() == ptr and torch.equal(cache["cross"][k], t)
+                   for k, (ptr, t) in before.items())
+        worst = 0.0
+        for g, ref in enumerate(fwd_cross):
+            ys = torch.cat([dec_cross[i * n + g] for i in range(FRONTEND_STEPS)], dim=1)
+            worst = max(worst, gap(ys, ref) / float(ref.float().abs().max()))
+        return gap(torch.stack(got, dim=1), want), worst, kept
+
+    logit_gap, cross_gap, kept = prefill_decode(False)
+    bad_logits, bad_cross, _ = prefill_decode(True)
+    r += [("(b) logits, prefill + decode vs forward", logit_gap, DECODE_GAP, "sound"),
+          ("(b) cross-attention outputs, decode vs forward", cross_gap, lim, "sound"),
+          ("(b) planted: next layer's cross cache, cross outputs", bad_cross, lim, "planted"),
+          ("(b) planted: next layer's cross cache, logits", bad_logits, None, "info")]
+    del want, fwd_cross
+    return r, kept
+
+
+def serve_frontend(name: str, results: dict, check, device: str = "cuda") -> None:
+    """One vlm or audio config at full width (the vlm cut to VLM_GROUPS
+    groups), random weights and stub frontend from a seed, served through
+    ``ServingEngine.generate(..., frontend=)``: encoder, prefill and decode
+    seconds, the cross cache's bytes, peak memory, flash launches; gate
+    (c), the cross cache's bytes against its shapes; (d), the first flash
+    call of each kind in the prefill against the plain version; then (a)
+    and (b) (``frontend_readings``), held in bf16 for the vlm and on fp32
+    copies of the weights for whisper, its bf16 readings printed."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import transformer as tfm
+    from repro_torch.obs.tracer import TraceContext
+    from repro_torch.serving.engine import ServeConfig, ServingEngine
+
+    t_model = time.perf_counter()
+    whole = get_config(name)
+    cfg = dataclasses.replace(whole, attn_impl="flash")
+    vlm = cfg.family == "vlm"
+    if vlm:
+        cfg = dataclasses.replace(cfg, n_layers=VLM_GROUPS * cfg.cross_attn_every)
+        requests, l, steps = DENSE_ROWS, RAG_TOP_K * RAG_CTX + RAG_PROMPT, DENSE_STEPS + 1
+        n_cross = VLM_GROUPS
+        n_flash = cfg.n_layers
+    else:
+        requests, l, steps = WHISPER_REQUESTS, WHISPER_PROMPT, WHISPER_GEN
+        n_cross = cfg.n_layers
+        n_flash = cfg.encoder_layers + 2 * cfg.n_layers
+    t_len = cfg.n_frontend_tokens
+    cuda = device == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    gen = torch.Generator(device=device).manual_seed(0)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    params = tfm.init_params(cfg, gen, device)
+    sync()
+    n_params = sum(p.numel() for p in params.parameters())
+    p_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    say(f"phase 12 {name}: "
+        + (f"{VLM_GROUPS} of {whole.n_layers // whole.cross_attn_every} groups "
+           f"({cfg.n_layers - n_cross} self + {n_cross} cross-attention layers)" if vlm else
+           f"{cfg.encoder_layers} encoder + {cfg.n_layers} decoder layers")
+        + f", d_model {cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} kv of "
+        f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, {t_len} frontend tokens, "
+        f"{cfg.dtype}: {n_params} parameters in the tree, {p_bytes / 1e9:.2f} GB (config n_params "
+        f"{cfg.n_params}" + (f", the whole model's {whole.n_params}" if vlm else "")
+        + f"), drawn in {time.perf_counter() - t:.1f} s")
+
+    dt = params.embed.tok.dtype
+    engine = ServingEngine(cfg, params, ServeConfig(max_len=l + steps))
+    prompts = torch.randint(0, cfg.vocab, (requests, l), generator=gen, device=device,
+                            dtype=torch.int32)
+    frontend = (torch.randn((requests, t_len, cfg.d_model), generator=gen, device=device)
+                * FRONTEND_SCALE).to(dt)
+    engine.generate(prompts[:2], 2, frontend=frontend[:2])  # warm-up: library handles, allocator
+
+    # ---- the main path: counts zeroed just before, read just after --------
+    measured = []  # the served prefill's cross cache: bytes, and with the frames kept (planted)
+    sound_prefill = engine._prefill
+
+    def prefill(params_, tokens, frames):
+        logits, cache = sound_prefill(params_, tokens, frames)
+        nbytes = sum(t.numel() * t.element_size() for t in cache["cross"].values())
+        measured.append((nbytes, nbytes + frames.numel() * frames.element_size()))
+        return logits, cache
+
+    engine._prefill = prefill
+    fa.flash_attention_fwd.launches = 0
+    trace = TraceContext(name)
+    with (first_calls(fa, "flash_attention_fwd", call_kind(fa.flash_attention_fwd)) as caught,
+          timed_calls(tfm, "_encode_audio", sync) as encoder_s):
+        sync()
+        t0 = time.perf_counter()
+        out = engine.generate(prompts, steps, frontend=frontend, trace=trace)
+        sync()
+        e2e = time.perf_counter() - t0
+    engine._prefill = sound_prefill
+    launches = fa.flash_attention_fwd.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 if cuda else float("nan")
+    span = lambda s: trace.find(s)[0]
+    prefill_s = span("prefill").t1 - span("prefill").t0
+    decode_s = span("decode").t1 - span("decode").t0
+    spec = tfm.cache_shape(cfg, requests, l + steps)["self"]
+    self_bytes = sum(math.prod(s.shape) * s.dtype.itemsize for s in spec.values())
+    want_bytes = 2 * n_cross * requests * t_len * cfg.n_kv_heads * cfg.head_dim * dt.itemsize
+    cross_bytes, planted_bytes = measured[0]
+    say(f"phase 12 {name} {requests} requests, prompt {l}, {t_len} frontend tokens each, "
+        f"{steps} tokens greedy: "
+        + (f"encoder {encoder_s[0]:.3f} s of " if encoder_s else "")
+        + f"prefill {prefill_s:.3f} s ({requests * l / prefill_s:.1f} prompt tokens/s), decode "
+        f"{decode_s:.3f} s ({requests * (steps - 1) / decode_s:.1f} tokens/s over {steps - 1} "
+        f"steps), end to end {e2e:.3f} s; cross cache {cross_bytes / 1e9:.4f} GB "
+        f"({cross_bytes / n_cross / 1e6:.1f} MB a cross layer), self cache "
+        f"{self_bytes / 1e9:.4f} GB at max_len {l + steps}; parameters {p_bytes / 1e9:.2f} GB, "
+        f"peak memory {peak_gb:.2f} GB; flash launches {launches} ({n_flash} attention layers)")
+    check(launches == (n_flash if cuda else 0),
+          f"{name}: {launches} flash launches in the prefill, not {n_flash}")
+    results["flash_attention_fwd"]["launches"] += launches
+    check(tuple(out.shape) == (requests, l + steps), f"{name}: output shape {tuple(out.shape)}")
+    check(torch.equal(out[:, :l], prompts), f"{name}: the output does not start with its prompt")
+    check(bool(((out >= 0) & (out < cfg.vocab)).all()), f"{name}: tokens out of range")
+
+    # ---- gate (c): the cross cache's bytes against its shapes --------------
+    # planted, a check of the measurement: a cache that also kept the frames
+    say(f"phase 12 {name} gate (c) cross cache bytes: measured {cross_bytes}, from the shapes "
+        f"2 x {n_cross} layers x {requests} x {t_len} x {cfg.n_kv_heads} x {cfg.head_dim} x "
+        f"{dt.itemsize} B = {want_bytes}; planted fault the frames kept too {planted_bytes}")
+    check(cross_bytes == want_bytes, f"{name} gate (c): cross cache {cross_bytes} B, the shapes "
+          f"give {want_bytes}")
+    check(planted_bytes != want_bytes, f"{name} gate (c): planted fault passes")
+
+    # ---- gate (d): the first flash call of each kind, held and timed ------
+    kinds = sorted(attn_kind(k) for k in caught)
+    check(len(caught) == (2 if vlm else 3), f"{name}: flash calls caught in the prefill: {kinds}")
+    for key, call in caught.items():
+        check_caught_flash(results, f"{name} {attn_kind(key)}", call, device, phase="phase 12")
+    del caught
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # ---- gates (a) and (b) --------------------------------------------------
+    readings = [("bf16", *frontend_readings(cfg, params, out, frontend, l))]
+    if not vlm:  # held on fp32 copies of the weights, the bf16 readings printed
+        del engine
+        params.float()  # in place
+        if cuda:
+            torch.cuda.empty_cache()
+        readings.append(("fp32", *frontend_readings(
+            dataclasses.replace(cfg, dtype="float32"), params, out, frontend.float(), l)))
+    for dtype, rs, kept in readings:
+        gated = lambda kind, dtype=dtype: kind != "info" and (vlm or dtype == "fp32")
+        say(f"phase 12 {name} gates (a)-(b) in {dtype}: " + "; ".join(
+            f"{label} {v:.4g}" + (f" (limit {lim})" if gated(kind) else " (printed)")
+            for label, v, lim, kind in rs) + f"; decode left the cross cache as the prefill "
+            f"wrote it: {kept}")
+        check(kept, f"{name} {dtype}: decode wrote the cross cache")
+        for label, v, lim, kind in rs:
+            if gated(kind):
+                ok = v > lim if kind == "planted" else v <= lim
+                check(ok, f"{name} {dtype} {label}: {v:.4g} "
+                      f"{'<=' if kind == 'planted' else '>'} {lim}")
+    del params, out, frontend
+    if cuda:
+        torch.cuda.empty_cache()
+    say(f"phase 12 {name}: {time.perf_counter() - t_model:.1f} s")
+
+
+def train_frontend(results: dict, check, device: str = "cuda") -> None:
+    """One training step of whisper-large-v3 at full width and depth (bf16,
+    flash, remat full, AdamW with fp32 moments) on WHISPER_TRAIN decoder
+    tokens over its 1,500 frames, and one of each vlm / audio smoke config,
+    with their flash launches against what remat predicts (remat full runs
+    each attention's forward twice). The full-width step's first flash
+    backward of each kind (encoder, decoder self, cross) is caught on the
+    path and held against the plain version (``check_caught_bwd``)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.training.optimizer import OptConfig
+    from repro_torch.training.train_loop import TrainConfig, make_train_state, make_train_step
+
+    cuda = device == "cuda"
+    runs = (("whisper-large-v3", dataclasses.replace(get_config("whisper-large-v3"),
+                                                     remat="full"), WHISPER_TRAIN, True),
+            ("llama-3.2-vision-90b smoke", get_smoke_config("llama-3.2-vision-90b"), (8, 128),
+             False),
+            ("whisper-large-v3 smoke", get_smoke_config("whisper-large-v3"), (8, 128), False))
+    for label, cfg, (batch, seq), catch in runs:
+        cfg = dataclasses.replace(cfg, attn_impl="flash")
+        tcfg = TrainConfig(opt=OptConfig(lr=3e-4, warmup_steps=1, total_steps=10))
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        state = make_train_state(cfg, tcfg, torch.Generator(device=device).manual_seed(0),
+                                 device)
+        data = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=batch, seed=0,
+                                        frontend_tokens=cfg.n_frontend_tokens,
+                                        d_model=cfg.d_model), device=device).batch(0)
+        wrappers = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv)
+        before = [w.launches for w in wrappers]
+        step = make_train_step(cfg, tcfg)
+        with first_calls(fa, "flash_attention_bwd", call_kind(fa.flash_attention_bwd),
+                         keep=True) as bwd_calls:
+            t = time.perf_counter()
+            state, metrics = step(state, data)
+            if cuda:
+                torch.cuda.synchronize()
+            dt = time.perf_counter() - t
+        counts = [w.launches - b for w, b in zip(wrappers, before)]
+        n_attn = (cfg.n_layers if cfg.family == "vlm"
+                  else cfg.encoder_layers + 2 * cfg.n_layers)
+        want = [(2 if cfg.remat == "full" else 1) * n_attn, n_attn, n_attn] if cuda else [0] * 3
+        loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+        finite = all(bool(torch.isfinite(p).all()) for p in state["params"].parameters())
+        peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else float("nan")
+        again = ""
+        if catch:  # the first step carries the process's first use of these shapes
+            t = time.perf_counter()
+            step(state, data)
+            if cuda:
+                torch.cuda.synchronize()
+            again = f" (a second step {time.perf_counter() - t:.3f} s)"
+        say(f"phase 12 train {label} ({cfg.n_layers} layers"
+            + (f" + {cfg.encoder_layers} encoder" if cfg.encoder_layers else "")
+            + f", d_model {cfg.d_model}, {cfg.dtype}, remat {cfg.remat}, {batch} x {seq} tokens "
+            f"over {cfg.n_frontend_tokens} frontend tokens): one step {dt:.3f} s{again}, loss "
+            f"{loss:.6f} (ln V = {math.log(cfg.vocab):.4f}), grad norm {gnorm:.6f}, peak memory "
+            f"{peak:.2f} GB; flash forward / dQ / dK-dV launches {counts} (remat predicts "
+            f"{want})")
+        check(math.isfinite(loss) and math.isfinite(gnorm) and gnorm > 0 and finite,
+              f"train {label}: loss {loss}, grad norm {gnorm}, parameters finite {finite}")
+        check(counts == want, f"train {label}: flash launches {counts} != {want}")
+        for w, n in zip(("flash_attention_fwd", "flash_attention_bwd_dq",
+                         "flash_attention_bwd_dkv"), counts):
+            results[w]["launches"] += n
+        del state, data
+        if catch:
+            kinds = sorted(attn_kind(k) for k in bwd_calls)
+            check(kinds == ["cross", "encoder", "self"],
+                  f"train {label}: flash backward calls caught: {kinds}")
+            if cuda:
+                torch.cuda.empty_cache()
+            for key, call in bwd_calls.items():
+                check_caught_bwd(results, f"{label} {attn_kind(key)}_train", call, device,
+                                 phase="phase 12")
+        del bwd_calls
+        if cuda:
+            torch.cuda.empty_cache()
+
+
+def phase_frontend(results: dict, device: str = "cuda") -> None:
+    """Phase 12: llama-3.2-vision-90b (VLM_GROUPS of its groups) and
+    whisper-large-v3 (whole) at full width, random weights and stub
+    frontends from a seed, served through the engine with gates (a)-(d);
+    then one training step of whisper at full width and one of each vlm /
+    audio smoke config. Every gate's reading is printed; the phase fails at
+    its end if any gate did. (``device`` lets the phase be rehearsed on the
+    CPU, with smaller configs patched in.)"""
+    t = time.perf_counter()
+    fails: list = []
+
+    def check(ok: bool, msg: str) -> None:
+        if not ok:
+            fails.append(msg)
+            say(f"phase 12 FAILED: {msg}")
+
+    for name in ("llama-3.2-vision-90b", "whisper-large-v3"):
+        serve_frontend(name, results, check, device)
+    train_frontend(results, check, device)
+    say(f"phase 12: {time.perf_counter() - t:.1f} s")
+    need(not fails, f"phase 12: {len(fails)} gate(s) failed: {fails}")
+
+
 def bwd_work(q, k, v, causal: bool, kernel: str) -> tuple[float, float, float]:
     """(bytes, flops, peak rate) of one backward kernel: q, k, v, dO, LSE and
     Delta read once, the gradients it writes written once; 2 flop per
@@ -4213,6 +4716,8 @@ def phase_flash_bwd(cfg, results: dict):
         # bf16 rows of 40 bytes: 8-byte copies, columns padded to 32
         ("dk=dv=20 L=S=70", (2, 4, 2, 70, 70, 20, 20), True),
         ("dk=dv=128 L=S=130", (2, 4, 2, 130, 130, 128, 128), True),
+        ("non-causal L=136 S=200 g=8 d=128", (2, 16, 2, 136, 200, 128, 128), False),
+        ("non-causal L=S=333 d=64", (2, 4, 4, 333, 333, 64, 64), False),
     ]
     for label, shape, causal in edges:
         for dtype in (torch.float32, torch.bfloat16):
@@ -4524,13 +5029,13 @@ def phase_train(cfg, results: dict):
     torch.cuda.empty_cache()
 
 
-PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11)
+PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12)
 
 
 def parse_phases(argv) -> set:
     """``--phases 1,4,11``: a partial run, for finding faults (phase 1 always
-    runs; 8 needs 5, and 6, 10 and 11 need 4). It prints no kernels line and
-    no last line. Without the flag, every phase."""
+    runs; 8 needs 5, and 6, 10 and 11 need 4; 12 needs nothing). It prints
+    no kernels line and no last line. Without the flag, every phase."""
     import argparse
 
     ap = argparse.ArgumentParser()
@@ -4591,6 +5096,9 @@ def main(argv=None) -> int:
             phase_recurrent(full, index, results)
         del full, index
         torch.cuda.empty_cache()
+        if 12 in phases:  # after phase 4's index is freed; all of it freed before phase 7
+            phase_frontend(results)
+            torch.cuda.empty_cache()
         from repro_torch.configs import get_config
 
         if 7 in phases:
@@ -4651,8 +5159,9 @@ def main(argv=None) -> int:
             kernels[-1]["variant"] = variants[name]
         if chk.get("device_ms") is not None:  # host-bound shapes: the kernels' own time
             kernels[-1]["device_ms"] = chk["device_ms"]
-        extra = [ch for ch in r["checks"] if ch.get("phase") in ("phase 10", "phase 11")]
-        if extra:  # the shapes phases 10-11's models gave the kernel, caught on their paths
+        extra = [ch for ch in r["checks"]
+                 if ch.get("phase") in ("phase 10", "phase 11", "phase 12")]
+        if extra:  # the shapes phases 10-12's models gave the kernel, caught on their paths
             kernels[-1]["checks"] = extra
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)  # name, power limit: as nvidia-smi prints them

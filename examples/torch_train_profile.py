@@ -1,9 +1,12 @@
 """Where the time of a training step goes on one GPU: llama3.2-1b at full
 width and depth (bf16, remat full, flash attention, random weights from a
 seed), at chip_smoke.py phase 7's shape (8 x 2048 tokens of the training
-pipeline, AdamW), under ``torch.profiler``.
+pipeline, AdamW), under ``torch.profiler``; ``--arch`` takes another config
+(a vlm or audio one with the pipeline's stub frontend), ``--batch`` and
+``--seq`` its shape.
 
-    python3 examples/torch_train_profile.py
+    python3 examples/torch_train_profile.py [--arch whisper-large-v3 --batch 8 --seq 448]
+        [--first]
 
 It warms up with one step, times one step without the profiler, then runs
 ``REPS`` steps under it; each profiled step prints one JSON line: the
@@ -12,11 +15,16 @@ unprofiled one, the device busy seconds (the sum of the CUDA kernels' self
 time; one stream, so they do not overlap), the idle share against the
 step's own window and against the unprofiled one, the kernel launches, the
 device time by group (the three flash kernels by name, matrix products by
-the names cuBLAS gives its kernels, the rest), and the top kernels.
+the names cuBLAS gives its kernels, the rest), and the top kernels. With
+``--first`` the warm-up step (the process's first; the kernels are built
+before it) is profiled too, with the host's activity: its line adds the
+host operators by self time.
 """
 
 from __future__ import annotations
 
+import argparse
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -32,6 +40,7 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, TokenPipeline  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.training.optimizer import OptConfig  # noqa: E402
 from repro_torch.training.train_loop import (  # noqa: E402
     TrainConfig,
@@ -41,6 +50,7 @@ from repro_torch.training.train_loop import (  # noqa: E402
 from torch_rag_profile import device_seconds  # noqa: E402
 
 BATCH, LENGTH, SEED, REPS = 8, 2048, 0, 3  # chip_smoke.py phase 7's batch
+HOST_TOP = 12  # --first: host operators listed
 # the backward by symbol: the bf16 tensor-core kernels (the training path)
 # and the fp32 CUDA-core ones
 GROUPS = (("flash_fwd", ("flash_fwd_tc_kernel", "flash_fwd_kernel")),
@@ -64,21 +74,43 @@ def grouped(prof) -> dict:
     return {k: round(v, 3) for k, v in out.items()}
 
 
-def main() -> None:
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="llama3.2-1b")
+    ap.add_argument("--batch", type=int, default=BATCH)
+    ap.add_argument("--seq", type=int, default=LENGTH)
+    ap.add_argument("--first", action="store_true", help="profile the warm-up step too")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("torch_train_profile: needs a CUDA card")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     print(smi.stdout.strip(), flush=True)
-    cfg = dataclasses.replace(get_config("llama3.2-1b"), attn_impl="flash")
+    cfg = dataclasses.replace(get_config(args.arch), attn_impl="flash")
     tcfg = TrainConfig(opt=OptConfig(lr=3e-4, warmup_steps=2, total_steps=10))
     state = make_train_state(cfg, tcfg, torch.Generator(device="cuda").manual_seed(SEED))
-    pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=LENGTH, global_batch=BATCH))
+    frontend = cfg.n_frontend_tokens if cfg.family in ("vlm", "audio") else 0
+    pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=args.seq, global_batch=args.batch,
+                                    frontend_tokens=frontend, d_model=cfg.d_model))
     batches = [pipe.batch(s) for s in range(2 + REPS)]
     step = make_train_step(cfg, tcfg)
+    _build.library()  # the build (nvcc) stays out of the first step
 
-    state, _ = step(state, batches[0])
-    torch.cuda.synchronize()
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=activities) if args.first else contextlib.nullcontext() as prof:
+        t = time.perf_counter()
+        state, _ = step(state, batches[0])
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t
+    if args.first:
+        busy, launches, top = device_seconds(prof)
+        host = sorted((e for e in prof.key_averages() if e.self_cpu_time_total > 0),
+                      key=lambda e: -e.self_cpu_time_total)[:HOST_TOP]
+        print(json.dumps(dict(
+            arch=cfg.name, batch=args.batch, length=args.seq, rep="first", wall_profiled_s=first,
+            device_busy_s=busy, kernel_launches=launches, device_ms_by_group=grouped(prof),
+            top_kernels=top, host_self_ms={e.key[:80]: round(e.self_cpu_time_total / 1e3, 3)
+                                           for e in host})), flush=True)
     t = time.perf_counter()
     state, _ = step(state, batches[1])
     torch.cuda.synchronize()
@@ -92,7 +124,7 @@ def main() -> None:
         busy, launches, top = device_seconds(prof)
         idle = lambda w: (1 - busy / w) if busy > 0 else "not measured"
         print(json.dumps(dict(
-            batch=BATCH, length=LENGTH, rep=rep, loss=float(metrics["loss"]),
+            arch=cfg.name, batch=args.batch, length=args.seq, first_s=first, rep=rep, loss=float(metrics["loss"]),
             wall_profiled_s=wall_profiled, wall_s=wall, device_busy_s=busy,
             idle_share=idle(wall_profiled), idle_share_vs_unprofiled=idle(wall),
             kernel_launches=launches, device_ms_by_group=grouped(prof), top_kernels=top)),

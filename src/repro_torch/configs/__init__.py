@@ -2,10 +2,9 @@
 ported architecture, each exporting ``CONFIG`` (the published configuration)
 and ``smoke_config()`` (a reduced same-family config for CPU tests).
 
-``list_archs`` names every architecture of the reference. The dense, moe,
-ssm and hybrid families are ported; ``get_config`` and ``get_smoke_config``
-raise ``NotImplementedError`` for an architecture of the vlm or audio family
-(ROADMAP Queue 1 item 10).
+``list_archs`` names every architecture of the reference; every one of
+them is ported (``PORTED``): the dense, moe, ssm, hybrid, vlm and audio
+families.
 """
 
 from __future__ import annotations
@@ -24,8 +23,7 @@ ARCHS = [
     "deepseek-v3-671b",
     "whisper-large-v3",
 ]
-PORTED = ("llama3.2-1b", "starcoder2-15b", "qwen2-1.5b", "deepseek-7b", "kimi-k2-1t-a32b",
-          "deepseek-v3-671b", "rwkv6-7b", "zamba2-1.2b")
+PORTED = tuple(ARCHS)
 
 _MODULES = {name: name.replace("-", "_").replace(".", "_") for name in ARCHS}
 
@@ -33,9 +31,6 @@ _MODULES = {name: name.replace("-", "_").replace(".", "_") for name in ARCHS}
 def _module(name: str):
     if name not in _MODULES:
         raise KeyError(f"unknown arch {name!r}; available: {ARCHS}")
-    if name not in PORTED:
-        raise NotImplementedError(
-            f"arch {name!r} is not ported yet (ROADMAP Queue 1 item 10); ported: {PORTED}")
     return importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
 
 

@@ -127,16 +127,23 @@ def ingest_pipeline_from_arrays(pipe, device):
 
 
 def _param_paths(model: Transformer):
-    """(name, parameter, path in ``repro``'s tree, layer index or None):
-    block parameters ``layers.<i>.<rest>`` and ``dense_layers.<i>.<rest>``
-    sit at ``(group, *rest)[i]`` in ``repro``'s layer-stacked tree; the rest,
-    the MTP head's block among them, is not stacked."""
+    """(name, parameter, path in ``repro``'s tree, index into the stacked
+    leaf): block parameters ``layers.<i>.<rest>`` (also ``dense_layers`` and
+    ``encoder``) sit at ``(group, *rest)[i]`` in ``repro``'s layer-stacked
+    tree; the vlm's ``groups.<g>.self.<i>.<rest>`` at ``("groups", "self",
+    *rest)[g, i]`` (stacked twice) and ``groups.<g>.cross.<rest>`` at
+    ``("groups", "cross", *rest)[g]``; the rest, the MTP head's block among
+    them, is not stacked (index ``()``)."""
     for name, p in model.named_parameters():
         parts = name.split(".")
-        if parts[0] in ("layers", "dense_layers"):
-            yield name, p, (parts[0],) + tuple(parts[2:]), int(parts[1])
+        if parts[0] in ("layers", "dense_layers", "encoder"):
+            yield name, p, (parts[0],) + tuple(parts[2:]), (int(parts[1]),)
+        elif parts[0] == "groups" and parts[2] == "self":
+            yield name, p, ("groups", "self") + tuple(parts[4:]), (int(parts[1]), int(parts[3]))
+        elif parts[0] == "groups":
+            yield name, p, ("groups",) + tuple(parts[2:]), (int(parts[1]),)
         else:
-            yield name, p, tuple(parts), None
+            yield name, p, tuple(parts), ()
 
 
 def _tree_paths(tree, prefix=()):
@@ -157,13 +164,13 @@ def _leaves_by_name(model: Transformer, tree: Mapping, what: str) -> dict:
         raise KeyError(f"{what}: leaves the {model.cfg.family} model lacks: {sorted(extra)}")
     stacked: dict = {}
     out = {}
-    for name, p, path, layer in paths:
+    for name, p, path, index in paths:
         if path not in stacked:
             node = tree
             for key in path:
                 node = node[key]
             stacked[path] = np.asarray(node, np.float32)
-        a = stacked[path] if layer is None else stacked[path][layer]
+        a = stacked[path][index]
         if tuple(a.shape) != tuple(p.shape):
             raise ValueError(f"{what}: {'.'.join(path)}: shape {a.shape}, the model wants "
                              f"{tuple(p.shape)}")
@@ -186,24 +193,21 @@ def model_params_from_numpy(cfg: ModelConfig, tree: Mapping, device) -> Transfor
 
 def _stacked_tree(model: Transformer, tensors: Mapping) -> dict:
     """``repro``'s tree of one tensor per parameter (``tensors`` keyed by
-    parameter name): nested dicts, block leaves stacked over layers, dtypes
-    and device kept."""
+    parameter name): nested dicts, block leaves stacked over layers (the
+    vlm's self blocks over groups, then over a group's blocks), dtypes and
+    device kept."""
     tree: dict = {}
     stacks: dict = {}
-    for name, _, path, layer in _param_paths(model):
-        t = tensors[name].detach()
-        if layer is None:
-            node = tree
-            for key in path[:-1]:
-                node = node.setdefault(key, {})
-            node[path[-1]] = t
-        else:
-            stacks.setdefault(path, []).append(t)
-    for path, ts in stacks.items():
+    for name, _, path, index in _param_paths(model):
+        stacks.setdefault(path, []).append((index, tensors[name].detach()))
+    for path, items in stacks.items():
         node = tree
         for key in path[:-1]:
             node = node.setdefault(key, {})
-        node[path[-1]] = torch.stack(ts)
+        items.sort(key=lambda it: it[0])
+        lead = tuple(max(index[d] for index, _ in items) + 1 for d in range(len(items[0][0])))
+        node[path[-1]] = (torch.stack([t for _, t in items]).reshape(lead + items[0][1].shape)
+                          if lead else items[0][1])
     return tree
 
 

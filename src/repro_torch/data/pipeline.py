@@ -6,8 +6,10 @@ Every batch is a pure function of (seed, step): the numpy draws are
 job resumes exactly from any checkpoint step without replaying data. The
 "corpus" is a Zipf-distributed Markov stream with enough structure that a
 small model's loss visibly drops. Batches come back as int32 tensors on the
-pipeline's device. The stub modality embeddings (``frontend_tokens > 0``)
-come with the vlm and audio families.
+pipeline's device. With ``frontend_tokens > 0`` a batch also carries
+``frontend``, the stub modality embeddings (the vlm's patches, the audio
+family's frames): ``normal(0, 0.02)`` draws from the same generator after the
+tokens', cast to bfloat16 (round to nearest even, as ``repro``'s cast).
 """
 
 from __future__ import annotations
@@ -37,9 +39,6 @@ class TokenPipeline:
     (``None`` -> CUDA) is where the batches go."""
 
     def __init__(self, cfg: DataConfig, host_id: int = 0, n_hosts: int = 1, device=None):
-        if cfg.frontend_tokens:
-            raise NotImplementedError("frontend embeddings come with the vlm and audio "
-                                      "families (ROADMAP Queue 1 item 10)")
         self.cfg = cfg
         self.host_id = host_id
         self.n_hosts = n_hosts
@@ -50,7 +49,9 @@ class TokenPipeline:
         self._emit_base = rng.integers(0, max(cfg.vocab - 256, 1), size=cfg.n_states)
 
     def batch(self, step: int) -> dict:
-        """{"tokens": (per-host batch, seq_len) int32} of ``step``."""
+        """{"tokens": (per-host batch, seq_len) int32} of ``step``, and with
+        ``frontend_tokens``, "frontend": (per-host batch, frontend_tokens,
+        d_model) bfloat16."""
         cfg = self.cfg
         per_host = cfg.global_batch // self.n_hosts
         rng = np.random.default_rng((cfg.seed * 1_000_003 + step) * 64 + self.host_id)
@@ -63,7 +64,11 @@ class TokenPipeline:
             states = (u[:, None] < cdf).argmax(axis=1)
             offs = rng.zipf(1.5, size=per_host) % 256
             toks[:, t] = (self._emit_base[states] + offs) % cfg.vocab
-        return {"tokens": torch.from_numpy(toks).to(self.device)}
+        out = {"tokens": torch.from_numpy(toks).to(self.device)}
+        if cfg.frontend_tokens:
+            draws = rng.normal(0, 0.02, size=(per_host, cfg.frontend_tokens, cfg.d_model))
+            out["frontend"] = torch.from_numpy(draws).to(torch.bfloat16).to(self.device)
+        return out
 
     def __iter__(self) -> Iterator[dict]:
         step = 0

@@ -17,6 +17,7 @@ import torch
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tfm
+from repro_torch.models.layers import dtype_of
 from repro_torch.serving.engine import ServeConfig, ServingEngine
 
 
@@ -42,6 +43,11 @@ def main(argv=None) -> None:
     prompts = torch.as_tensor(
         rng.integers(0, cfg.vocab, size=(args.requests, args.prompt_len)), dtype=torch.int32,
         device=dev)
+    frontend = None
+    if cfg.family in ("vlm", "audio"):  # the stub patch / frame embeddings
+        frontend = torch.as_tensor(
+            rng.normal(0, 0.02, size=(args.requests, cfg.n_frontend_tokens, cfg.d_model)),
+            dtype=dtype_of(cfg), device=dev)
 
     if args.rag:
         from repro_torch.core.build_pipeline import build_index
@@ -70,7 +76,7 @@ def main(argv=None) -> None:
         print("sample retrieved ids:", res.ids[0].tolist())
     else:
         t0 = time.perf_counter()
-        out = eng.generate(prompts, args.gen)
+        out = eng.generate(prompts, args.gen, frontend=frontend)
         dt = time.perf_counter() - t0
 
     tok = args.requests * args.gen

@@ -1,14 +1,16 @@
-"""Self-attention (``repro/models/attention.py``): GQA (with qwen2's QKV
-bias) and MLA (DeepSeek-V3), each over a full sequence (train / prefill,
-naive or flash) and as single-token cached decode.
+"""Attention (``repro/models/attention.py``): GQA (with qwen2's QKV bias)
+and MLA (DeepSeek-V3), each over a full sequence (train / prefill, naive or
+flash) and as single-token cached decode; GQA also non-causal (whisper's
+encoder) and as cross-attention to a frontend's embeddings (the vlm's
+patches, whisper's encoded frames), whose decode attends to a fixed cache of
+the frontend's keys and values.
 
 Layouts and casts are ``repro``'s: activations (B, L, H, hd); scores in
 float32; softmax weights cast to ``x.dtype`` before the value product; the
 flash output cast to ``x.dtype`` before ``wo``. MLA's full-sequence form is
 the expanded one (per-head K and V, the shared rope key broadcast over the
 heads); its decode is the absorbed one, attending in the ``kv_lora`` latent,
-so its cache holds only the latent and the rope key. Cross-attention and its
-decode wait for the vlm and audio families (ROADMAP Queue 1 item 10).
+so its cache holds only the latent and the rope key.
 """
 
 from __future__ import annotations
@@ -60,13 +62,19 @@ class Attention(nn.Module):
                 b.zero_()
 
 
-def _project_qkv(p, cfg: ModelConfig, x):
+def _project_q(p, cfg: ModelConfig, x):
     q = torch.einsum("bld,dhk->blhk", x, p.wq)
-    k = torch.einsum("bld,dhk->blhk", x, p.wk)
-    v = torch.einsum("bld,dhk->blhk", x, p.wv)
+    return q + p.bq if cfg.qkv_bias else q
+
+
+def _project_qkv(p, cfg: ModelConfig, x, kv_src=None):
+    """q from ``x``; k and v from ``kv_src`` (cross-attention) or ``x``."""
+    kv_in = x if kv_src is None else kv_src
+    k = torch.einsum("bld,dhk->blhk", kv_in, p.wk)
+    v = torch.einsum("bld,dhk->blhk", kv_in, p.wv)
     if cfg.qkv_bias:
-        q, k, v = q + p.bq, k + p.bk, v + p.bv
-    return q, k, v
+        k, v = k + p.bk, v + p.bv
+    return _project_q(p, cfg, x), k, v
 
 
 def _gqa_scores(q, k):
@@ -88,11 +96,11 @@ def _gqa_out(weights, v, p):
     return torch.einsum("blhd,hdk->blk", ctx, p.wo)
 
 
-def _flash(q, k, v, scale=None):
-    """The causal flash kernel on (B, L, H, d)-layout tensors (``repro``'s
+def _flash(q, k, v, scale=None, causal=True):
+    """The flash kernel on (B, L, H, d)-layout tensors (``repro``'s
     ``_flash_scaled``; ``scale`` defaults to q's head dim ** -0.5): the
     kernel reads the transposed views by stride, no copy."""
-    out, _ = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), True,
+    out, _ = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal,
                              q.shape[-1] ** -0.5 if scale is None else scale)
     return out.transpose(1, 2)
 
@@ -110,17 +118,22 @@ def _up_to(scores, pos: int):
     return torch.where(valid, scores, torch.full_like(scores, NEG_INF))
 
 
-def apply_attention(p, cfg: ModelConfig, x, positions):
-    """Full-sequence causal self-attention (train / prefill). x: (B, L, D);
-    positions: (B, L) or (1, L). Returns (y, {"k", "v"}). (The non-causal
-    and cross-attention forms wait for the vlm and audio families.)"""
-    q, k, v = _project_qkv(p, cfg, x)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+def apply_attention(p, cfg: ModelConfig, x, positions, *, causal: bool = True, kv_src=None):
+    """Full-sequence attention (train / prefill). x: (B, L, D); positions:
+    (B, L) or (1, L); ``kv_src`` (B, T, D): cross-attention, keys and values
+    projected from it, no RoPE and no mask. The mask applies where
+    ``causal`` and not ``kv_src``. Returns (y, {"k", "v"} of the keys
+    attended to)."""
+    q, k, v = _project_qkv(p, cfg, x, kv_src)
+    if kv_src is None:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    masked = causal and kv_src is None
     if cfg.attn_impl == "flash":
-        y = torch.einsum("blhd,hdk->blk", _flash(q, k, v).to(x.dtype), p.wo)
+        y = torch.einsum("blhd,hdk->blk", _flash(q, k, v, causal=masked).to(x.dtype), p.wo)
         return y, {"k": k, "v": v}
-    weights = torch.softmax(_causal(_gqa_scores(q, k)), dim=-1).to(x.dtype)
+    scores = _gqa_scores(q, k)
+    weights = torch.softmax(_causal(scores) if masked else scores, dim=-1).to(x.dtype)
     return _gqa_out(weights, v, p), {"k": k, "v": v}
 
 
@@ -139,6 +152,14 @@ def apply_attention_decode(p, cfg: ModelConfig, x, cache: dict, pos: int):
     scores = _up_to(_gqa_scores(q, k), pos)  # (B, KV, G, 1, S)
     weights = torch.softmax(scores, dim=-1).to(x.dtype)
     return _gqa_out(weights, v, p), cache
+
+
+def apply_cross_attention_decode(p, cfg: ModelConfig, x, ctx_cache: dict):
+    """Decode-time cross-attention: x (B, 1, D) attends, unmasked, to the
+    whole fixed ``ctx_cache`` {"k", "v": (B, T, KV, hd)} that the prefill's
+    cross-attention returned; the cache is read, never written."""
+    weights = torch.softmax(_gqa_scores(_project_q(p, cfg, x), ctx_cache["k"]), dim=-1)
+    return _gqa_out(weights.to(x.dtype), ctx_cache["v"], p)
 
 
 def kv_cache_shape(cfg: ModelConfig, batch: int, max_len: int) -> dict:

@@ -1,4 +1,4 @@
-"""Model assembly for the dense, moe, ssm and hybrid families
+"""Model assembly for the dense, moe, ssm, hybrid, vlm and audio families
 (``repro/models/transformer.py``): init, forward (with ``repro``'s remat
 policies and the moe family's MTP head), the training loss, prefill and
 cached decode.
@@ -22,8 +22,25 @@ decode "cache" is the recurrent state, whose size does not depend on
 blocks, or ``{"mamba": {"conv", "ssm"}}`` stacked over the Mamba2 blocks
 beside ``{"shared": {"k", "v"}}``, the shared block's KV per group
 application (n_groups, B, max_len, KV, hd). Prefill writes the state after
-the prompt; each decode step overwrites it in place. The vlm and audio
-families raise ``NotImplementedError`` (ROADMAP Queue 1 item 10).
+the prompt; each decode step overwrites it in place.
+
+The vlm family (llama-3.2-vision-90b) runs ``n_layers // cross_attn_every``
+``groups``, each ``cross_attn_every - 1`` self-attention ``DenseBlock``s
+(``self``) and then ``cross``, a ``DenseBlock`` whose attention reads the
+frontend's patch embeddings, unnormalised, as keys and values. The audio
+family (whisper-large-v3) runs its ``encoder`` (``encoder_layers``
+``DenseBlock``s, non-causal, with RoPE) over the frame embeddings, then
+``enc_norm``; each decoder ``layer`` is a ``DenseBlock`` followed by
+``ln_x`` and ``cross``, attention over the encoded frames (no MLP after
+it). Both take the frontend ``(B, n_frontend_tokens, d_model)`` in the
+forward, the loss (``batch["frontend"]``) and prefill, cast to the model's
+dtype (``repro`` promotes a bf16 frontend to an fp32 model's dtype, which is
+the same values). Their cache is ``{"self": {"k", "v"}, "cross": {"k",
+"v"}}``: the self-attention KV per layer ((n_groups, n_self, B, max_len,
+KV, hd) for the vlm, (n_layers, B, max_len, KV, hd) for audio) and the
+cross-attention's keys and values of the frontend per cross layer
+((n, B, n_frontend_tokens, KV, hd)), written once by prefill and only read
+by decode.
 """
 
 from __future__ import annotations
@@ -58,13 +75,6 @@ AUX_LOSS_COEF = 0.01
 MTP_LOSS_COEF = 0.3
 
 
-def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet; the vlm and audio "
-            "families wait (ROADMAP Queue 1 item 10)")
-
-
 def _attention(cfg: ModelConfig, dtype, device) -> nn.Module:
     return attn.MLA(cfg, dtype, device) if cfg.use_mla else attn.Attention(cfg, dtype, device)
 
@@ -87,6 +97,28 @@ class MoEBlock(nn.Module):
         self.moe = moe_mod.MoE(cfg, dtype, device)
 
 
+class CrossGroup(nn.Module):
+    """One vlm group: ``self``, ``cross_attn_every - 1`` self-attention
+    blocks, then ``cross``, a full dense block whose attention reads the
+    frontend."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__()
+        self.self = nn.ModuleList(DenseBlock(cfg, dtype, device)
+                                  for _ in range(cfg.cross_attn_every - 1))
+        self.cross = DenseBlock(cfg, dtype, device)
+
+
+class DecoderLayer(DenseBlock):
+    """One audio decoder layer: a dense block, then ``ln_x`` and ``cross``,
+    attention over the encoded frames (the same leaves as self-attention)."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__(cfg, dtype, device)
+        self.ln_x = RMSNorm(cfg.d_model, dtype, device)
+        self.cross = attn.Attention(cfg, dtype, device)
+
+
 class MTPHead(nn.Module):
     """The multi-token-prediction head: ``proj`` (2d, d) over [h_t ;
     emb(t_{t+1})], one dense block, a norm."""
@@ -102,15 +134,27 @@ class Transformer(nn.Module):
     """Parameters under ``repro``'s tree keys: ``embed``, ``final_norm``,
     ``layers`` (one block per layer where ``repro`` stacks the leaves on
     axis 0), for the moe family ``dense_layers`` and ``mtp``, for the hybrid
-    family ``shared_attn`` (unstacked)."""
+    family ``shared_attn`` (unstacked); the vlm family has ``groups`` (no
+    ``layers``), the audio family ``encoder`` and ``enc_norm`` beside its
+    decoder ``layers``."""
 
     def __init__(self, cfg: ModelConfig, device):
         super().__init__()
-        _check_family(cfg)
         dtype = dtype_of(cfg)
         self.cfg = cfg
         self.embed = Embed(cfg, dtype, device)
         self.final_norm = RMSNorm(cfg.d_model, dtype, device)
+        if cfg.family == "vlm":
+            self.groups = nn.ModuleList(CrossGroup(cfg, dtype, device)
+                                        for _ in range(cfg.n_layers // cfg.cross_attn_every))
+            return
+        if cfg.family == "audio":
+            self.encoder = nn.ModuleList(DenseBlock(cfg, dtype, device)
+                                         for _ in range(cfg.encoder_layers))
+            self.enc_norm = RMSNorm(cfg.d_model, dtype, device)
+            self.layers = nn.ModuleList(DecoderLayer(cfg, dtype, device)
+                                        for _ in range(cfg.n_layers))
+            return
         block = {"dense": DenseBlock, "ssm": rwkv6.RWKV6Block,
                  "hybrid": mamba2.Mamba2Block}.get(cfg.family)
         if block is not None:
@@ -130,10 +174,16 @@ class Transformer(nn.Module):
     def device(self) -> torch.device:
         return self.embed.tok.device
 
-    def groups(self):
+    def stacks(self):
         """(tree key, blocks): every block, in the order the dense and moe
         forwards run them (where the key is also the cache's); the hybrid
-        family's shared block comes last."""
+        family's shared block comes last; the vlm's blocks group by group,
+        the audio encoder's before its decoder layers."""
+        if hasattr(self, "groups"):
+            yield "groups", [blk for grp in self.groups for blk in (*grp.self, grp.cross)]
+            return
+        if hasattr(self, "encoder"):
+            yield "encoder", self.encoder
         if hasattr(self, "dense_layers"):
             yield "dense_layers", self.dense_layers
         yield "layers", self.layers
@@ -152,6 +202,9 @@ def _init_block(blk, generator: torch.Generator, cfg: ModelConfig) -> None:
         blk.moe.init(generator, cfg)
     else:
         blk.mlp.init(generator)
+    if isinstance(blk, DecoderLayer):
+        blk.ln_x.scale.fill_(1.0)
+        blk.cross.init(generator, cfg)
 
 
 @torch.no_grad()
@@ -166,7 +219,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None) -> Tr
     model = Transformer(cfg, dev)
     model.embed.init(generator, cfg)
     model.final_norm.scale.fill_(1.0)
-    for _, blocks in model.groups():
+    if hasattr(model, "enc_norm"):
+        model.enc_norm.scale.fill_(1.0)
+    for _, blocks in model.stacks():
         for blk in blocks:
             _init_block(blk, generator, cfg)
     if hasattr(model, "mtp"):
@@ -182,13 +237,15 @@ def _moe_fn(cfg: ModelConfig):
     return moe_mod.apply_moe_ep if cfg.moe_impl == "ep_manual" else moe_mod.apply_moe
 
 
-def _block_seq(p, cfg: ModelConfig, h, positions):
-    """One dense or MoE block over a full sequence. Returns (h, aux or None
-    for a dense block, the attention's cache entries)."""
+def _block_seq(p, cfg: ModelConfig, h, positions, causal: bool = True):
+    """One dense or MoE block over a full sequence (``causal=False``:
+    whisper's encoder; MLA is always causal). Returns (h, aux or None for a
+    dense block, the attention's cache entries)."""
     if cfg.use_mla:
         y, cache = attn.apply_mla(p.attn, cfg, rms_norm(p.ln1, h), positions)
     else:
-        y, cache = attn.apply_attention(p.attn, cfg, rms_norm(p.ln1, h), positions)
+        y, cache = attn.apply_attention(p.attn, cfg, rms_norm(p.ln1, h), positions,
+                                        causal=causal)
     h = h + y
     hn = rms_norm(p.ln2, h)
     if isinstance(p, MoEBlock):
@@ -274,18 +331,70 @@ def _hybrid_group(params, cfg: ModelConfig, idx, shared: bool, h, positions):
     return _block_seq(params.shared_attn, cfg, h, positions)[0] if shared else h
 
 
-def make_forward(cfg: ModelConfig):
-    """Returns fn(params, tokens) -> (logits (B, L, V), aux_loss, logits_mtp
-    (B, L, V) or None), as ``repro``'s forward: aux is the MoE blocks' aux
-    losses summed; the MTP head runs here only (prefill and decode skip it).
-    Each block runs under ``cfg.remat`` when autograd records."""
-    _check_family(cfg)
+def _frontend(cfg: ModelConfig, frontend):
+    """The vlm's patch or the audio family's frame embeddings, in the model's
+    dtype."""
+    if frontend is None:
+        raise ValueError(f"{cfg.name}: the {cfg.family} family needs frontend embeddings "
+                         f"(B, {cfg.n_frontend_tokens}, {cfg.d_model})")
+    return frontend.to(dtype_of(cfg))
 
-    def fwd(params: Transformer, tokens: torch.Tensor):
+
+def _cross_block(p, cfg: ModelConfig, h, positions, frontend):
+    """The vlm's cross block: h + attention(ln1(h)) over the frontend, then
+    h + mlp(ln2(h)). Returns (h, the cross-attention's {"k", "v"})."""
+    y, cache = attn.apply_attention(p.attn, cfg, rms_norm(p.ln1, h), positions, causal=False,
+                                    kv_src=frontend)
+    h = h + y
+    return h + apply_mlp(p.mlp, rms_norm(p.ln2, h)), cache
+
+
+def _decoder_layer(p, cfg: ModelConfig, h, positions, enc):
+    """One audio decoder layer: the causal block, then h + attention(ln_x(h))
+    over the encoded frames. Returns (h, the self-attention's and the
+    cross-attention's {"k", "v"})."""
+    h, _, self_cache = _block_seq(p, cfg, h, positions)
+    y, cross_cache = attn.apply_attention(p.cross, cfg, rms_norm(p.ln_x, h), positions,
+                                          causal=False, kv_src=enc)
+    return h + y, self_cache, cross_cache
+
+
+def _encode_audio(params, cfg: ModelConfig, frames):
+    """Whisper's encoder over the frame embeddings: non-causal blocks with
+    RoPE, each under ``cfg.remat``, then ``enc_norm``."""
+    positions = _positions(frames.shape[1], frames.device)
+    h = frames
+    for blk in params.encoder:
+        h = _remat(lambda x, blk=blk: _block_seq(blk, cfg, x, positions, causal=False)[0], cfg)(h)
+    return rms_norm(params.enc_norm, h)
+
+
+def make_forward(cfg: ModelConfig):
+    """Returns fn(params, tokens, frontend=None) -> (logits (B, L, V),
+    aux_loss, logits_mtp (B, L, V) or None), as ``repro``'s forward: aux is
+    the MoE blocks' aux losses summed; the MTP head runs here only (prefill
+    and decode skip it); ``frontend`` (B, T, D) for the vlm and audio
+    families. Each block runs under ``cfg.remat`` when autograd records (an
+    audio decoder layer with its cross-attention as one unit, as ``repro``
+    remats it)."""
+
+    def fwd(params: Transformer, tokens: torch.Tensor, frontend=None):
         positions = _positions(tokens.shape[1], tokens.device)
         h = embed_tokens(params.embed, tokens)
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
-        if cfg.family == "ssm":
+        if cfg.family == "vlm":
+            src = _frontend(cfg, frontend)
+            for grp in params.groups:
+                for blk in grp.self:
+                    h = _remat(lambda x, blk=blk: _block_seq(blk, cfg, x, positions)[0], cfg)(h)
+                h = _remat(lambda x, f, p=grp.cross: _cross_block(p, cfg, x, positions, f)[0],
+                           cfg)(h, src)
+        elif cfg.family == "audio":
+            enc = _encode_audio(params, cfg, _frontend(cfg, frontend))
+            for lyr in params.layers:
+                h = _remat(lambda x, e, p=lyr: _decoder_layer(p, cfg, x, positions, e)[0],
+                           cfg)(h, enc)
+        elif cfg.family == "ssm":
             for blk in params.layers:
                 h = _remat(lambda x, blk=blk: rwkv6.apply_rwkv6_block(
                     blk, cfg, x, _zero_state(rwkv6.rwkv6_state_shape(cfg, x.shape[0]),
@@ -296,7 +405,7 @@ def make_forward(cfg: ModelConfig):
                                         positions=positions)
                 h = _remat(run, cfg)(h) if g is not None else run(h)
         else:
-            for _, blocks in params.groups():
+            for _, blocks in params.stacks():
                 for blk in blocks:
                     h, a = _remat(lambda x, blk=blk: _block_seq(blk, cfg, x, positions)[:2],
                                   cfg)(h)
@@ -330,15 +439,13 @@ def make_loss_fn(cfg: ModelConfig):
     ``make_loss_fn``: labels are the tokens rolled by -1, the last position
     is masked, and the aux loss is added at ``AUX_LOSS_COEF``; with the MTP
     head, ``MTP_LOSS_COEF`` times its loss on the tokens rolled by -2, the
-    last two positions masked."""
+    last two positions masked. ``batch["frontend"]`` feeds the vlm and
+    audio families."""
     fwd = make_forward(cfg)
 
     def loss_fn(params: Transformer, batch: dict) -> torch.Tensor:
-        if batch.get("frontend") is not None:
-            raise NotImplementedError("frontend embeddings come with the vlm and audio "
-                                      "families (ROADMAP Queue 1 item 10)")
         tokens = batch["tokens"]
-        logits, aux, logits_mtp = fwd(params, tokens)
+        logits, aux, logits_mtp = fwd(params, tokens, batch.get("frontend"))
         labels = torch.roll(tokens, -1, dims=1)
         mask = torch.ones(tokens.shape, dtype=torch.float32, device=tokens.device)
         mask[:, -1] = 0.0
@@ -358,11 +465,20 @@ def cache_shape(cfg: ModelConfig, batch: int, max_len: int) -> dict:
     ``{"layers", "dense_layers"}`` (moe with leading dense layers), each a
     stack over its blocks of ``{"k", "v"}`` or, under MLA, ``{"ckv",
     "krope"}``; ``{"layers": {"tm_x", "cm_x", "wkv"}}`` (ssm) or
-    ``{"mamba": {"conv", "ssm"}, "shared": {"k", "v"}}`` (hybrid)."""
-    _check_family(cfg)
+    ``{"mamba": {"conv", "ssm"}, "shared": {"k", "v"}}`` (hybrid); ``{"self":
+    {"k", "v"}, "cross": {"k", "v"}}`` (vlm: self stacked over groups and
+    their self blocks; audio: both over the decoder layers), the cross
+    leaves (n, B, n_frontend_tokens, KV, hd)."""
     a = (attn.mla_cache_shape if cfg.use_mla else attn.kv_cache_shape)(cfg, batch, max_len)
     stack = lambda n, tree=a: {k: attn.TensorSpec((n,) + s.shape, s.dtype)
                                for k, s in tree.items()}
+    cross = attn.kv_cache_shape(cfg, batch, cfg.n_frontend_tokens)
+    if cfg.family == "vlm":
+        n_groups = cfg.n_layers // cfg.cross_attn_every
+        return {"self": stack(n_groups, stack(cfg.cross_attn_every - 1)),
+                "cross": stack(n_groups, cross)}
+    if cfg.family == "audio":
+        return {"self": stack(cfg.n_layers), "cross": stack(cfg.n_layers, cross)}
     if cfg.family == "dense":
         return {"layers": stack(cfg.n_layers)}
     if cfg.family == "ssm":
@@ -383,18 +499,25 @@ def _store(tree: dict, i: int, state: dict) -> None:
 
 
 def make_prefill(cfg: ModelConfig, max_len: int):
-    """Returns fn(params, tokens) -> (last_logits (B, V), cache): the cache
-    holds the attention entries for positions [0, L) and zeros up to
-    ``max_len``, as ``_pad_cache_len`` pads, and the recurrent state after
-    the prompt (each block from a zero state, chunked where L is a multiple
-    of ``ssm_chunk`` above 1). Runs under ``torch.inference_mode``."""
-    _check_family(cfg)
+    """Returns fn(params, tokens, frontend=None) -> (last_logits (B, V),
+    cache): the cache holds the attention entries for positions [0, L) and
+    zeros up to ``max_len``, as ``_pad_cache_len`` pads, the recurrent state
+    after the prompt (each block from a zero state, chunked where L is a
+    multiple of ``ssm_chunk`` above 1), and for the vlm and audio families
+    the cross-attention's keys and values of ``frontend`` (B,
+    n_frontend_tokens, D; the audio encoder runs here, once). Runs under
+    ``torch.inference_mode``."""
 
     @torch.inference_mode()
-    def prefill(params: Transformer, tokens: torch.Tensor):
+    def prefill(params: Transformer, tokens: torch.Tensor, frontend=None):
         b, l = tokens.shape
         if l > max_len:
             raise ValueError(f"prompt length {l} exceeds max_len {max_len}")
+        if cfg.family in ("vlm", "audio"):
+            frontend = _frontend(cfg, frontend)
+            if tuple(frontend.shape) != (b, cfg.n_frontend_tokens, cfg.d_model):
+                raise ValueError(f"frontend shape {tuple(frontend.shape)}, the cache wants "
+                                 f"{(b, cfg.n_frontend_tokens, cfg.d_model)}")
         cache = {g: _zero_state(spec, tokens.device)
                  for g, spec in cache_shape(cfg, b, max_len).items()}
         positions = _positions(l, tokens.device)
@@ -414,8 +537,23 @@ def make_prefill(cfg: ModelConfig, max_len: int):
                     h, _, c = _block_seq(params.shared_attn, cfg, h, positions)
                     for key, t in c.items():
                         cache["shared"][key][g, :, :l] = t
+        elif cfg.family == "vlm":
+            for g, grp in enumerate(params.groups):
+                for i, blk in enumerate(grp.self):
+                    h, _, c = _block_seq(blk, cfg, h, positions)
+                    for key, t in c.items():
+                        cache["self"][key][g, i, :, :l] = t
+                h, c = _cross_block(grp.cross, cfg, h, positions, frontend)
+                _store(cache["cross"], g, c)
+        elif cfg.family == "audio":
+            enc = _encode_audio(params, cfg, frontend)
+            for i, lyr in enumerate(params.layers):
+                h, c, cc = _decoder_layer(lyr, cfg, h, positions, enc)
+                for key, t in c.items():
+                    cache["self"][key][i, :, :l] = t
+                _store(cache["cross"], i, cc)
         else:
-            for g, blocks in params.groups():
+            for g, blocks in params.stacks():
                 for i, blk in enumerate(blocks):
                     h, _, c = _block_seq(blk, cfg, h, positions)
                     for key, t in c.items():
@@ -431,13 +569,13 @@ def make_decode_step(cfg: ModelConfig):
     The cache is updated in place (at llama3.2-1b's width, batch 64 and 1152
     positions, one 2.4 GB buffer; ``repro`` returns a functional copy) and
     returned; a recurrent state is overwritten by the step's (the per-step
-    forms, as ``repro`` decodes). Runs under ``torch.inference_mode``."""
-    _check_family(cfg)
+    forms, as ``repro`` decodes); the cross-attention's cache is only read.
+    Runs under ``torch.inference_mode``."""
 
     @torch.inference_mode()
     def decode(params: Transformer, token: torch.Tensor, cache: dict, pos: int):
         h = embed_tokens(params.embed, token[:, None])
-        layer = lambda tree, i: {k: t[i] for k, t in tree.items()}
+        layer = lambda tree, *i: {k: t[i] for k, t in tree.items()}
         if cfg.family == "ssm":
             for i, blk in enumerate(params.layers):
                 h, st = rwkv6.apply_rwkv6_block(blk, cfg, h, layer(cache["layers"], i),
@@ -452,8 +590,21 @@ def make_decode_step(cfg: ModelConfig):
                 if g is not None:
                     h = _block_decode(params.shared_attn, cfg, h, layer(cache["shared"], g),
                                       int(pos))
+        elif cfg.family == "vlm":
+            for g, grp in enumerate(params.groups):
+                for i, blk in enumerate(grp.self):
+                    h = _block_decode(blk, cfg, h, layer(cache["self"], g, i), int(pos))
+                p = grp.cross
+                h = h + attn.apply_cross_attention_decode(p.attn, cfg, rms_norm(p.ln1, h),
+                                                          layer(cache["cross"], g))
+                h = h + apply_mlp(p.mlp, rms_norm(p.ln2, h))
+        elif cfg.family == "audio":
+            for i, lyr in enumerate(params.layers):
+                h = _block_decode(lyr, cfg, h, layer(cache["self"], i), int(pos))
+                h = h + attn.apply_cross_attention_decode(lyr.cross, cfg, rms_norm(lyr.ln_x, h),
+                                                          layer(cache["cross"], i))
         else:
-            for g, blocks in params.groups():
+            for g, blocks in params.stacks():
                 for i, blk in enumerate(blocks):
                     h = _block_decode(blk, cfg, h, layer(cache[g], i), int(pos))
         h = rms_norm(params.final_norm, h)

@@ -53,15 +53,18 @@ class ServingEngine:
         prompts: torch.Tensor,  # (B, Lp) int
         n_tokens: int,
         *,
+        frontend: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
         trace: Optional[TraceContext] = None,
     ) -> torch.Tensor:
         """Teacher-free generation. Returns (B, Lp + n_tokens) int32.
-        ``generator`` (on the parameters' device) drives temperature
-        sampling; it defaults to seed 0. With ``trace``, the device is
-        synchronised after prefill and after the last step, and the spans
-        ``prefill`` and ``decode`` record the two phases. (repro's
-        ``frontend`` for vlm / audio waits for those families.)"""
+        ``frontend`` (B, n_frontend_tokens, d_model): the vlm's patch or the
+        audio family's frame embeddings, which the prefill turns into the
+        fixed cross-attention cache. ``generator`` (on the parameters'
+        device) drives temperature sampling; it defaults to seed 0. With
+        ``trace``, the device is synchronised after prefill and after the
+        last step, and the spans ``prefill`` and ``decode`` record the two
+        phases."""
         dev = self.params.device
         prompts = prompts.to(dev, torch.int32)
         b, lp = prompts.shape
@@ -71,7 +74,9 @@ class ServingEngine:
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)
         t0 = time.perf_counter()
-        logits, cache = self._prefill(self.params, prompts)
+        if frontend is not None:
+            frontend = frontend.to(dev)
+        logits, cache = self._prefill(self.params, prompts, frontend)
         toks = [prompts]
         cur = self._sample(logits, generator)
         if trace is not None:

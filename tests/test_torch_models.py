@@ -69,26 +69,23 @@ def _jx(t, dtype):
 
 @pytest.mark.parametrize("arch", tconfigs.PORTED)
 def test_configs_match_repro(arch):
-    """Every ported arch's published and smoke configs equal repro's field
-    for field, with the same n_params and n_active_params; the families not
-    yet ported (vlm and audio) still raise, citing item 10."""
+    """Every arch is ported, and its published and smoke configs equal
+    repro's field for field, with the same n_params and n_active_params; an
+    unknown arch raises, and so does a family the config does not know."""
     assert tconfigs.list_archs() == __import__("repro.configs", fromlist=["x"]).list_archs()
-    assert set(tconfigs.PORTED) == {"llama3.2-1b", "starcoder2-15b", "qwen2-1.5b",
-                                    "deepseek-7b", "kimi-k2-1t-a32b", "deepseek-v3-671b",
-                                    "rwkv6-7b", "zamba2-1.2b"}
+    assert set(tconfigs.PORTED) == set(tconfigs.list_archs()) == {
+        "llama3.2-1b", "starcoder2-15b", "qwen2-1.5b", "deepseek-7b", "kimi-k2-1t-a32b",
+        "deepseek-v3-671b", "rwkv6-7b", "zamba2-1.2b", "llama-3.2-vision-90b",
+        "whisper-large-v3"}
     for get_t, get_r in ((tconfigs.get_config, r_get_config),
                          (tconfigs.get_smoke_config, r_smoke_config)):
         t, r = get_t(arch), get_r(arch)
         assert dataclasses.asdict(t) == dataclasses.asdict(r)
         assert t.n_params == r.n_params and t.n_active_params == r.n_active_params
-    for unported in ("llama-3.2-vision-90b", "whisper-large-v3"):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10"):
-            tconfigs.get_config(unported)
     with pytest.raises(KeyError):
         tconfigs.get_config("gpt-2")
-    vlm = dataclasses.replace(tconfigs.get_smoke_config(ARCH), family="vlm")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10"):
-        tfm.make_forward(vlm)
+    with pytest.raises(AssertionError):
+        dataclasses.replace(tconfigs.get_smoke_config(ARCH), family="retnet")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -224,11 +224,18 @@ def test_remat_policies_give_the_same_gradients(fp32_model):
 
 
 def test_loss_rejects_unported_heads():
+    """The loss passes ``batch["frontend"]`` to a vlm model (which needs
+    it) and rejects an unknown remat policy."""
     _, cfg = _cfgs()
     model = tfm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10"):
-        tfm.make_loss_fn(cfg)(model, {"tokens": torch.zeros((1, 4), dtype=torch.int32),
-                                      "frontend": torch.zeros((1, 2, cfg.d_model))})
+    vlm = dataclasses.replace(get_smoke_config("llama-3.2-vision-90b"), dtype="float32")
+    vmodel = tfm.init_params(vlm, torch.Generator().manual_seed(0), "cpu")
+    tokens = torch.zeros((1, 4), dtype=torch.int32)
+    with pytest.raises(ValueError, match="frontend"):
+        tfm.make_loss_fn(vlm)(vmodel, {"tokens": tokens})
+    frontend = torch.zeros((1, 2, vlm.d_model), dtype=torch.bfloat16)
+    loss = tfm.make_loss_fn(vlm)(vmodel, {"tokens": tokens, "frontend": frontend})
+    assert loss.dtype == torch.float32 and bool(torch.isfinite(loss))
     with pytest.raises(ValueError, match="remat"):
         tfm.make_loss_fn(dataclasses.replace(cfg, remat="some"))(
             model, {"tokens": torch.zeros((1, 4), dtype=torch.int32)})
@@ -372,8 +379,10 @@ def test_token_pipeline_matches_repro_bit_for_bit(seed, n_hosts):
             got = tp.batch(step)["tokens"]
             assert got.dtype == torch.int32 and got.device.type == "cpu"
             np.testing.assert_array_equal(got.numpy(), np.asarray(rp.batch(step)["tokens"]))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TokenPipeline(DataConfig(frontend_tokens=4, d_model=8), device="cpu")
+    batch = TokenPipeline(DataConfig(frontend_tokens=4, d_model=8, global_batch=2),
+                          device="cpu").batch(0)
+    assert tuple(batch["frontend"].shape) == (2, 4, 8)
+    assert batch["frontend"].dtype == torch.bfloat16
 
 
 def test_train_cli_runs_on_cpu(capsys, tmp_path):
