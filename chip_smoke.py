@@ -124,9 +124,11 @@ Phases (each prints its own lines; any failure exits nonzero):
      (c) the MoE dispatch against a per-token loop on 256 tokens (fault:
      gates not renormalised), (d) the first flash-forward call of each
      model's prefill, caught on the path, against the plain version on 8
-     rows, bit-identical twice, timed and recorded among the kernel's
-     checks; then one training step of the deepseek-v3 and kimi-k2 smoke
-     configs (bf16, flash, AdamW) with its flash launches;
+     rows (out by max |diff| / max |out|, the LSE by max |diff|; faults:
+     the last keys dropped, a non-causal call made causal), bit-identical
+     twice, timed and recorded among the kernel's checks; then one
+     training step of the deepseek-v3 and kimi-k2 smoke configs (bf16,
+     flash, AdamW) with its flash launches;
   11. the recurrent families at full width (after phase 10, while phase 4's
      index lives), random weights from a seed: rwkv6-7b (32 RWKV6 layers,
      d_model 4096, 64 WKV heads of 64) and zamba2-1.2b (38 Mamba2 layers,
@@ -167,8 +169,9 @@ Phases (each prints its own lines; any failure exits nonzero):
      the next layer's cross cache), and decode leaving the cross cache as
      the prefill wrote it, (c) the cross cache's bytes against its shapes
      (the fault checks the measurement), (d) the first flash call of each
-     kind against the plain version, timed beside SDPA and recorded among
-     the kernel's checks; (a) and (b) held in bf16 for the vlm, on fp32
+     kind against the plain version as in phase 10 (in bf16, the only gate
+     that can see a wrong tail at whisper's S = 1,500), timed beside SDPA
+     and recorded among the kernel's checks; (a) and (b) held in bf16 for the vlm, on fp32
      copies for whisper; then one training step of whisper at full width (8
      x 448 decoder tokens over 1,500 frames, remat full: 192 / 96 / 96
      flash forward / dQ / dK-dV launches, the first backward of each kind
@@ -191,8 +194,8 @@ Phases (each prints its own lines; any failure exits nonzero):
      merge against the script's own merge of the replicas' results, (3) a
      tier and one service over the first 512 docs, searched exhaustively,
      equal up to ties, (4) degraded reads (mark_down, down_replicas, the
-     counter, fail_on_partial, bit-identical after mark_up), (5) 4,096
-     further docs streamed through stream_into in 16 batches of 256 (ids
+     counter, fail_on_partial, bit-identical after mark_up), (5) 2,048
+     further docs streamed through stream_into in 8 batches of 256 (ids
      contiguous, each on its home's grow segment, read-your-writes as in
      phase 8) and 1,024 deletes, (6) save_pool with the fitted pipeline and
      load_ingest bit for bit, (7) every kernel call caught on the main path
@@ -269,7 +272,10 @@ REACH_FLOOR = 0.90
 TEXT_DOCS, TEXT_QUERIES, TEXT_FIT, TEXT_DENSE = 65_536, 64, 2048, 1024
 TEXT_ENCODE_BATCH, TEXT_SEGMENT, TEXT_VNODES, TEXT_REPLICAS = 1024, 256, 512, 4
 TEXT_REQUESTS, TEXT_BATCH = 256, 32  # per QPS reading: closed-loop batches of 32
-TEXT_STREAM, TEXT_STREAM_BATCH, TEXT_DELETES = 4096, 256, 1024
+# gate 5 streams TEXT_STREAM docs, each batch of 256 probed through every
+# replica and the tier; cut from 4,096 to 2,048 after a whole run took
+# 1,194.2 s of the 1,200 s limit on an H100 (the probes 319.4 s of it)
+TEXT_STREAM, TEXT_STREAM_BATCH, TEXT_DELETES = 2048, 256, 1024
 TEXT_CONTRACT_DOCS = 512  # gate 3: a tier and one service over the first 512 docs
 TEXT_BUILD = None  # BuildConfig() (patched small for a CPU rehearsal)
 # phase 6: RAG at llama3.2-1b's full width
@@ -278,6 +284,17 @@ PROFILE_PAD_S = 0.25  # phase 7: idle card before and after the profiled step, i
 RAG_TOP_K, RAG_CTX = 4, 256  # prefill L = 4 * 256 + 64 = 1088
 RAG_MAX_LEN = 1152
 FLASH_TOL = {"float32": 1e-5, "bfloat16": 2e-2}  # tests/test_flash_attention.py:40
+# the caught flash calls (gate (d) of phases 10-12), read beside FLASH_TOL's
+# elementwise check, which cannot fail a wrong tail: its atol is about a
+# typical |out| where an output averages ~1,000 keys (whisper's, ~0.03), and
+# its LSE limit (~0.17 at an LSE of 7) is four times what dropping 64 of
+# 1,500 keys moves it (~0.04). So out is read as max |diff| / max |plain out|
+# and the fp32 LSE as max |diff|, and two planted faults must read above
+# one of the two limits at every caught shape: the kernel on keys without
+# their last FRONTEND_DROP (at most a quarter of S), and, for a non-causal
+# call, the kernel made causal
+CAUGHT_OUT_GAP = {"float32": 1e-5, "bfloat16": 2e-2}
+CAUGHT_LSE_GAP = 1e-3
 # flash vs naive prefill, bf16, max |last-position logit difference| over 8
 # rows (logits reach ~4.4). CPU rehearsal (examples/torch_flash_vs_naive.py,
 # batch 2, L = 1088): sound 0.039 / 0.050 / 0.055 / 0.084 at 1 / 2 / 4 / 8
@@ -356,7 +373,8 @@ FRONTEND_SCALE = 0.02  # the stub frontend: normal(0, 0.02), as repro's launcher
 # whisper on fp32 copies of its weights (its bf16 readings printed beside).
 # On an H100: sound 0.0072-0.0075 (vlm, bf16) and 2.9e-7-2.1e-6 (whisper,
 # fp32); planted 0.2148-46.83 and 0.003825-1.693 (PERF.md). In bf16
-# whisper's dropped keys (0.4% of its cross output) sit under the rounding
+# whisper's dropped keys (0.4% of its cross output) sit under the rounding;
+# there the caught calls' LSE (gate (d), CAUGHT_LSE_GAP) holds the tail
 FRONTEND_DROP = 64
 FRONTEND_ROWS, FRONTEND_STEPS = 2, 16
 FRONTEND_GAP = {"bfloat16": 0.05, "float32": 1e-3}
@@ -3338,14 +3356,24 @@ def lengths(l: int, s: int) -> str:
     return f"L=S={l}" if l == s else f"L={l} S={s}"
 
 
+def caught_gaps(out, lse, want_out, want_lse) -> tuple[float, float]:
+    """Gate (d)'s readings of a flash forward against the plain version's:
+    max |out - want| / max |want out|, and the LSE's max |difference|."""
+    gap = lambda a, b: float((a.float() - b.float()).abs().max())
+    return gap(out, want_out) / float(want_out.float().abs().max()), gap(lse, want_lse)
+
+
 def check_caught_flash(results: dict, name: str, call, device: str = "cuda",
                        phase: str = "phase 10", gate: str = "gate (d)",
                        part: str = "prefill") -> float:
     """The first flash-forward call of a model's prefill (or ``part``),
     caught on the path by ``first_call`` (phase 10's gate (d)), against the
-    plain version (8 rows), two launches bit-identical; timed beside the
-    plain version and scaled_dot_product_attention, and recorded among the
-    kernel's checks under ``phase``."""
+    plain version (8 rows): elementwise within FLASH_TOL, and out and LSE
+    within CAUGHT_OUT_GAP / CAUGHT_LSE_GAP, which its planted faults (the
+    last keys dropped; a non-causal call made causal) must each exceed; two
+    launches bit-identical; timed beside the plain version and
+    scaled_dot_product_attention, and recorded among the kernel's checks
+    under ``phase``."""
     import torch
     import torch.nn.functional as F
 
@@ -3355,13 +3383,31 @@ def check_caught_flash(results: dict, name: str, call, device: str = "cuda",
     q, k, v = (t.detach() for t in (q, k, v))  # a training step's carry autograd's flags
     scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
     b, h, l, dk = q.shape
-    kvh, dv = k.shape[1], v.shape[3]
+    kvh, s, dv = k.shape[1], k.shape[2], v.shape[3]
     err = check_flash_fwd(results, f"{name} {part}", q, k, v, causal, rows=8, scale=scale)
     first, again = flash_attention_fwd(q, k, v, causal, scale), flash_attention_fwd(
         q, k, v, causal, scale)
     same = all(bool(torch.equal(a, b_)) for a, b_ in zip(first, again))
-    del first, again
     need(same, f"flash {name}: repeated launches differ")
+    rows, drop = slice(0, 8), min(FRONTEND_DROP, max(1, s // 4))
+    qr, kr, vr = q[rows], k[rows], v[rows]
+    want = flash_attention_plain(qr, kr, vr, causal, scale)
+    out_lim = CAUGHT_OUT_GAP[str(q.dtype).removeprefix("torch.")]
+    readings = {"sound": caught_gaps(first[0][rows], first[1][rows], *want)}
+    del first, again
+    readings[f"planted: last {drop} keys dropped"] = caught_gaps(*flash_attention_fwd(
+        qr, kr[:, :, :s - drop], vr[:, :, :s - drop], causal, scale), *want)
+    if not causal:
+        readings["planted: made causal"] = caught_gaps(
+            *flash_attention_fwd(qr, kr, vr, True, scale), *want)
+    del want
+    share = lambda o, g: max(o / out_lim, g / CAUGHT_LSE_GAP)
+    gaps = "; ".join(f"{label} out {o:.4g} LSE {g:.4g}" for label, (o, g) in readings.items())
+    for label, (o, g) in readings.items():
+        planted = label != "sound"
+        need(share(o, g) > 1 if planted else share(o, g) <= 1,
+             f"flash {name} {part} {gate}: {label} out {o:.4g} LSE {g:.4g} "
+             f"{'within' if planted else 'beyond'} the limits {out_lim} / {CAUGHT_LSE_GAP}")
     if device != "cuda":  # a CPU rehearsal: the plain version against itself, nothing timed
         return err
     ms = time_ms(lambda: flash_attention_fwd(q, k, v, causal, scale), 5)
@@ -3379,14 +3425,16 @@ def check_caught_flash(results: dict, name: str, call, device: str = "cuda",
     torch.cuda.empty_cache()
     nbytes, flops, rate = flash_work(q, k, v, causal)
     b_ms, b_by = bound(nbytes, flops, rate)
-    shape = (f"{name}_{part} B={b} H={h} KV={kvh} {lengths(l, k.shape[2])} dk={dk} dv={dv} "
+    shape = (f"{name}_{part} B={b} H={h} KV={kvh} {lengths(l, s)} dk={dk} dv={dv} "
              f"scale={scale:.6g} {'causal' if causal else 'non-causal'} {str(q.dtype)[6:]}")
+    out_gap, lse_gap = readings["sound"]
     results["flash_attention_fwd"]["checks"].append(dict(
-        shape=shape, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-        library_ms=library_ms, phase=phase))
-    say(f"{phase} {gate} flash {shape}, caught on the path: max_abs_err (8 rows) {err:.3g}, "
-        f"two launches bit-identical; ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms {b_ms:.4f} "
-        f"({b_by}) sdpa_ms {library_ms if library_ms is None else round(library_ms, 4)}")
+        shape=shape, max_abs_err=err, out_gap=out_gap, lse_gap=lse_gap, ms=ms,
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library_ms, phase=phase))
+    say(f"{phase} {gate} flash {shape}, caught on the path: max_abs_err (8 rows) {err:.3g}; "
+        f"{gaps} (limits out {out_lim}, LSE {CAUGHT_LSE_GAP}); two launches bit-identical; "
+        f"ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms {b_ms:.4f} ({b_by}) "
+        f"sdpa_ms {library_ms if library_ms is None else round(library_ms, 4)}")
     return err
 
 
@@ -4418,13 +4466,17 @@ def serve_frontend(name: str, results: dict, check, device: str = "cuda") -> Non
     engine.generate(prompts[:2], 2, frontend=frontend[:2])  # warm-up: library handles, allocator
 
     # ---- the main path: counts zeroed just before, read just after --------
-    measured = []  # the served prefill's cross cache: bytes, and with the frames kept (planted)
+    # the served prefill's cross cache: its bytes, and those of a planted
+    # cache that also kept the frames, measured the same way
+    measured = []
     sound_prefill = engine._prefill
+    cross_bytes_of = lambda cache: sum(t.numel() * t.element_size()
+                                       for t in cache["cross"].values())
 
     def prefill(params_, tokens, frames):
         logits, cache = sound_prefill(params_, tokens, frames)
-        nbytes = sum(t.numel() * t.element_size() for t in cache["cross"].values())
-        measured.append((nbytes, nbytes + frames.numel() * frames.element_size()))
+        planted = dict(cache, cross=dict(cache["cross"], frames=frames))
+        measured.append((cross_bytes_of(cache), cross_bytes_of(planted)))
         return logits, cache
 
     engine._prefill = prefill
@@ -4464,7 +4516,7 @@ def serve_frontend(name: str, results: dict, check, device: str = "cuda") -> Non
     check(bool(((out >= 0) & (out < cfg.vocab)).all()), f"{name}: tokens out of range")
 
     # ---- gate (c): the cross cache's bytes against its shapes --------------
-    # planted, a check of the measurement: a cache that also kept the frames
+    # planted, a check of the measurement: it must see a cache's extra leaf
     say(f"phase 12 {name} gate (c) cross cache bytes: measured {cross_bytes}, from the shapes "
         f"2 x {n_cross} layers x {requests} x {t_len} x {cfg.n_kv_heads} x {cfg.head_dim} x "
         f"{dt.itemsize} B = {want_bytes}; planted fault the frames kept too {planted_bytes}")

@@ -89,9 +89,8 @@ def main(argv=None) -> None:
     cfg = dataclasses.replace(get_config(args.arch), attn_impl="flash")
     tcfg = TrainConfig(opt=OptConfig(lr=3e-4, warmup_steps=2, total_steps=10))
     state = make_train_state(cfg, tcfg, torch.Generator(device="cuda").manual_seed(SEED))
-    frontend = cfg.n_frontend_tokens if cfg.family in ("vlm", "audio") else 0
     pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=args.seq, global_batch=args.batch,
-                                    frontend_tokens=frontend, d_model=cfg.d_model))
+                                    frontend_tokens=cfg.n_frontend_tokens, d_model=cfg.d_model))
     batches = [pipe.batch(s) for s in range(2 + REPS)]
     step = make_train_step(cfg, tcfg)
     _build.library()  # the build (nvcc) stays out of the first step

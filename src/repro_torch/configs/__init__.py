@@ -3,8 +3,7 @@ ported architecture, each exporting ``CONFIG`` (the published configuration)
 and ``smoke_config()`` (a reduced same-family config for CPU tests).
 
 ``list_archs`` names every architecture of the reference; every one of
-them is ported (``PORTED``): the dense, moe, ssm, hybrid, vlm and audio
-families.
+them is ported: the dense, moe, ssm, hybrid, vlm and audio families.
 """
 
 from __future__ import annotations
@@ -23,7 +22,6 @@ ARCHS = [
     "deepseek-v3-671b",
     "whisper-large-v3",
 ]
-PORTED = tuple(ARCHS)
 
 _MODULES = {name: name.replace("-", "_").replace(".", "_") for name in ARCHS}
 

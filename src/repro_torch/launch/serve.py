@@ -44,7 +44,7 @@ def main(argv=None) -> None:
         rng.integers(0, cfg.vocab, size=(args.requests, args.prompt_len)), dtype=torch.int32,
         device=dev)
     frontend = None
-    if cfg.family in ("vlm", "audio"):  # the stub patch / frame embeddings
+    if cfg.n_frontend_tokens:  # the stub patch / frame embeddings
         frontend = torch.as_tensor(
             rng.normal(0, 0.02, size=(args.requests, cfg.n_frontend_tokens, cfg.d_model)),
             dtype=dtype_of(cfg), device=dev)

@@ -52,8 +52,7 @@ def main(argv=None) -> None:
     )
     pipe = TokenPipeline(
         DataConfig(vocab=cfg.vocab, seq_len=args.seq, global_batch=args.batch, seed=args.seed,
-                   frontend_tokens=cfg.n_frontend_tokens if cfg.family in ("vlm", "audio")
-                   else 0, d_model=cfg.d_model),
+                   frontend_tokens=cfg.n_frontend_tokens, d_model=cfg.d_model),
         device=dev,
     )
     step_fn = make_train_step(cfg, tcfg, None, None)

@@ -472,13 +472,14 @@ def cache_shape(cfg: ModelConfig, batch: int, max_len: int) -> dict:
     a = (attn.mla_cache_shape if cfg.use_mla else attn.kv_cache_shape)(cfg, batch, max_len)
     stack = lambda n, tree=a: {k: attn.TensorSpec((n,) + s.shape, s.dtype)
                                for k, s in tree.items()}
-    cross = attn.kv_cache_shape(cfg, batch, cfg.n_frontend_tokens)
     if cfg.family == "vlm":
         n_groups = cfg.n_layers // cfg.cross_attn_every
         return {"self": stack(n_groups, stack(cfg.cross_attn_every - 1)),
-                "cross": stack(n_groups, cross)}
+                "cross": stack(n_groups, attn.kv_cache_shape(cfg, batch, cfg.n_frontend_tokens))}
     if cfg.family == "audio":
-        return {"self": stack(cfg.n_layers), "cross": stack(cfg.n_layers, cross)}
+        return {"self": stack(cfg.n_layers),
+                "cross": stack(cfg.n_layers,
+                               attn.kv_cache_shape(cfg, batch, cfg.n_frontend_tokens))}
     if cfg.family == "dense":
         return {"layers": stack(cfg.n_layers)}
     if cfg.family == "ssm":
