@@ -53,6 +53,27 @@ Phases (each prints its own lines; any failure exits nonzero):
      variants and not the other's); then int8 storage against fp32 apart
      from the graph: brute-force top-10 overlap and the score gap against
      the gap the format allows, with planted faults that must fail;
+  13. the index side over a device mesh of one card (run after phase 5,
+     before phase 8): an NCCL process group of world 1 in this process
+     (an in-process store; the NCCL version printed), a (1, 1, 1)
+     ("pod", "data", "model") mesh; over phase 5's fp32 group and its int8
+     twin, under phase 5's three-path, RRF and keyword specs: (a) the
+     sharded search (make_distributed_search_padded on the rank's block)
+     against the local pass (make_local_group_search) on 1,024 queries,
+     ids and expanded equal, scores and path scores within 1e-6; (b) a
+     mesh-fronted HybridSearchService over the SegmentedIndex answering
+     phase 5's requests with the ids of phase 5's pool service, both QPS
+     printed beside the card; (c) build_index_sharded over the first 2^18
+     docs as 4 segments against build_segmented_index with the same seeds,
+     every array bit-equal, both times printed; (d) one
+     make_distributed_descent_round over a 2^16 segment against
+     _descent_round_chunk, bit-equal; (e) two planted faults (one
+     segment's global ids rotated, one segment's results dropped before
+     the merge) that must each fail (a)'s comparison; the refusals (a
+     mesh of another world size, a cpu mesh on the nccl group, a cpu
+     tensor in a cuda collective); (f) the launches of each kernel on
+     these paths, each > 0, added to the kernels line; the group is
+     destroyed at the end;
   8. the write path at full width (run after phase 5, before phase 6):
      phase 5's int8 pool served with a SegmentRouter attached (default
      RouterConfig), a writer thread upserting 2048 sealed docs in 32 batches
@@ -206,9 +227,9 @@ Phases (each prints its own lines; any failure exits nonzero):
      in none, (8) the bundled text corpus: hybrid recall@10 no lower than
      dense-only and retrieve_text equal to a direct search;
   then the kernels line: launches on each variant's path (phases 4, 6, 8,
-     9, 10 and 11 plus the fp32 pool's serving for the fp32 variants, phases
-     4, 8 and 9 for pairwise_tile, the int8 pool's serving and phase 8 for
-     the int8 variants, phases 6, 7, 10, 11 and 12 for flash_attention_fwd,
+     9, 10, 11 and 13 plus the fp32 pool's serving for the fp32 variants,
+     phases 4, 8, 9 and 13 for pairwise_tile, the int8 pool's serving and
+     phases 8 and 13 for the int8 variants, phases 6, 7, 10, 11 and 12 for flash_attention_fwd,
      phases 7, 10, 11 and 12 for the backward kernels), errors, times and
      bounds at the shape the path runs most (the flash kernels with their
      route by dtype as ``variant``, and phases 10-12's shapes under
@@ -250,6 +271,12 @@ N_SEGMENT = 2**18  # phase 5: the 2^20 corpus as four sealed segments
 # group's four segments (core/distributed.py searches a group as one index)
 SERVE_ROWS = 32 * (N_FULL // N_SEGMENT)
 PROFILED_CHUNKS = 16  # phase 4: prune chunks replayed under torch.profiler
+MESH_TOL = 1e-6  # phase 13 (a): sharded vs local scores and path scores
+MESH_TIMEOUT_S = 300.0  # phase 13: its process group's collectives
+MESH_BUILD_DOCS = 2**18  # phase 13 (c): the first 2^18 docs as 4 segments of 2^16
+MESH_BUILD_SEGMENTS = 4
+MESH_SEED = 200
+MESH_BUILD = None  # BuildConfig() (patched small for a CPU rehearsal)
 RECALL_GAP = 0.02  # int8 three-path recall@10 must stay within this of fp32 (ROADMAP Queue 1)
 # int8-stored brute-force top-10 overlap with fp32's: sound 0.9996, planted
 # scale faults 0.0009 and 0.9769 on an H100 at 2^20 (PERF.md, Findings PR 12)
@@ -1505,10 +1532,11 @@ def phase_full(corpus_bundle, results: dict):
     return index
 
 
-def phase_serving(corpus_bundle, results: dict, device: str = "cuda"):
+def phase_serving(corpus_bundle, results: dict, device: str = "cuda", keep=None):
     """Four sealed segments of 2^18 docs, fp32 and int8, served through
     HybridSearchService. (``device`` lets the phase be rehearsed on the CPU
-    at a tiny size.)"""
+    at a tiny size.) ``keep`` (a dict), when given, receives the two pools,
+    the request specs and what each pool's service returned, for phase 13."""
     import dataclasses
 
     import numpy as np
@@ -1698,7 +1726,230 @@ def phase_serving(corpus_bundle, results: dict, device: str = "cuda"):
     need(gap_ratio <= 1.0, f"int8 score gap {gap_ratio:.4f} of the allowed gap")
     for k, (ov, r) in readings.items():
         need(ov < INT8_OVERLAP or r > 1.0, f"planted fault {k} passes the int8 checks")
+    if keep is not None:
+        keep.update(pools={"float32": pool, "int8": pool_q}, specs=specs, served=out)
     return pool_q, out["int8"]["rows"]["three_path"]["recall"]
+
+
+def phase_mesh(corpus_bundle, served: dict, results: dict, card: str = "not a card",
+               device: str = "cuda") -> None:
+    """Phase 13: the index side over a device mesh of one card. An NCCL
+    process group of world 1 in this process (an in-process store), a (1, 1,
+    1) ("pod", "data", "model") mesh; phase 5's fp32 group and its int8 twin
+    searched through the sharded search against the local pass, served by
+    the mesh-fronted service, a sharded build against the sequential one, a
+    descent round, planted faults, refusals and the launches of each kernel
+    on these paths. (``device="cpu"`` rehearses it under gloo.)"""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import distributed as tdist
+    from repro_torch.core.build_pipeline import _descent_init
+    from repro_torch.core.distributed import SegmentedIndex
+    from repro_torch.core.index import BuildConfig
+    from repro_torch.core.knn_graph import _descent_round_chunk, _init_graph
+    from repro_torch.core.search import SearchParams
+    from repro_torch.kernels.fused_topk import fused_topk, fused_topk_int8
+    from repro_torch.kernels.hybrid_distance import hybrid_distance, hybrid_distance_int8
+    from repro_torch.kernels.pairwise_tile import pairwise_tile
+    from repro_torch.launch.mesh import all_gather_cat, axis_group, make_mesh
+    from repro_torch.serving.hybrid_service import HybridSearchService
+
+    c, t_phase = corpus_bundle, time.perf_counter()
+    wrappers = {"hybrid_distance": hybrid_distance, "hybrid_distance_int8": hybrid_distance_int8,
+                "fused_topk": fused_topk, "fused_topk_int8": fused_topk_int8,
+                "pairwise_tile": pairwise_tile}
+    counted = {k: 0 for k in wrappers}
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+
+    def on_path(fn):
+        """Run a main-path call with the launch counts zeroed just before and
+        read just after; returns its result."""
+        for w in wrappers.values():
+            w.launches = 0
+        out = fn()
+        sync()
+        for k, w in wrappers.items():
+            counted[k] += w.launches
+        return out
+
+    if device == "cuda":
+        v = torch.cuda.nccl.version()
+        say(f"phase 13 NCCL {'.'.join(map(str, v)) if isinstance(v, tuple) else v}, torch "
+            f"{torch.__version__}")
+    mesh = make_mesh((1, 1, 1), ("pod", "data", "model"),
+                     device_type="cuda" if device == "cuda" else "cpu", store=dist.HashStore(),
+                     rank=0, world_size=1, timeout_s=MESH_TIMEOUT_S)
+    try:
+        say(f"phase 13 mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))} on "
+            f"{mesh.device_type} ({dist.get_backend()}), {tdist.mesh_segment_count(mesh)} "
+            "segment device")
+        kwds = served["specs"]
+        n_q = c.queries.n
+        pad = torch.full((n_q, 1), -1, dtype=torch.int32, device=device)
+
+        def compare(got, want) -> list[str]:
+            """(a)'s comparison: what differs, empty when it holds."""
+            bad = []
+            if not torch.equal(got.ids, want.ids):
+                bad.append(f"ids differ in {int((got.ids != want.ids).any(1).sum())} rows")
+            for f in ("scores", "path_scores"):
+                gap = float((getattr(got, f) - getattr(want, f)).abs().max())
+                if not gap <= MESH_TOL:
+                    bad.append(f"{f} differ by {gap:.3g}")
+            if not torch.equal(got.expanded, want.expanded):
+                bad.append(f"expanded {int(got.expanded[0])} != {int(want.expanded[0])}")
+            return bad
+
+        # ---- (a) the sharded search against the local pass ------------------
+        planted: dict = {}
+        for dtype, pool in served["pools"].items():
+            group = pool.groups[0]
+            params = SearchParams(use_keywords=True, corpus_dtype=dtype)
+            block = tdist.place_segmented_index(group, mesh)
+            dist_fn = tdist.make_distributed_search_padded(mesh, params)
+            local_fn = tdist.make_local_group_search(params)
+            for name, spec, kw in kwds:
+                kwt = pad if kw is None else torch.as_tensor(kw, device=device)
+                t = time.perf_counter()
+                got = on_path(lambda: dist_fn(block, c.queries, spec, kwt, pad))
+                d_s = time.perf_counter() - t
+                t = time.perf_counter()
+                want = local_fn(group, c.queries, spec, kwt, pad)
+                sync()
+                l_s = time.perf_counter() - t
+                bad = compare(got, want)
+                say(f"phase 13 (a) {dtype} {name}: sharded {d_s:.3f} s, local {l_s:.3f} s, "
+                    f"{n_q} queries: " + ("; ".join(bad) or "ids equal, scores and path scores "
+                                          f"within {MESH_TOL}, expanded {int(got.expanded[0])}"))
+                need(not bad, f"phase 13 (a) {dtype} {name}: {bad}")
+                if dtype == "float32" and name == "three_path":
+                    planted["want"], planted["args"] = want, (block, spec, kwt)
+
+        # ---- (e) planted faults: each must fail (a)'s comparison -----------
+        block, spec, kwt = planted["args"]
+        dist_fn = tdist.make_distributed_search_padded(
+            mesh, SearchParams(use_keywords=True, corpus_dtype="float32"))
+        gids = block.global_ids.clone()
+        gids[0] = torch.roll(gids[0], 1)
+        rotated = SegmentedIndex(block.index, gids)
+        search_segments = tdist._search_segments
+
+        def dropping(*a, **k):
+            g, sc, ps, total = search_segments(*a, **k)
+            g, sc = g.clone(), sc.clone()
+            g[1], sc[1] = -1, float("-inf")  # segment 1's results never reach the merge
+            return g, sc, ps, total
+
+        faults = {"segment 0's global ids rotated": lambda: dist_fn(rotated, c.queries, spec, kwt,
+                                                                    pad)}
+        readings = {name: compare(fn(), planted["want"]) for name, fn in faults.items()}
+        tdist._search_segments = dropping
+        try:
+            readings["segment 1's results dropped before the merge"] = compare(
+                dist_fn(block, c.queries, spec, kwt, pad), planted["want"])
+        finally:
+            tdist._search_segments = search_segments
+        for name, bad in readings.items():
+            say(f"phase 13 (e) planted {name}: " + ("; ".join(bad) or "passes"))
+            need(bool(bad), f"phase 13 (e) planted fault passes (a): {name}")
+
+        # ---- (b) the mesh-fronted service over the SegmentedIndex ----------
+        for dtype, pool in served["pools"].items():
+            group = pool.groups[0]
+            with HybridSearchService(group, SearchParams(use_keywords=True, corpus_dtype=dtype),
+                                     mesh=mesh) as svc:
+                _ = svc.path_stats
+                for name, spec, kw in kwds:
+                    sync()
+                    t = time.perf_counter()
+                    res = on_path(lambda: svc.search(c.queries, spec, keywords=kw))
+                    secs = time.perf_counter() - t
+                    row = served["served"][dtype]["rows"][name]
+                    same = torch.equal(res.ids, row["res"].ids)
+                    say(f"phase 13 (b) {dtype} {name}: mesh-fronted service QPS "
+                        f"{n_q / secs:.1f}, phase 5's pool service QPS {row['qps']:.1f} "
+                        f"({card}); ids {'equal' if same else 'DIFFER'}")
+                    need(same, f"phase 13 (b) {dtype} {name}: ids differ from phase 5's")
+                say(f"phase 13 (b) {dtype}: {svc.stats.batches} batches, "
+                    f"{svc.stats.compiles} compiles")
+
+        # ---- (c) the sharded build against the sequential one --------------
+        docs = c.docs[0:MESH_BUILD_DOCS]
+        cfg = MESH_BUILD or BuildConfig()
+        sync()
+        t = time.perf_counter()
+        sharded = on_path(lambda: tdist.build_index_sharded(docs, MESH_BUILD_SEGMENTS, cfg,
+                                                            mesh=mesh, seed=MESH_SEED))
+        sharded_s = time.perf_counter() - t
+        t = time.perf_counter()
+        seq = tdist.build_segmented_index(docs, MESH_BUILD_SEGMENTS, cfg, seed=MESH_SEED,
+                                          device=device)
+        sync()
+        seq_s = time.perf_counter() - t
+        names = [f"corpus[{i}]" for i in range(5)] + [
+            "semantic_edges", "keyword_edges", "logical_edges", "doc_entities", "entity_to_docs",
+            "entity_adj", "entry_points", "alive", "self_ip", "global_ids"]
+        differ = [n for n, a, b in zip(names, sharded.leaves(), seq.leaves()) if not torch.equal(a, b)]
+        say(f"phase 13 (c) build of {MESH_BUILD_DOCS} docs as {MESH_BUILD_SEGMENTS} segments: "
+            f"sharded {sharded_s:.2f} s, sequential {seq_s:.2f} s; every array "
+            + ("bit-equal" if not differ else f"but {differ} bit-equal"))
+        need(not differ, f"phase 13 (c): {differ} differ from the sequential build")
+
+        # ---- (d) one descent round on one segment --------------------------
+        knn = cfg.knn
+        seg0 = docs[0:MESH_BUILD_DOCS // MESH_BUILD_SEGMENTS]
+        n0 = seg0.n
+        gen = torch.Generator(device=device).manual_seed(MESH_SEED)
+        nbr, sc = _descent_init(seg0, None, _init_graph(n0, knn.k, gen, device), knn)
+        rand = torch.randint(0, n0, (n0, knn.extra_random), generator=gen, device=device,
+                             dtype=torch.int32)
+        stack1 = lambda t: t[None]
+        round_fn = tdist.make_distributed_descent_round(mesh, knn)
+        t = time.perf_counter()
+        ids_d, sc_d = on_path(lambda: round_fn(tdist.map_corpus(seg0, stack1), nbr[None],
+                                               sc[None], rand[None]))
+        d_s = time.perf_counter() - t
+        node_ids = torch.arange(n0, dtype=torch.int32, device=device)
+        ids_r, sc_r = _descent_round_chunk(seg0, nbr, seg0, node_ids, nbr, sc, rand, knn)
+        same = torch.equal(ids_d[0], ids_r) and torch.equal(sc_d[0], sc_r)
+        say(f"phase 13 (d) descent round over {n0} nodes (k {knn.k}): {d_s:.3f} s, "
+            + ("bit-equal to _descent_round_chunk" if same else "DIFFERS"))
+        need(same, "phase 13 (d): the descent round differs from _descent_round_chunk")
+
+        # ---- refusals: nothing falls back -----------------------------------
+        tries = {
+            "a mesh of 2 on a world of 1": lambda: make_mesh((2, 1, 1), ("pod", "data", "model"),
+                                                             device_type=mesh.device_type),
+            "a cpu mesh on the nccl group": lambda: make_mesh((1,), ("data",), device_type="cpu"),
+            "a cpu tensor in a cuda collective": lambda: all_gather_cat(
+                mesh, torch.zeros(2), axis_group(mesh, ("data",))),
+        }
+        if device != "cuda":
+            tries.pop("a cpu mesh on the nccl group")
+            tries.pop("a cpu tensor in a cuda collective")
+        refused = {}
+        for name, fn in tries.items():
+            try:
+                fn()
+                refused[name] = "passed"
+            except (RuntimeError, ValueError) as e:
+                refused[name] = f"raised {type(e).__name__}"
+        say("phase 13 refusals: " + "; ".join(f"{k}: {v}" for k, v in refused.items()))
+        need(all(v != "passed" for v in refused.values()), f"phase 13: a fallback {refused}")
+    finally:
+        dist.destroy_process_group()
+
+    # ---- (f) launches on the phase's paths ---------------------------------
+    say(f"phase 13 (f) launches on the mesh paths: {json.dumps(counted)}")
+    for k, n in counted.items():
+        if device == "cuda":
+            need(n > 0, f"phase 13: {k} was not launched on the mesh paths")
+        results[k]["launches"] += n
+    say(f"phase 13: {time.perf_counter() - t_phase:.1f} s")
 
 
 def graph_reach(idx):
@@ -5081,19 +5332,19 @@ def phase_train(cfg, results: dict):
     torch.cuda.empty_cache()
 
 
-PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12)
+PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13)
 
 
 def parse_phases(argv) -> set:
     """``--phases 1,4,11``: a partial run, for finding faults (phase 1 always
-    runs; 8 needs 5, and 6, 10 and 11 need 4; 12 needs nothing). It prints
-    no kernels line and no last line. Without the flag, every phase."""
+    runs; 8 and 13 need 5, and 6, 10 and 11 need 4; 12 needs nothing). It
+    prints no kernels line and no last line. Without the flag, every phase."""
     import argparse
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default=",".join(map(str, PHASES)))
     chosen = {1} | {int(x) for x in ap.parse_args(argv).phases.split(",")}
-    if not chosen <= set(PHASES) or (8 in chosen and 5 not in chosen) or (
+    if not chosen <= set(PHASES) or (chosen & {8, 13} and 5 not in chosen) or (
             chosen & {6, 10, 11} and 4 not in chosen):
         raise SystemExit(f"chip_smoke: bad --phases {sorted(chosen)}")
     return chosen
@@ -5134,7 +5385,12 @@ def main(argv=None) -> int:
         index = phase_full(full, results) if 4 in phases else None
         torch.cuda.empty_cache()
         if 5 in phases:
-            pool_q, int8_recall = phase_serving(full, results)
+            served: dict = {}
+            pool_q, int8_recall = phase_serving(full, results, keep=served)
+            torch.cuda.empty_cache()
+            if 13 in phases:  # phase 5's pools and requests, before phase 8's writes
+                phase_mesh(full, served, results, card)
+            served.clear()
             torch.cuda.empty_cache()
             if 8 in phases:
                 phase_write(full, pool_q, results, int8_recall)

@@ -7,8 +7,14 @@ searched together by one group search under one cache key; different
 capacities live in different groups. Group results merge per row in GLOBAL-id space, so a pool
 search is a segment search with more segments. Appending a segment touches at
 most one group; every other group is reused by reference, so its cache key
-stays valid. Placement over a mesh (``pool_placement``,
-``place_pool``) belongs to the multi-GPU slice.
+stays valid.
+
+Placement over a mesh (``pool_placement``, ``place_pool``) follows
+``repro``'s rule: a group shards over the mesh's segment axes if and only if
+the mesh has more than one segment device and the group's segment count is
+a multiple of that count; each device then owns a contiguous block of its
+segments. Every other group stays whole on the coordinator (rank 0), which
+serves it with the collective-free local pass.
 """
 
 from __future__ import annotations
@@ -18,15 +24,19 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.build_pipeline import BuildDraws, build_index, pad_index_rows
 from repro_torch.core.distributed import (
     SegmentedIndex,
     alive_docs,
     mark_deleted_segmented,
+    mesh_segment_count,
+    place_segmented_index,
     resolve_global_ids,
 )
 from repro_torch.core.index import BuildConfig
+from repro_torch.launch.mesh import mesh_device
 from repro_torch.core.usms import PAD_IDX, FusedVectors, cat_fused, quantize_corpus
 
 
@@ -253,3 +263,67 @@ def remove_segments(pool: SegmentPool, picks: Sequence[tuple[int, int]]) -> Segm
 def extract_segment_docs(pool: SegmentPool, g: int, s: int):
     """Live docs of one pooled segment (corpus rows, global ids, entity rows)."""
     return alive_docs(pool.groups[g].map(lambda t: t[s:s + 1]))
+
+
+# ---------------------------------------------------------------------------
+# Placement: logical segments -> devices (many per device)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class GroupPlacement:
+    """Where one shape group's segments live.
+
+    ``sharded=True``: the group's leading axis is split over the mesh's
+    segment axes, ``devices[s]`` the segment-axes device index serving
+    segment s (each device owns a contiguous block of ``n_segments /
+    mesh_segment_count`` segments). ``sharded=False``: the group stays whole
+    on the coordinator, served by the collective-free local group search."""
+
+    group: int
+    n_segments: int
+    capacity: int
+    sharded: bool
+    devices: tuple[int, ...]
+
+
+def group_shards(n_segments: int, mesh) -> bool:
+    """The placement rule: a group of ``n_segments`` shards over the mesh
+    iff the mesh has more than one segment device and the count is a
+    multiple of theirs."""
+    msc = mesh_segment_count(mesh) if mesh is not None else 1
+    return msc > 1 and n_segments % msc == 0
+
+
+def pool_placement(pool: SegmentPool, mesh=None) -> list[GroupPlacement]:
+    """The placement map: which device serves which pooled segment
+    (``group_shards`` decides each group)."""
+    msc = mesh_segment_count(mesh) if mesh is not None else 1
+    out = []
+    for g, group in enumerate(pool.groups):
+        n_seg = group.n_segments
+        sharded = group_shards(n_seg, mesh)
+        devices = tuple(s // (n_seg // msc) for s in range(n_seg)) if sharded else (0,) * n_seg
+        out.append(GroupPlacement(group=g, n_segments=n_seg,
+                                  capacity=int(group.global_ids.shape[1]), sharded=sharded,
+                                  devices=devices))
+    return out
+
+
+def place_pool(pool: SegmentPool, mesh=None) -> SegmentPool:
+    """This rank's part of the pool per the placement map, on its device: a
+    sharded group's block (``place_segmented_index``); every other group
+    whole on the coordinator (rank 0) and, on the other ranks, an empty
+    slice of it (0 segments), so group indices agree on every rank. Off
+    the mesh, the pool itself."""
+    if mesh is None:
+        return pool
+    coordinator = dist.get_rank() == 0
+    groups = []
+    for group, pl in zip(pool.groups, pool_placement(pool, mesh)):
+        if pl.sharded:
+            groups.append(place_segmented_index(group, mesh))
+        else:
+            dev = mesh_device(mesh)
+            groups.append(group.map(lambda t: (t if coordinator else t[:0]).to(dev)))
+    return SegmentPool(groups=groups)

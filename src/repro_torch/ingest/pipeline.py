@@ -304,20 +304,27 @@ class IngestPipeline:
 
     def build_sharded(self, ingested: IngestedCorpus, n_segments: int,
                       build_cfg: Optional[BuildConfig] = None, *, mesh=None,
-                      generator: Optional[torch.Generator] = None, draws=None):
-        """Segment-sharded build (``SegmentedIndex``): every segment built
-        one after another on the pipeline's device
-        (``build_segmented_index``). ``draws[s]`` (optional) are segment
-        s's draws. A mesh waits for the multi-GPU slice."""
-        from repro_torch.core.distributed import build_segmented_index
+                      generator: Optional[torch.Generator] = None,
+                      seed: Optional[int] = None, draws=None):
+        """Segment-sharded build (``SegmentedIndex`` for the serving layer):
+        with a ``mesh``, every segment builds in parallel across the ranks
+        (``build_index_sharded``, collective: segment s draws from ``seed +
+        s``, default seed 0); without one, the segments build one after
+        another on the pipeline's device (``build_segmented_index``, from
+        ``generator`` or, given ``seed``, as the mesh build draws).
+        ``draws[s]`` (optional) are segment s's draws."""
+        from repro_torch.core.distributed import build_index_sharded, build_segmented_index
 
+        cfg = build_cfg or BuildConfig()
         if mesh is not None:
-            raise NotImplementedError(
-                "a sharded build over a mesh waits for the multi-GPU slice "
-                "(ROADMAP Queue 1 item 5)")
+            if generator is not None:
+                raise ValueError("a sharded build over a mesh draws from a seed, not a generator")
+            return build_index_sharded(ingested.docs, n_segments, cfg, mesh=mesh,
+                                       seed=0 if seed is None else seed, draws=draws,
+                                       **self._kg_kwargs(ingested))
         return build_segmented_index(
-            ingested.docs, n_segments, build_cfg or BuildConfig(), generator=generator,
-            draws=draws, device=self.device, **self._kg_kwargs(ingested))
+            ingested.docs, n_segments, cfg, generator=generator, seed=seed, draws=draws,
+            device=self.device, **self._kg_kwargs(ingested))
 
     def stream_into(self, target, texts: Sequence[str], *,
                     generator: Optional[torch.Generator] = None, draws=None,

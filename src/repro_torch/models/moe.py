@@ -121,4 +121,4 @@ def apply_moe(p, cfg: ModelConfig, x):
 def apply_moe_ep(p, cfg: ModelConfig, x, axis: str = "model"):
     raise NotImplementedError(
         "moe_impl='ep_manual' is shard_map expert parallelism across devices: it comes with "
-        "the multi-GPU slice (ROADMAP Queue 1 item 5)")
+        "the LM side of the multi-GPU slice (ROADMAP Queue 1 item 5), the port's next slice")

@@ -17,9 +17,12 @@
   * ``insert`` / ``mark_deleted`` go through a copy-on-write snapshot swap:
     the writer builds the next index off to the side and publishes it
     atomically, so in-flight batches never see a half-updated index;
-  * the same service fronts a single ``HybridIndex`` and a ``SegmentPool``:
-    a pool read runs ``make_local_group_search`` once per shape group and
-    merges the groups per row in global-id space, fusion-aware;
+  * the same service fronts a single ``HybridIndex``, a ``SegmentPool`` and,
+    over a device mesh, a ``SegmentedIndex``: a pool read runs
+    ``make_local_group_search`` once per shape group and merges the groups
+    per row in global-id space, fusion-aware; a group that shards over the
+    mesh (``core.segment_pool.pool_placement``), and a ``SegmentedIndex``
+    always, runs ``make_distributed_search_padded`` instead;
   * a pool snapshot may carry a *grow segment* (a small ``HybridIndex``
     absorbing streaming inserts, managed by ``serving.segment_router``):
     reads also run ``search_padded`` over it and merge per row in global-id
@@ -29,9 +32,22 @@
     a background pump thread drives ``poll`` so deadline flushes do not
     depend on the submit path.
 
-Writes to a pool go through an attached ``SegmentRouter``. Not in this port
-yet: a ``SegmentedIndex`` or pool behind a mesh (raises
-``NotImplementedError``; ROADMAP Queue 1 item 5).
+Writes to a pool go through an attached ``SegmentRouter``.
+
+Over a mesh (``HybridSearchService(..., mesh=)``) the service runs on rank
+0, the controller: it owns the batcher, the pump, the router and every
+write. Every other rank calls ``follow(mesh)``, which blocks until the
+controller announces the end (``HybridSearchService.stop_followers``, also
+run by ``close`` and on leaving a ``with`` block). Each collective the
+controller starts (a search of a sharded group with the bucket's queries,
+fusion rows, keywords and entities; the shipping of a newly placed group's
+blocks to the ranks that own them; a full compaction) is first announced by
+a broadcast on the world group, then joined by every rank. Groups that do
+not shard are searched by rank 0 alone, unannounced. All of rank 0's
+collectives run under one lock, and an idle controller announces a
+keep-alive every quarter of the mesh's timeout, so a follower whose
+controller stopped or failed raises within that timeout instead of hanging,
+and so does a controller whose follower failed.
 """
 
 from __future__ import annotations
@@ -43,10 +59,19 @@ from typing import Optional, Sequence, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.build_pipeline import BuildDraws
 from repro_torch.core.build_pipeline import insert as index_insert
-from repro_torch.core.distributed import SegmentedIndex, make_local_group_search
+from repro_torch.core.distributed import (
+    SEGMENT_AXES,
+    SegmentedIndex,
+    compact_segmented_index,
+    make_distributed_search_padded,
+    make_local_group_search,
+    mesh_segment_count,
+    place_segmented_index,
+)
 from repro_torch.core.fusion import (
     FUSION_MODE_NAMES,
     FusionSpec,
@@ -58,7 +83,13 @@ from repro_torch.core.fusion import (
 from repro_torch.core.index import INDEX_FIELDS, BuildConfig, HybridIndex
 from repro_torch.core.index import mark_deleted as index_mark_deleted
 from repro_torch.core.search import SearchParams, SearchResult, resolve_params, search_padded
-from repro_torch.core.segment_pool import SegmentPool, group_shape_key
+from repro_torch.core.segment_pool import (
+    SegmentPool,
+    group_shape_key,
+    group_shards,
+    place_pool,
+    pool_placement,
+)
 from repro_torch.core.usms import (
     PAD_IDX,
     FusedVectors,
@@ -67,6 +98,17 @@ from repro_torch.core.usms import (
     SparseVec,
     corpus_nbytes_by_leaf,
     dtype_name,
+    quantize_corpus,
+)
+from repro_torch.launch.mesh import (
+    axis_coordinate,
+    broadcast_object,
+    broadcast_tensors,
+    mesh_device,
+    mesh_timeout_s,
+    recv_tensors,
+    send_tensors,
+    tensor_specs,
 )
 from repro_torch.obs.export import write_metrics_snapshot
 from repro_torch.obs.metrics import GLOBAL as GLOBAL_METRICS
@@ -214,7 +256,7 @@ class _Snapshot:
     copy-on-write unit. ``grow``/``grow_gids`` are a pool's optional grow
     segment and its local-row -> global-id map."""
 
-    index: Union[HybridIndex, SegmentPool]
+    index: Union[HybridIndex, SegmentedIndex, SegmentPool]
     version: int
     grow: Optional[HybridIndex] = None
     grow_gids: Optional[torch.Tensor] = None  # (n_grow,) int32
@@ -223,7 +265,235 @@ class _Snapshot:
 def _index_device(index) -> torch.device:
     if isinstance(index, SegmentPool):
         return index.groups[0].global_ids.device
+    if isinstance(index, SegmentedIndex):
+        return index.global_ids.device
     return index.semantic_edges.device
+
+
+# ---------------------------------------------------------------------------
+# Mesh-fronted serving: rank 0 controls, every other rank follows
+# ---------------------------------------------------------------------------
+
+_SEARCH, _PLACE, _COMPACT, _PING, _STOP = "search", "place", "compact", "ping", "stop"
+
+
+def _flat_args(args) -> list[torch.Tensor]:
+    """A batch's (queries, fusion, keywords, entities) as 17 tensors."""
+    queries, spec, kw, ent = args
+    w, st = spec.weights, spec.stats
+    return [*queries.tensors(), spec.mode, w.dense, w.sparse, w.full, w.kg, spec.rrf_k,
+            st.minv, st.maxv, st.mean, st.std, kw, ent]
+
+
+def _args_from_flat(ts):
+    queries = FusedVectors(ts[0], SparseVec(ts[1], ts[2]), SparseVec(ts[3], ts[4]))
+    spec = FusionSpec(mode=ts[5], weights=PathWeights(*ts[6:10]), rrf_k=ts[10],
+                      stats=PathStats(*ts[11:15]))
+    return queries, spec, ts[15], ts[16]
+
+
+def _segmented_from_leaves(leaves) -> SegmentedIndex:
+    """Inverse of ``SegmentedIndex.leaves()``: 5 corpus tensors make an fp32
+    corpus, 6 an int8 one."""
+    nc = len(leaves) - len(INDEX_FIELDS) - 1
+    c = leaves[:nc]
+    corpus = (FusedVectors(c[0], SparseVec(c[1], c[2]), SparseVec(c[3], c[4])) if nc == 5
+              else QuantizedFusedVectors(c[0], c[1], SparseVec(c[2], c[3]),
+                                         SparseVec(c[4], c[5])))
+    fields = dict(zip(INDEX_FIELDS, leaves[nc:-1]))
+    return SegmentedIndex(HybridIndex(corpus=corpus, **fields), leaves[-1])
+
+
+def _compact(mesh, tensors, n_segments, cfg, seed, corpus_dtype, kg_kwargs):
+    """A full compaction over the mesh, as every rank runs it: the build
+    (collective), then the seal-time quantization."""
+    corpus = FusedVectors(tensors[0], SparseVec(tensors[1], tensors[2]),
+                          SparseVec(tensors[3], tensors[4]))
+    seg = compact_segmented_index(corpus, tensors[5].cpu().numpy(), n_segments, cfg, mesh=mesh,
+                                  seed=seed, **kg_kwargs)
+    if corpus_dtype == "int8":  # builds are always fp32; sealed storage quantizes here
+        seg = SegmentedIndex(dataclasses.replace(
+            seg.index, corpus=quantize_corpus(seg.index.corpus)), seg.global_ids)
+    return seg
+
+
+class _MeshFront:
+    """Rank 0's side of a mesh-fronted service. Announces every collective
+    to the followers, keeps the groups that shard placed on the ranks that
+    own their segments (a group's blocks are shipped once, leaves already
+    shipped are reused), and runs the distributed search. Every collective
+    runs under ``lock``."""
+
+    def __init__(self, mesh, params: SearchParams):
+        if not dist.is_initialized():
+            raise RuntimeError(
+                "a mesh-fronted service needs the mesh's process group (launch.mesh.make_mesh)")
+        if dist.get_rank() != 0:
+            raise ValueError(
+                f"rank {dist.get_rank()} is a follower: the service runs on rank 0, every "
+                "other rank calls serving.hybrid_service.follow(mesh)")
+        self.mesh, self.params = mesh, params
+        self.msc = mesh_segment_count(mesh)
+        self.dist_fn = make_distributed_search_padded(mesh, params)
+        self.lock = threading.RLock()
+        self._tokens = 0
+        # id(group) -> (token, group, rank 0's block); the group held so its
+        # id stays unique while it is placed
+        self._placed: dict[int, tuple[int, SegmentedIndex, SegmentedIndex]] = {}
+        self._last = time.monotonic()
+        self._stopped = False
+        self._idle_s = mesh_timeout_s(mesh) / 4
+        self._keepalive_stop = threading.Event()
+        self._keepalive = threading.Thread(target=self._keep_alive, name="mesh-keepalive",
+                                           daemon=True)
+        self._keepalive.start()
+
+    def _announce(self, op) -> None:
+        if self._stopped:
+            raise RuntimeError("the mesh front was stopped: its followers have left")
+        broadcast_object(op)
+        self._last = time.monotonic()
+
+    def _keep_alive(self) -> None:
+        while not self._keepalive_stop.wait(self._idle_s):
+            with self.lock:
+                if self._stopped:
+                    return
+                if time.monotonic() - self._last >= self._idle_s:
+                    self._announce((_PING,))
+
+    def _ensure(self, pairs, drop_others: bool) -> None:
+        """Place every (group, rank 0's block) pair not yet placed: one
+        announcement, then each follower receives the leaves of its block
+        that no placed group holds already. With ``drop_others``, groups not
+        listed are dropped."""
+        new = [(g, b) for g, b in pairs if id(g) not in self._placed]
+        listed = {id(g) for g, _ in pairs}
+        drop = [gid for gid in self._placed if gid not in listed] if drop_others else []
+        if not new and not drop:
+            return
+        known = {id(leaf): (tok, j) for tok, g, _ in self._placed.values()
+                 for j, leaf in enumerate(g.leaves())}
+        plan = []
+        for g, _ in new:
+            self._tokens += 1
+            leaves = g.leaves()
+            how = [("keep",) + known[id(t)] if id(t) in known else ("recv",) for t in leaves]
+            plan.append((self._tokens, g.n_segments, tensor_specs(leaves), how))
+        self._announce((_PLACE, plan, [self._placed[gid][0] for gid in drop]))
+        for r in range(1, dist.get_world_size()):
+            c = axis_coordinate(self.mesh, SEGMENT_AXES, r)
+            for (g, _), (_, n, _, how) in zip(new, plan):
+                spd = n // self.msc
+                send_tensors(self.mesh, [t[c * spd:(c + 1) * spd] for t, h in
+                                         zip(g.leaves(), how) if h[0] == "recv"], dst=r)
+        for gid in drop:
+            del self._placed[gid]
+        for (g, block), (tok, _, _, _) in zip(new, plan):
+            self._placed[id(g)] = (tok, g, block)
+
+    def place(self, index) -> None:
+        """Place the groups of a snapshot about to be published that run
+        sharded (a ``SegmentedIndex`` always; a pool's per ``place_pool``),
+        and drop every other group's blocks."""
+        if isinstance(index, SegmentedIndex):
+            pairs = [(index, place_segmented_index(index, self.mesh))]
+        elif isinstance(index, SegmentPool):
+            placed = place_pool(index, self.mesh)
+            pairs = [(g, b) for g, b, pl in zip(index.groups, placed.groups,
+                                                pool_placement(index, self.mesh)) if pl.sharded]
+        else:
+            pairs = []
+        with self.lock:
+            self._ensure(pairs, drop_others=True)
+
+    def search(self, group: SegmentedIndex, args) -> SearchResult:
+        """Announce the batch, then search the group over the mesh. A group
+        dropped by a publish since the batch took its snapshot is placed
+        again first."""
+        dev = mesh_device(self.mesh)
+        flat = [torch.as_tensor(t).to(dev) for t in _flat_args(args)]
+        with self.lock:
+            if id(group) not in self._placed:
+                self._ensure([(group, place_segmented_index(group, self.mesh))], False)
+            tok, _, block = self._placed[id(group)]
+            specs = tensor_specs(flat)
+            self._announce((_SEARCH, tok, self.params, specs))
+            broadcast_tensors(self.mesh, flat, specs)
+            return self.dist_fn(block, *_args_from_flat(flat))
+
+    def compact(self, corpus: FusedVectors, gids: np.ndarray, n_segments: int, cfg,
+                seed: int, corpus_dtype: str, kg_kwargs: dict) -> SegmentedIndex:
+        """A full compaction built over the mesh (collective). The result's
+        blocks stay on the ranks that built them."""
+        dev = mesh_device(self.mesh)
+        tensors = [t.to(dev) for t in corpus.tensors()] + [
+            torch.as_tensor(np.asarray(gids, np.int32), device=dev)]
+        with self.lock:
+            self._tokens += 1
+            tok = self._tokens
+            specs = tensor_specs(tensors)
+            self._announce((_COMPACT, tok, n_segments, cfg, seed, corpus_dtype, kg_kwargs, specs))
+            broadcast_tensors(self.mesh, tensors, specs)
+            seg = _compact(self.mesh, tensors, n_segments, cfg, seed, corpus_dtype, kg_kwargs)
+            if group_shards(seg.n_segments, self.mesh):
+                self._placed[id(seg)] = (tok, seg, place_segmented_index(seg, self.mesh))
+            return seg
+
+    def stop(self) -> None:
+        """Announce the end to the followers (idempotent)."""
+        self._keepalive_stop.set()
+        with self.lock:
+            if not self._stopped:
+                self._announce((_STOP,))
+                self._stopped = True
+        if self._keepalive is not threading.current_thread():
+            self._keepalive.join(timeout=5.0)
+
+
+def follow(mesh) -> int:
+    """Follow the mesh-fronted service of rank 0 (every rank but 0 calls
+    this with the mesh it made): join each collective the controller
+    announces, with this rank's block of each placed group, until the
+    controller announces the end (``HybridSearchService.stop_followers``,
+    run by ``close``). Returns the number of searches joined. A controller
+    silent past the mesh's timeout makes this raise, never hang."""
+    if dist.get_rank() == 0:
+        raise ValueError("rank 0 is the controller: it serves through HybridSearchService")
+    msc = mesh_segment_count(mesh)
+    blocks: dict[int, SegmentedIndex] = {}
+    fns: dict = {}
+    searches = 0
+    while True:
+        op = broadcast_object(None)
+        kind = op[0]
+        if kind == _STOP:
+            return searches
+        if kind == _SEARCH:
+            _, tok, params, specs = op
+            flat = broadcast_tensors(mesh, None, specs)
+            if params not in fns:
+                fns[params] = make_distributed_search_padded(mesh, params)
+            fns[params](blocks[tok], *_args_from_flat(flat))
+            searches += 1
+        elif kind == _PLACE:
+            _, plan, drop = op
+            for tok, n, specs, how in plan:
+                spd = n // msc
+                got = iter(recv_tensors(mesh, [((spd,) + shape[1:], dt) for (shape, dt), h
+                                               in zip(specs, how) if h[0] == "recv"]))
+                blocks[tok] = _segmented_from_leaves(
+                    [next(got) if h[0] == "recv" else blocks[h[1]].leaves()[h[2]] for h in how])
+            for tok in drop:
+                blocks.pop(tok, None)
+        elif kind == _COMPACT:
+            _, tok, n_segments, cfg, seed, corpus_dtype, kg_kwargs, specs = op
+            tensors = broadcast_tensors(mesh, None, specs)
+            seg = _compact(mesh, tensors, n_segments, cfg, seed, corpus_dtype, kg_kwargs)
+            if group_shards(n_segments, mesh):
+                blocks[tok] = place_segmented_index(seg, mesh)
+        elif kind != _PING:
+            raise RuntimeError(f"unknown announcement {kind!r}")
 
 
 class HybridSearchService:
@@ -231,20 +501,24 @@ class HybridSearchService:
 
     def __init__(
         self,
-        index: Union[HybridIndex, SegmentPool],
+        index: Union[HybridIndex, SegmentedIndex, SegmentPool],
         params: SearchParams,
         config: Optional[ServiceConfig] = None,
         *,
         mesh=None,
         build_cfg: Optional[BuildConfig] = None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "serving over a mesh waits for the multi-GPU slice (ROADMAP Queue 1 item 5)")
+        """``mesh`` (a ``launch.mesh.make_mesh`` mesh): serve from rank 0,
+        the controller, with every other rank in ``follow(mesh)``. A
+        ``SegmentedIndex`` is served only over a mesh (wrap it with
+        ``SegmentPool.from_segmented`` to serve it on one device)."""
         if isinstance(index, SegmentedIndex):
-            raise ValueError(
-                "a SegmentedIndex is served through a mesh; wrap it with "
-                "SegmentPool.from_segmented to serve it on one device")
+            if mesh is None:
+                raise ValueError("a SegmentedIndex service requires a mesh")
+            if index.n_segments % mesh_segment_count(mesh):
+                raise ValueError(
+                    f"{index.n_segments} segments do not divide over the mesh's "
+                    f"{mesh_segment_count(mesh)} segment devices")
         self.params = resolve_params(params)
         # declared storage must match what the index holds: quantized
         # segments under corpus_dtype="float32" would be served under a key
@@ -300,7 +574,12 @@ class HybridSearchService:
         # never pruned, kept apart from the sealed keys
         self._grow_keys: set = set()
         self._pool = isinstance(index, SegmentPool)
-        self._local_fn = make_local_group_search(self.params) if self._pool else None
+        self._segmented = self._pool or isinstance(index, SegmentedIndex)
+        self._local_fn = make_local_group_search(self.params) if self._segmented else None
+        self._mesh = mesh
+        self._front = _MeshFront(mesh, self.params) if mesh is not None else None
+        if self._front is not None:
+            self._front.place(index)
         self._build_cfg = build_cfg
         self._router = None  # set by serving.segment_router.SegmentRouter
         # running per-path normalization stats: refreshed lazily when the
@@ -376,11 +655,24 @@ class HybridSearchService:
         if self._router is not None:
             self._router.stop_merge_worker()
 
+    def stop_followers(self) -> None:
+        """Announce the end to the followers of a mesh-fronted service: each
+        ``follow(mesh)`` returns. Idempotent; a no-op off the mesh. Every
+        read or write that needs the mesh raises afterwards."""
+        if self._front is not None:
+            self._front.stop()
+
+    def close(self) -> None:
+        """Stop the pump (and the router's merge worker), then the
+        followers."""
+        self.stop_pump()
+        self.stop_followers()
+
     def __enter__(self) -> "HybridSearchService":
         return self
 
     def __exit__(self, *exc) -> None:
-        self.stop_pump()
+        self.close()
 
     # -- snapshot management (copy-on-write swap) ---------------------------
 
@@ -389,7 +681,7 @@ class HybridSearchService:
         return self._snap.version
 
     @property
-    def index(self) -> Union[HybridIndex, SegmentPool]:
+    def index(self) -> Union[HybridIndex, SegmentedIndex, SegmentPool]:
         return self._snap.index
 
     @property
@@ -412,6 +704,8 @@ class HybridSearchService:
         idx = snap.index
         if isinstance(idx, SegmentPool):
             parts = [(g.index.corpus, g.index.alive) for g in idx.groups]
+        elif isinstance(idx, SegmentedIndex):
+            parts = [(idx.index.corpus, idx.index.alive)]
         else:
             parts = [(idx.corpus, idx.alive)]
         if snap.grow is not None:
@@ -458,6 +752,9 @@ class HybridSearchService:
             for g in idx.groups:
                 add_index(g.index)
                 add("graph", g.global_ids)
+        elif isinstance(idx, SegmentedIndex):
+            add_index(idx.index)
+            add("graph", idx.global_ids)
         else:
             add_index(idx)
         if snap.grow is not None:
@@ -479,6 +776,8 @@ class HybridSearchService:
             grow_gids = torch.as_tensor(grow_gids, dtype=torch.int32, device=dev)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)  # readers never see a half-written index
+        if self._front is not None:  # blocks on their ranks before readers see the groups
+            self._front.place(new_index)
         self._snap = _Snapshot(new_index, self._snap.version + 1, grow=grow,
                                grow_gids=grow_gids)
         self._tick_index_bytes(self._snap)
@@ -500,11 +799,12 @@ class HybridSearchService:
         In-flight searches keep the snapshot they started with. A pool
         service routes inserts to its grow segment through the attached
         ``SegmentRouter``."""
-        if self._pool:
+        if self._segmented:
             if self._router is None:
                 raise ValueError(
                     "streaming insert into a pool needs a grow segment: attach a "
-                    "serving.segment_router.SegmentRouter")
+                    "serving.segment_router.SegmentRouter (to a SegmentedIndex wrapped by "
+                    "SegmentPool.from_segmented)")
             return self._router.insert(new_docs, generator=generator, draws=draws,
                                        new_doc_entities=new_doc_entities)
         if self._build_cfg is None:
@@ -520,11 +820,12 @@ class HybridSearchService:
         """Mark-delete docs; returns the new snapshot version. Shapes are
         unchanged, so every seen key stays valid. A pool service resolves
         global ids through the attached ``SegmentRouter``."""
-        if self._pool:
+        if self._segmented:
             if self._router is None:
                 raise ValueError(
                     "deletion on a pool needs global-id routing: attach a "
-                    "serving.segment_router.SegmentRouter")
+                    "serving.segment_router.SegmentRouter (to a SegmentedIndex wrapped by "
+                    "SegmentPool.from_segmented)")
             return self._router.delete(ids)
         with self._write_lock:
             self._publish(index_mark_deleted(self._snap.index, ids))
@@ -540,6 +841,8 @@ class HybridSearchService:
         """Cache keys the given snapshot index can serve."""
         if isinstance(index, SegmentPool):
             return {group_shape_key(g) for g in index.groups}
+        if isinstance(index, SegmentedIndex):
+            return {group_shape_key(index)}
         return {self._index_key(index)}
 
     @property
@@ -647,6 +950,14 @@ class HybridSearchService:
             raise first_err
         return len(ready)
 
+    def _run_group(self, group: SegmentedIndex, args) -> SearchResult:
+        """One group's search: over the mesh when the group shards (a
+        ``SegmentedIndex`` snapshot always does), else the local pass."""
+        if self._front is not None and (group_shards(group.n_segments, self._mesh)
+                                        or not self._pool):
+            return self._front.search(group, args)
+        return self._local_fn(group, *args)
+
     def _run_pool(self, pool: SegmentPool, bucket: Bucket, args, phases):
         """Pool read: one group search per shape group, merged per row in
         global-id space. Every group is dispatched before any result is read
@@ -657,7 +968,7 @@ class HybridSearchService:
         results = []
         for gi, group in enumerate(pool.groups):
             self._m_group_dispatch.inc(group=gi)
-            results.append(self._local_fn(group, *args))
+            results.append(self._run_group(group, args))
         ids_parts = [_host(r.ids) for r in results]
         score_parts = [_host(r.scores) for r in results]
         ps_parts = [_host(r.path_scores) for r in results]
@@ -709,6 +1020,16 @@ class HybridSearchService:
                            {"bucket": blabel, "requests": len(entries)}))
             if isinstance(snap.index, SegmentPool):
                 ids, scores, ps, expanded = self._run_pool(snap.index, bucket, args, phases)
+            elif isinstance(snap.index, SegmentedIndex):
+                t0 = time.perf_counter()
+                hit = self._lookup(group_shape_key(snap.index), bucket)
+                t1 = time.perf_counter()
+                phases.append(("executable_lookup", t0, t1, {"hit": hit}))
+                self._m_group_dispatch.inc(group=0)
+                res = self._run_group(snap.index, args)
+                ids, scores = _host(res.ids), _host(res.scores)
+                ps, expanded = _host(res.path_scores), _host(res.expanded)
+                phases.append(("device_dispatch", t1, time.perf_counter(), {}))
             else:
                 t0 = time.perf_counter()
                 hit = self._lookup(self._index_key(snap.index), bucket)

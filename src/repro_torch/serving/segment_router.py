@@ -1,5 +1,5 @@
 """Grow-segment streaming router for a pool-fronted service. Port of
-``repro/serving/segment_router.py`` on one device.
+``repro/serving/segment_router.py``.
 
 The paper's index takes inserts without a rebuild (§4.1 "Updates"). A
 served ``SegmentPool`` absorbs writes with the grow-segment scheme of vector
@@ -22,8 +22,10 @@ databases (Milvus growing segments):
     rows dropped, entity rows carried) at pow2 capacity; untouched groups
     keep their keys, and a size-tiered ``maybe_merge_segments`` policy
     bounds fragmentation LSM-style, by default on a background worker.
-    ``seal_and_compact`` rebuilds every surviving doc into one fresh
-    segment (O(corpus), every tombstone reclaimed), keeping global ids.
+    ``seal_and_compact`` rebuilds every surviving doc into one fresh group
+    (O(corpus), every tombstone reclaimed), keeping global ids: one segment
+    off the mesh, ``mesh_segment_count`` segments built in parallel over a
+    mesh.
 
 Every mutation runs under the service's write lock and lands as one atomic
 snapshot publish: readers see (old sealed, old grow) or (new sealed, new
@@ -33,8 +35,17 @@ Randomness: where ``repro`` takes a ``key`` (derived as
 ``fold_in(key(17 | 23 | 29 | 31), version)`` for inserts, full rebuilds,
 incremental seals and merges), each write here takes a ``generator`` and
 optional ``draws``. Left out, the generator is seeded from the same
-(salt, version) pair (``SegmentRouter._randomness``). The mesh (placement of groups over devices) waits for the multi-GPU
-slice (ROADMAP Queue 1 item 5): on one device placement is the identity.
+(salt, version) pair (``SegmentRouter._randomness``); a full compaction over
+a mesh takes a ``seed`` in place of the generator (the same pair, as one
+integer) and segment s draws from ``seed + s``.
+
+Over a mesh the router lives on rank 0 with the service. Inserts, deletes
+and the grow segment stay there. A full compaction is announced to the
+followers, which build their blocks of the new group with it
+(``compact_segmented_index(mesh=)``; int8 storage quantizes on every rank
+as before). Every publish re-places the pool (``place_pool``), so a group
+that becomes shardable after an incremental seal or a merge is sent to the
+ranks that own its segments.
 """
 
 from __future__ import annotations
@@ -55,7 +66,11 @@ from repro_torch.core.build_pipeline import (
     slice_index_rows,
 )
 from repro_torch.core.build_pipeline import insert as index_insert
-from repro_torch.core.distributed import SegmentedIndex, compact_segmented_index
+from repro_torch.core.distributed import (
+    SegmentedIndex,
+    compact_segmented_index,
+    mesh_segment_count,
+)
 from repro_torch.core.index import BuildConfig, HybridIndex
 from repro_torch.core.index import mark_deleted as index_mark_deleted
 from repro_torch.core.logical_edges import build_logical_edges
@@ -419,7 +434,8 @@ class SegmentRouter:
 
     def compact(self, *, generator=None, draws=None) -> int:
         """Run the configured compaction: ``compact_incremental`` (O(grow)
-        build work) or ``seal_and_compact`` (O(corpus))."""
+        build work) or ``seal_and_compact`` (O(corpus); over a mesh from
+        its default seed)."""
         if self.compaction_mode == "incremental":
             return self.compact_incremental(generator=generator, draws=draws)
         return self.seal_and_compact(generator=generator, draws=draws)
@@ -457,11 +473,16 @@ class SegmentRouter:
             self.stats._deleted_docs.inc(int((~in_sealed & ~in_grow).sum()), target="unknown")
             return svc._snap.version
 
-    def seal_and_compact(self, *, generator=None, draws=None) -> int:
+    def seal_and_compact(self, *, generator=None, draws=None,
+                         seed: Optional[int] = None) -> int:
         """Rebuild every surviving doc (sealed minus tombstones, plus live
-        grow docs) into ONE fresh segment keeping the global ids, and
-        publish it as a one-group pool with the grow segment cleared: every
-        tombstone reclaimed, every group's key replaced."""
+        grow docs) into ONE fresh group keeping the global ids, and publish
+        it as a one-group pool with the grow segment cleared: every
+        tombstone reclaimed, every group's key replaced. Off the mesh the
+        group is one segment drawn from ``generator``; over a mesh it is
+        ``mesh_segment_count`` segments built in parallel, segment s drawn
+        from ``seed + s`` (``seed`` defaults to the (salt, version) pair).
+        ``draws`` (off the mesh): one ``BuildDraws``."""
         svc = self.service
         with svc._write_lock:
             snap = svc._snap
@@ -482,20 +503,32 @@ class SegmentRouter:
                         snap.grow.doc_entities.cpu().numpy()[live], sealed_ents.shape[-1]))
             corpus = cat_fused(parts_corpus)
             gids = np.concatenate(parts_gids)
-            generator, draws = self._randomness(FULL_SALT, corpus.n, generator, draws)
             kg_kwargs = {}
             if self._kg_triplets is not None:
                 kg_kwargs = dict(kg_triplets=self._kg_triplets,
                                  doc_entities=np.concatenate(parts_ents, axis=0),
                                  n_entities=self._n_entities)
-            new_seg = compact_segmented_index(
-                corpus, gids, 1, self.build_cfg, generator=generator,
-                draws=None if draws is None else [draws], device=self._device, **kg_kwargs)
-            if self._corpus_dtype() == "int8":
-                # builds are always fp32; sealed storage quantizes here
-                new_seg = SegmentedIndex(
-                    dataclasses.replace(new_seg.index, corpus=quantize_corpus(new_seg.index.corpus)),
-                    new_seg.global_ids)
+            if svc._mesh is not None:
+                # one fresh group spread over the mesh's segment devices,
+                # built by every rank (the followers join through the
+                # announcement)
+                if generator is not None or draws is not None:
+                    raise ValueError("a compaction over a mesh draws from a seed")
+                if seed is None:
+                    seed = (FULL_SALT << 32) + snap.version
+                new_seg = svc._front.compact(
+                    corpus, gids, mesh_segment_count(svc._mesh), self.build_cfg, seed,
+                    self._corpus_dtype(), kg_kwargs)
+            else:
+                generator, draws = self._randomness(FULL_SALT, corpus.n, generator, draws)
+                new_seg = compact_segmented_index(
+                    corpus, gids, 1, self.build_cfg, generator=generator,
+                    draws=None if draws is None else [draws], device=self._device, **kg_kwargs)
+                if self._corpus_dtype() == "int8":
+                    # builds are always fp32; sealed storage quantizes here
+                    new_seg = SegmentedIndex(dataclasses.replace(
+                        new_seg.index, corpus=quantize_corpus(new_seg.index.corpus)),
+                        new_seg.global_ids)
             svc._publish(SegmentPool.from_segmented(new_seg), grow=None, grow_gids=None)
             self._grow_raw = None
             self.stats._compactions.inc(mode="full")

@@ -26,4 +26,5 @@ def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 def compressed_psum_mean(grads, axis_names, residual=None):
     raise NotImplementedError(
         "compressed_psum_mean needs a data-parallel collective across GPUs: it comes "
-        "with the multi-GPU slice (ROADMAP Queue 1 item 5)")
+        "with the LM side of the multi-GPU slice (ROADMAP Queue 1 item 5), the port's next "
+        "slice")

@@ -5,7 +5,8 @@ The train state is ``{"params": Transformer, "opt": {"m", "v", "step"}}``,
 with the moments keyed by the model's parameter names. ``repro`` donates the
 state to a jitted step; the port updates it in place and returns it. The
 mesh modes (GSPMD data parallelism and the int8-compressed all-reduce) come
-with the multi-GPU slice: a mesh or ``grad_compression=True`` raises.
+with the LM side of the multi-GPU slice, the port's next slice: a mesh or
+``grad_compression=True`` raises.
 """
 
 from __future__ import annotations
@@ -18,7 +19,8 @@ from repro_torch.models import transformer as tfm
 from repro_torch.models.config import ModelConfig
 from repro_torch.training import optimizer as opt
 
-_MULTI_GPU = "comes with the multi-GPU slice (ROADMAP Queue 1 item 5)"
+_MULTI_GPU = ("comes with the LM side of the multi-GPU slice (ROADMAP Queue 1 item 5), the "
+              "port's next slice")
 
 
 @dataclasses.dataclass(frozen=True)

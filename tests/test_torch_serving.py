@@ -626,5 +626,5 @@ def test_span_tree_metrics_and_unported_paths(corpus, index, tq):
     router = SegmentRouter(pool_svc, build)
     assert pool_svc.mark_deleted([3]) == 1 and router.stats.deleted_sealed == 1
     assert pool_svc.insert(to_torch(corpus.docs[224:232])) == 2 and router.grow_size == 8
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(RuntimeError, match="process group"):
         HybridSearchService(index, SearchParams(**PARAMS), mesh=object())
