@@ -197,6 +197,28 @@ Phases (each prints its own lines; any failure exits nonzero):
      x 448 decoder tokens over 1,500 frames, remat full: 192 / 96 / 96
      flash forward / dQ / dK-dV launches, the first backward of each kind
      held against the plain version) and of each vlm / audio smoke config;
+  14. the LM's training side over a device mesh of one card (after phase
+     7, before 9): an NCCL process group of world 1 in this process, a
+     (1, 1, 1) ("pod", "data", "model") mesh; gates, the phase failing at
+     its end if any did: (a) llama3.2-1b at full width and depth (phase
+     7's batch, remat full, flash): one mesh step in gspmd mode against the
+     local step from the same state and batch, loss, grad norm, every
+     parameter and first moment bit for bit, 32 / 16 / 16 flash launches,
+     the first flash forward and backward caught on the path and held
+     against the plain versions; (b) one step in compressed mode: the
+     gradients it applies equal dequantize(quantize(g)) of the local
+     step's gradients (per leaf of repro's stacked tree) and its residual
+     g minus that, exactly, with (a)'s launches; (c) deepseek-v3 cut as
+     phase 10 cuts it, at full width, prefilled in gspmd and ep_manual
+     modes with equal logits, one flash forward a layer each, then one
+     mesh step of its smoke config in each mode, one flash forward, dQ and
+     dK-dV a layer and for the MTP head's block (every call of (a)-(c)
+     counted on its own, its launches added to the phase's); (d) that state
+     saved on the mesh, restored with shardings= on the mesh and on one
+     device, every tensor equal; (e) planted faults: ep_manual's expert
+     range off by one (moves (c)'s logits) and the error-feedback residual
+     dropped (a second step's gradients then differ from dequantize(
+     quantize(g2 + r1)));
   9. the text path and the replica tier (run last; ROADMAP Queue 3 says
      why not after phase 8):
      65,536 SynCorpus docs (fig14's 100,000 cut to fit the script's
@@ -229,11 +251,11 @@ Phases (each prints its own lines; any failure exits nonzero):
   then the kernels line: launches on each variant's path (phases 4, 6, 8,
      9, 10, 11 and 13 plus the fp32 pool's serving for the fp32 variants,
      phases 4, 8, 9 and 13 for pairwise_tile, the int8 pool's serving and
-     phases 8 and 13 for the int8 variants, phases 6, 7, 10, 11 and 12 for flash_attention_fwd,
-     phases 7, 10, 11 and 12 for the backward kernels), errors, times and
+     phases 8 and 13 for the int8 variants, phases 6, 7, 10, 11, 12 and 14 for flash_attention_fwd,
+     phases 7, 10, 11, 12 and 14 for the backward kernels), errors, times and
      bounds at the shape the path runs most (the flash kernels with their
-     route by dtype as ``variant``, and phases 10-12's shapes under
-     ``checks``);
+     route by dtype as ``variant``, and phases 10-12's and 14's shapes
+     under ``checks``);
   and the last line: {"ok": true, "device": {...}}.
 
 ``--phases 1,4,11`` runs a subset, for finding faults: no kernels line and
@@ -277,6 +299,7 @@ MESH_BUILD_DOCS = 2**18  # phase 13 (c): the first 2^18 docs as 4 segments of 2^
 MESH_BUILD_SEGMENTS = 4
 MESH_SEED = 200
 MESH_BUILD = None  # BuildConfig() (patched small for a CPU rehearsal)
+LM_MESH_PREFILL = (4, 256)  # phase 14 (c): deepseek-v3's prefill, rows x tokens
 RECALL_GAP = 0.02  # int8 three-path recall@10 must stay within this of fp32 (ROADMAP Queue 1)
 # int8-stored brute-force top-10 overlap with fp32's: sound 0.9996, planted
 # scale faults 0.0009 and 0.9769 on an H100 at 2^20 (PERF.md, Findings PR 12)
@@ -5331,13 +5354,352 @@ def phase_train(cfg, results: dict):
     del params, naive32
     torch.cuda.empty_cache()
 
+# ---------------------------------------------------------------------------
+# phase 14: the LM's training side over a device mesh of one card
+# ---------------------------------------------------------------------------
 
-PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13)
+
+def _copy_state(state: dict) -> dict:
+    """A train state's tensors copied (``make_train_state``'s layout)."""
+    import copy
+
+    return {"params": copy.deepcopy(state["params"]),
+            "opt": {k: ({n: t.clone() for n, t in v.items()} if isinstance(v, dict)
+                        else v.clone()) for k, v in state["opt"].items()}}
+
+
+@contextlib.contextmanager
+def captured_updates():
+    """``[(grads, gnorm)]`` of every AdamW update made inside the block: the
+    gradients a step applies, as they reach the optimizer."""
+    from repro_torch.training import optimizer as opt
+
+    sound, seen = opt.adamw_update, []
+
+    def catch(grads, opt_state, params, cfg, gnorm=None):
+        seen.append(({k: g.detach().clone() for k, g in grads.items()}, gnorm))
+        return sound(grads, opt_state, params, cfg, gnorm)
+
+    opt.adamw_update = catch
+    try:
+        yield seen
+    finally:
+        opt.adamw_update = sound
+
+
+def ef_expected(grads: dict, residual=None) -> tuple[dict, dict]:
+    """What an error-feedback int8 mean over one rank applies, computed
+    apart from ``compressed_psum_mean``: per leaf of ``repro``'s stacked
+    tree, g + residual quantized on the grid of the leaf's absmax and
+    dequantized (in each gradient's dtype), and the new residual, g +
+    residual minus that."""
+    import torch
+
+    from repro_torch.training.grad_compression import (
+        dequantize_int8,
+        quantize_int8,
+        stacked_leaf,
+    )
+
+    g_in = {k: g.float() + (0.0 if residual is None else residual[k]) for k, g in grads.items()}
+    amax: dict = {}
+    for k, g in g_in.items():
+        lf = stacked_leaf(k)
+        m = torch.max(torch.abs(g))
+        amax[lf] = m if lf not in amax else torch.maximum(amax[lf], m)
+    applied, res = {}, {}
+    for k, g in g_in.items():
+        deq = dequantize_int8(*quantize_int8(g, amax[stacked_leaf(k)]))
+        applied[k], res[k] = deq.to(grads[k].dtype), g - deq
+    return applied, res
+
+
+def differing(a: dict, b: dict) -> list:
+    """The keys whose tensors differ in any bit."""
+    return [k for k in a if not torch_equal(a[k], b[k])]
+
+
+def torch_equal(a, b) -> bool:
+    import torch
+
+    return a.shape == b.shape and a.dtype == b.dtype and bool(torch.equal(a, b))
+
+
+def phase_lm_mesh(results: dict, device: str = "cuda") -> None:
+    """Phase 14: the LM's training side over a device mesh of one card. An
+    NCCL process group of world 1 in this process, a (1, 1, 1) ("pod",
+    "data", "model") mesh: (a) llama3.2-1b at full width and depth, one mesh
+    step in gspmd mode against the local step from the same state and batch
+    (bit for bit), its flash launches, the caught flash calls against the
+    plain versions; (b) a compressed step: the gradients it applies and its
+    residual against the int8 error-feedback arithmetic on the local step's
+    gradients, exactly; (c) deepseek-v3 at full width cut as phase 10 cuts
+    it, prefilled in gspmd and ep_manual modes (logits equal), then one
+    training step of its smoke config in each mode; (d) a mesh state saved,
+    restored with shardings= on the mesh and without one; (e) planted
+    faults. Every reading is printed; the phase fails at its end if any
+    gate did. (``device="cpu"`` rehearses it under gloo, with smaller
+    configs patched in.)"""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.sharding import StateSharding, gather_state, place_state, shard_state
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as tfm
+    from repro_torch.training.optimizer import OptConfig
+    from repro_torch.training.train_loop import (
+        TrainConfig,
+        make_train_state,
+        make_train_step,
+        mesh_model,
+        mesh_sharding,
+    )
+
+    t_phase = time.perf_counter()
+    fails: list = []
+
+    def check(ok: bool, msg: str) -> None:
+        if not ok:
+            fails.append(msg)
+            say(f"phase 14 FAILED: {msg}")
+
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    kernels = ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+    counted = {k: 0 for k in kernels}
+
+    def on_path(fn, count: bool = True):
+        """A main-path call with the flash counts zeroed just before and
+        read just after: (its result, its launches), added to the phase's
+        count unless ``count`` is false (a planted fault). The wrappers are
+        looked up when called: a catcher (``first_call``) counts in their
+        place."""
+        for k in kernels:
+            getattr(fa, k).launches = 0
+        out = fn()
+        sync()
+        launches = {k: getattr(fa, k).launches for k in kernels}
+        for k, n in launches.items():
+            counted[k] += n if count else 0
+        return out, launches
+
+    def flash_want(n_fwd: int, n_bwd: int = 0) -> dict:
+        """The flash launches a call must make: none on the CPU."""
+        n = (n_fwd, n_bwd, n_bwd) if device == "cuda" else (0, 0, 0)
+        return dict(zip(kernels, n))
+
+    mesh = make_mesh((1, 1, 1), ("pod", "data", "model"),
+                     device_type="cuda" if device == "cuda" else "cpu", store=dist.HashStore(),
+                     rank=0, world_size=1, timeout_s=MESH_TIMEOUT_S)
+    try:
+        say(f"phase 14 mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))} on {mesh.device_type} "
+            f"({dist.get_backend()})")
+        # ---- (a) the gspmd mesh step against the local step -----------------
+        cfg = dataclasses.replace(get_config("llama3.2-1b"), attn_impl="flash")
+        tcfg = TrainConfig(opt=OptConfig(lr=3e-4, warmup_steps=2, total_steps=10))
+        t = time.perf_counter()
+        local = make_train_state(cfg, tcfg, torch.Generator(device=device).manual_seed(0), device)
+        first = _copy_state(local)
+        placed = place_state(_copy_state(local), mesh_sharding(cfg, mesh))
+        batch = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                         global_batch=TRAIN_BATCH, seed=0), device=device).batch(0)
+        sync()
+        say(f"phase 14 (a) setup: {cfg.name} {cfg.n_layers} layers d_model {cfg.d_model} "
+            f"{cfg.dtype} remat {cfg.remat} flash, {TRAIN_BATCH} x {TRAIN_SEQ} tokens, three "
+            f"copies of the train state: {time.perf_counter() - t:.1f} s")
+        with captured_updates() as seen:
+            t = time.perf_counter()
+            local, met_l = make_train_step(cfg, tcfg)(local, batch)
+            sync()
+            local_s = time.perf_counter() - t
+        g_local = seen[0][0]
+        mesh_step = make_train_step(cfg, tcfg, mesh, mesh_sharding(cfg, mesh).specs)
+        with first_call(fa, "flash_attention_fwd") as fwd_call, \
+                first_call(fa, "flash_attention_bwd", keep=True) as bwd_call:
+            t = time.perf_counter()
+            (placed, met_m), launches = on_path(lambda: mesh_step(placed, batch))
+            mesh_s = time.perf_counter() - t
+        want = flash_want(2 * cfg.n_layers, cfg.n_layers)  # remat full: the forward twice
+        vals = lambda m: (float(m["loss"]), float(m["grad_norm"]))
+        p_l = dict(local["params"].named_parameters())
+        p_m = dict(placed["params"].named_parameters())
+        bad = differing(p_l, p_m) + [f"m {k}" for k in differing(local["opt"]["m"],
+                                                                 placed["opt"]["m"])]
+        say(f"phase 14 (a) local step {local_s:.3f} s loss {vals(met_l)[0]!r} grad norm "
+            f"{vals(met_l)[1]!r}; mesh step {mesh_s:.3f} s loss {vals(met_m)[0]!r} grad norm "
+            f"{vals(met_m)[1]!r}; parameters and first moments differing: {len(bad)} of "
+            f"{2 * len(p_l)} {bad[:4]}; flash launches {json.dumps(launches)}")
+        check(vals(met_l) == vals(met_m) and not bad,
+              f"(a) the mesh step differs from the local step: {vals(met_l)} vs {vals(met_m)}, "
+              f"{len(bad)} tensors")
+        check(launches == want, f"(a) flash launches {launches} != {want}")
+        check_caught_flash(results, "llama3.2-1b mesh step", fwd_call[0], device,
+                           phase="phase 14", gate="(a)", part="train")
+        check_caught_bwd(results, "llama3.2-1b mesh step", bwd_call[0], device, phase="phase 14")
+        del placed, local, p_l, p_m, fwd_call, bwd_call
+        torch.cuda.empty_cache() if device == "cuda" else None
+
+        # ---- (b) the compressed step -----------------------------------------
+        ctcfg = dataclasses.replace(tcfg, grad_compression=True)
+        cstate = place_state(first, mesh_sharding(cfg, mesh))
+        del first
+        cstep = make_train_step(cfg, ctcfg, mesh)
+        with captured_updates() as seen:
+            (cstate, met_c), c_launches = on_path(lambda: cstep(cstate, batch))
+        want_g, want_r = ef_expected(g_local)
+        bad_g = differing(want_g, seen[0][0])
+        bad_r = differing(want_r, cstate["residual"])
+        say(f"phase 14 (b) compressed step: loss {float(met_c['loss'])!r} (the local step's "
+            f"{vals(met_l)[0]!r}), grad norm {float(met_c['grad_norm'])!r}; applied gradients "
+            f"differing from dequantize(quantize(g)) of the local step's: {len(bad_g)} of "
+            f"{len(want_g)}; residual differing from g minus that: {len(bad_r)}; flash launches "
+            f"{json.dumps(c_launches)}")
+        check(not bad_g and not bad_r, f"(b) applied {bad_g[:3]}, residual {bad_r[:3]}")
+        check(c_launches == want, f"(b) flash launches {c_launches} != {want}")
+        check(float(met_c["loss"]) == vals(met_l)[0], "(b) loss differs from the local step's")
+        del cstate, g_local, want_g, want_r, seen
+        torch.cuda.empty_cache() if device == "cuda" else None
+
+        # ---- (c) deepseek-v3 at full width: gspmd against ep_manual prefill ----
+        name = "deepseek-v3-671b"
+        dcfg = dataclasses.replace(get_config(name), attn_impl="flash",
+                                   n_layers=MOE_DEPTH[name])
+        t = time.perf_counter()
+        params = tfm.init_params(dcfg, torch.Generator(device=device).manual_seed(2), device)
+        sh = mesh_sharding(dcfg, mesh)
+        params = shard_state(params, sh.specs, mesh)
+        params.placement = sh
+        tokens = torch.randint(0, dcfg.vocab, LM_MESH_PREFILL, device=device, dtype=torch.int32,
+                               generator=torch.Generator(device=device).manual_seed(3))
+        sync()
+        init_s = time.perf_counter() - t
+
+        def prefill(c):
+            with mesh_model(params, mesh):
+                return tfm.make_prefill(c, tokens.shape[1])(params, tokens)[0]
+
+        ep_cfg = dataclasses.replace(dcfg, moe_impl="ep_manual")
+        t = time.perf_counter()
+        logits_g, pre_launches_g = on_path(lambda: prefill(dcfg))
+        logits_e, pre_launches_e = on_path(lambda: prefill(ep_cfg))
+        pre_s = time.perf_counter() - t
+        pre_want = flash_want(dcfg.n_layers)
+        gap = float((logits_g.float() - logits_e.float()).abs().max())
+        finite = bool(torch.isfinite(logits_g.float()).all())
+        # (e) planted: ep_manual's expert range off by one
+        sound = moe_mod._experts
+        moe_mod._experts = lambda p, c, xf, gate, ids, slot, cap, tp: sound(
+            p, c, xf, gate, ids - 1, slot, cap, tp)
+        try:
+            logits_p, pre_launches_p = on_path(lambda: prefill(ep_cfg), count=False)
+        finally:
+            moe_mod._experts = sound
+        planted_gap = float((logits_p.float() - logits_g.float()).abs().max())
+        say(f"phase 14 (c) {name} at {dcfg.n_layers} layers, d_model {dcfg.d_model}, "
+            f"{dcfg.n_experts} experts, {sum(p.numel() for p in params.parameters())} "
+            f"parameters ({init_s:.1f} s to draw and place): prefill of "
+            f"{LM_MESH_PREFILL[0]} x {LM_MESH_PREFILL[1]} in gspmd and ep_manual modes "
+            f"{pre_s:.3f} s, max |logit difference| {gap!r} (finite {finite}); planted fault "
+            f"(e), ep_manual's expert range off by one: {planted_gap:.4g}; flash launches "
+            f"gspmd {json.dumps(pre_launches_g)}, ep_manual {json.dumps(pre_launches_e)}, "
+            f"planted {json.dumps(pre_launches_p)}")
+        check(torch_equal(logits_g, logits_e) and finite,
+              f"(c) gspmd and ep_manual prefill logits differ by {gap}")
+        for what, got in (("gspmd", pre_launches_g), ("ep_manual", pre_launches_e),
+                          ("planted", pre_launches_p)):
+            check(got == pre_want, f"(c) {what} prefill flash launches {got} != {pre_want}")
+        check(planted_gap > 0, "(e) an expert range off by one passes (c)")
+        del params, logits_g, logits_e, logits_p, tokens
+        torch.cuda.empty_cache() if device == "cuda" else None
+
+        scfg = dataclasses.replace(get_smoke_config(name), attn_impl="flash")
+        stcfg = TrainConfig(opt=OptConfig(lr=3e-4, warmup_steps=1, total_steps=10))
+        pipe = TokenPipeline(DataConfig(vocab=scfg.vocab, seq_len=128, global_batch=8, seed=0),
+                             device=device)
+        # every layer and the MTP head's block attend once forward (twice
+        # under remat full) and once backward
+        n_attn = scfg.n_layers + int(scfg.mtp)
+        step_want = flash_want((2 if scfg.remat == "full" else 1) * n_attn, n_attn)
+        states = {}
+        for impl in ("gspmd", "ep_manual"):
+            c = dataclasses.replace(scfg, moe_impl=impl)
+            st = make_train_state(c, stcfg, torch.Generator(device=device).manual_seed(0),
+                                  device, mesh=mesh)
+            step = make_train_step(c, stcfg, mesh)
+            (st, met), s_launches = on_path(lambda: step(st, pipe.batch(0)))
+            ok = all(bool(torch.isfinite(p).all()) for p in st["params"].parameters())
+            say(f"phase 14 (c) {name} smoke, {impl}: one mesh step, loss "
+                f"{float(met['loss']):.6f}, grad norm {float(met['grad_norm']):.6f}, "
+                f"parameters finite {ok}; flash launches {json.dumps(s_launches)} (want "
+                f"{json.dumps(step_want)})")
+            check(ok and math.isfinite(float(met["loss"])), f"(c) {impl} step not finite")
+            check(s_launches == step_want, f"(c) {impl} step flash launches {s_launches} != "
+                  f"{step_want}")
+            states[impl] = st
+
+        # ---- (d) save on the mesh, restore with shardings= and on one device --
+        st = states["gspmd"]
+        sh = st["params"].placement
+        whole = gather_state({"params": st["params"], "opt": st["opt"]}, sh.tree_specs(), mesh)
+        with tempfile.TemporaryDirectory() as d:
+            save_checkpoint(d, 1, st)
+            back = restore_checkpoint(d, 1, make_train_state(
+                scfg, stcfg, torch.Generator(device=device).manual_seed(7), device, mesh=mesh),
+                shardings=StateSharding(mesh, sh.specs))
+            one = restore_checkpoint(d, 1, make_train_state(
+                scfg, stcfg, torch.Generator(device=device).manual_seed(7), device))
+        flat = lambda s: {**{f"p {n}": p.detach() for n, p in s["params"].named_parameters()},
+                          **{f"m {n}": t for n, t in s["opt"]["m"].items()},
+                          **{f"v {n}": t for n, t in s["opt"]["v"].items()},
+                          "step": s["opt"]["step"]}
+        bad_d = {w: differing(flat(whole), flat(s)) for w, s in (("mesh", back), ("one", one))}
+        say(f"phase 14 (d) saved on the mesh, restored with shardings= on the mesh: "
+            f"{len(bad_d['mesh'])} of {len(flat(whole))} tensors differ; on one device: "
+            f"{len(bad_d['one'])}")
+        check(not bad_d["mesh"] and not bad_d["one"], f"(d) restores differ: {bad_d}")
+        del states, st, whole, back, one
+
+        # ---- (e) planted: the error-feedback residual dropped ----------------
+        ctcfg = dataclasses.replace(stcfg, grad_compression=True)
+        readings = {}
+        for plant in (False, True):
+            st = make_train_state(scfg, ctcfg, torch.Generator(device=device).manual_seed(0),
+                                  device, mesh=mesh)
+            step = make_train_step(scfg, ctcfg, mesh)
+            st, _ = step(st, pipe.batch(0))
+            r1 = {k: t.clone() for k, t in st["residual"].items()}
+            if plant:
+                del st["residual"]
+            _, g2 = step.raw_grads(st, pipe.batch(1))
+            with captured_updates() as seen:
+                st, _ = step(st, pipe.batch(1))
+            readings[plant] = len(differing(ef_expected(g2, r1)[0], seen[0][0]))
+        say(f"phase 14 (e) a second compressed step against dequantize(quantize(g2 + r1)): "
+            f"sound {readings[False]} gradients differ, planted (residual dropped) "
+            f"{readings[True]}")
+        check(readings[False] == 0, "(e) the sound second step differs from g2 + r1")
+        check(readings[True] > 0, "(e) a dropped residual passes the second step's check")
+    finally:
+        dist.destroy_process_group()
+    for k, n in counted.items():
+        results[k]["launches"] = results[k].get("launches", 0) + n
+    say(f"phase 14: {time.perf_counter() - t_phase:.1f} s; flash launches on the mesh paths "
+        f"((a), (b), (c)'s two prefills and two steps) {json.dumps(counted)}")
+    need(not fails, f"phase 14: {len(fails)} gate(s) failed: {fails}")
+
+
+PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14)
 
 
 def parse_phases(argv) -> set:
     """``--phases 1,4,11``: a partial run, for finding faults (phase 1 always
-    runs; 8 and 13 need 5, and 6, 10 and 11 need 4; 12 needs nothing). It
+    runs; 8 and 13 need 5, and 6, 10 and 11 need 4; 12 and 14 need nothing). It
     prints no kernels line and no last line. Without the flag, every phase."""
     import argparse
 
@@ -5414,6 +5776,9 @@ def main(argv=None) -> int:
             phase_flash_bwd(train_cfg, results)
             phase_train(train_cfg, results)
             torch.cuda.empty_cache()
+        if 14 in phases:  # before phase 9, which stays last
+            phase_lm_mesh(results)
+            torch.cuda.empty_cache()
         # last, not after phase 8: run before phase 7, phase 9 leaves phase
         # 7's profiled step one flash-forward record short (the first one
         # of the backward) while the wrapper counts all 32 and the step's
@@ -5468,7 +5833,7 @@ def main(argv=None) -> int:
         if chk.get("device_ms") is not None:  # host-bound shapes: the kernels' own time
             kernels[-1]["device_ms"] = chk["device_ms"]
         extra = [ch for ch in r["checks"]
-                 if ch.get("phase") in ("phase 10", "phase 11", "phase 12")]
+                 if ch.get("phase") in ("phase 10", "phase 11", "phase 12", "phase 14")]
         if extra:  # the shapes phases 10-12's models gave the kernel, caught on their paths
             kernels[-1]["checks"] = extra
     print(json.dumps({"kernels": kernels}), flush=True)

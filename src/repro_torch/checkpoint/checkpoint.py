@@ -11,8 +11,16 @@ bfloat16 leaves are stored as raw uint16 bits, as ``repro`` stores them. A
 port train state (``training.train_loop``) is saved as ``repro``'s state
 tree (``convert.train_state_to_tree``), so a train state saved by either
 package restores into the other. The tree is written to a temporary
-directory, renamed into place, and only then marked ``.done``. The
-resharding restore (``shardings``) waits for the multi-GPU slice.
+directory, renamed into place, and only then marked ``.done``.
+
+On a device mesh (a train state made by ``make_train_state(..., mesh=)``,
+its model carrying ``placement``): ``save_checkpoint`` gathers the state
+whole on every rank, rank 0 writes the files the one-device save writes, and
+every rank meets at a barrier; the compressed mode's error-feedback residual,
+the rank's own, is not saved (it restarts at zero). ``restore_checkpoint``
+with ``shardings`` (a ``launch.sharding.StateSharding``) reads each leaf
+whole and keeps this rank's block, so a checkpoint saved on one mesh shape
+restores on another, or on one device, to the same logical state.
 """
 
 from __future__ import annotations
@@ -71,12 +79,30 @@ def _to_array(leaf) -> tuple[np.ndarray, str]:
     return arr, str(arr.dtype)
 
 
+def _placement(tree):
+    """The mesh placement of a train state's model, or None."""
+    return getattr(tree["params"], "placement", None) if _is_train_state(tree) else None
+
+
 def save_checkpoint(directory: str | os.PathLike, step: int, tree: Any, *, keep: int = 3,
                     extra: Optional[dict] = None):
     """Save ``tree`` (a port train state, or nested dicts of tensors, numpy
     arrays or scalars) as ``<directory>/step_<step>``; keep the last ``keep``
     committed steps. ``extra``: JSON-serializable metadata merged into the
-    manifest, committed with the leaves."""
+    manifest, committed with the leaves. A train state on a mesh (see the
+    module docstring) is gathered and written by rank 0."""
+    sh = _placement(tree)
+    if sh is not None:
+        import torch.distributed as dist
+
+        from repro_torch.launch.sharding import gather_state
+
+        whole = gather_state({"params": tree["params"], "opt": tree["opt"]}, sh.tree_specs(),
+                             sh.mesh)
+        if dist.get_rank() == 0:
+            save_checkpoint(directory, step, whole, keep=keep, extra=extra)
+        dist.barrier()
+        return
     tree = _as_tree(tree)
     save_flat(directory, step, _treedef(tree), _flatten(tree), keep=keep, extra=extra)
 
@@ -145,12 +171,46 @@ def _unflatten(paths: list[str], leaves: list) -> dict:
     return tree
 
 
-def restore_checkpoint(directory: str | os.PathLike, step: int, target_tree: Any) -> Any:
+def _logical_template(state) -> dict:
+    """A train state of the whole shapes of ``state``'s model, on the meta
+    device (its tree's paths and shapes, no memory)."""
+    model = Transformer(state["params"].cfg, torch.device("meta"))
+    dt = next(iter(state["opt"]["m"].values())).dtype
+    zeros = lambda: {n: torch.empty(p.shape, dtype=dt, device="meta")
+                     for n, p in model.named_parameters()}
+    return {"params": model, "opt": {"m": zeros(), "v": zeros(),
+                                     "step": torch.zeros((), dtype=torch.int32, device="meta")}}
+
+
+def restore_checkpoint(directory: str | os.PathLike, step: int, target_tree: Any,
+                       shardings=None) -> Any:
     """Restore ``step`` into the structure of ``target_tree`` (its values are
     ignored). A port train state comes back as a new train state on the
     target's device, with the target's moment dtype; nested dicts come back
     as tensors in the stored dtypes, on each target leaf's device. Raises
-    ``ValueError`` when the leaves' paths or shapes differ."""
+    ``ValueError`` when the leaves' paths or shapes differ. ``shardings``
+    (default: the target model's ``placement``): the state comes back as
+    this rank's blocks on that mesh."""
+    sh = _placement(target_tree) if shardings is None else shardings
+    template = _logical_template(target_tree) if sh is not None else target_tree
+    tree = _read_tree(directory, step, template)
+    if not _is_train_state(target_tree):
+        return tree
+    model = target_tree["params"]
+    m_dtype = next(iter(target_tree["opt"]["m"].values())).dtype
+    out = train_state_from_numpy(model.cfg, tree, model.device,
+                                 "bfloat16" if m_dtype == torch.bfloat16 else "float32")
+    if sh is None:
+        return out
+    from repro_torch.launch.sharding import place_state
+
+    return place_state(out, sh)
+
+
+def _read_tree(directory, step: int, target_tree) -> dict:
+    """The checkpoint's tree, checked against ``target_tree``'s paths and
+    shapes: float32 and int32 leaves for a train state, else the stored
+    dtypes on each target leaf's device."""
     directory = pathlib.Path(directory) / f"step_{step}"
     with open(directory / "manifest.json") as f:
         manifest = json.load(f)
@@ -173,10 +233,4 @@ def restore_checkpoint(directory: str | os.PathLike, step: int, target_tree: Any
             leaves.append(t.float() if t.dtype == torch.bfloat16 else t)
         else:
             leaves.append(t.to(tgt.device) if isinstance(tgt, torch.Tensor) else t)
-    tree = _unflatten(paths, leaves)
-    if not state:
-        return tree
-    model = target_tree["params"]
-    m_dtype = next(iter(target_tree["opt"]["m"].values())).dtype
-    return train_state_from_numpy(model.cfg, tree, model.device,
-                                  "bfloat16" if m_dtype == torch.bfloat16 else "float32")
+    return _unflatten(paths, leaves)

@@ -1,5 +1,6 @@
 """Device meshes of the port (``repro/launch/mesh.py``) and the collectives
-the index side runs over them.
+the index side runs over them (the LM side's, with placement, are in
+``launch/sharding.py``).
 
 ``repro`` runs one controller over many devices and names them with a
 ``jax.sharding.Mesh``. The port runs SPMD: one process per device, a

@@ -4,15 +4,25 @@ device unless ``--device`` says otherwise.
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
         --steps 200 --batch 8 --seq 512 --ckpt-dir /tmp/run1 [--smoke] [--device cpu]
 
-One device: the mesh that ``repro`` builds from the device count comes with
-the multi-GPU slice. Fault tolerance: checkpoint every ``--ckpt-every``
-steps, automatic restart from the last commit, deterministic data skip,
+Under ``torchrun`` with a world of more than one rank it trains SPMD over
+a device mesh, built as ``repro``'s launcher builds it from the device
+count: the model axis 16 when the world divides by 16, else 1, the rest to
+``("pod", "data")`` by ``elastic_mesh_shape``; NCCL on the cards, gloo with
+``--device cpu``:
+
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+        --arch llama3.2-1b --smoke --steps 5 --seq 32 --batch 8 --device cpu
+
+Every rank makes the same global batches; rank 0 prints. Fault tolerance:
+checkpoint every ``--ckpt-every`` steps (on a mesh, gathered and written by
+rank 0), automatic restart from the last commit, deterministic data skip,
 straggler monitoring.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import torch
@@ -20,7 +30,12 @@ import torch
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.data.pipeline import DataConfig, TokenPipeline
 from repro_torch.device import resolve_device
-from repro_torch.runtime.fault_tolerance import StragglerMonitor, run_supervised
+from repro_torch.models.transformer import Transformer
+from repro_torch.runtime.fault_tolerance import (
+    StragglerMonitor,
+    elastic_mesh_shape,
+    run_supervised,
+)
 from repro_torch.training import optimizer as opt
 from repro_torch.training.train_loop import TrainConfig, make_train_state, make_train_step
 
@@ -43,6 +58,20 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
+    mesh, rank0 = None, True
+    n_dev = int(os.environ.get("WORLD_SIZE", "1"))
+    if n_dev > 1:
+        import torch.distributed as dist
+
+        from repro_torch.launch.mesh import make_mesh
+
+        tp = 16 if n_dev % 16 == 0 else 1
+        shape, axes = elastic_mesh_shape(n_dev, tp, pod_size=16)
+        mesh = make_mesh(shape, axes, device_type=dev.type)
+        rank0 = dist.get_rank() == 0
+        dev = torch.device(dev.type, torch.cuda.current_device()) if dev.type == "cuda" else dev
+        if rank0:
+            print(f"mesh: {dict(zip(axes, shape))} ({dist.get_backend()})")
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     tcfg = TrainConfig(
         opt=opt.OptConfig(lr=args.lr, warmup_steps=max(args.steps // 20, 5),
@@ -55,15 +84,16 @@ def main(argv=None) -> None:
                    frontend_tokens=cfg.n_frontend_tokens, d_model=cfg.d_model),
         device=dev,
     )
-    step_fn = make_train_step(cfg, tcfg, None, None)
+    step_fn = make_train_step(cfg, tcfg, mesh, None)
 
     def make_state():
         return make_train_state(cfg, tcfg, torch.Generator(device=dev).manual_seed(args.seed),
-                                dev)
+                                dev, mesh=mesh)
 
     n_params = cfg.n_params if not args.smoke else sum(
-        p.numel() for p in make_state()["params"].parameters())
-    print(f"arch={cfg.name} params={n_params/1e6:.1f}M steps={args.steps} device={dev}")
+        p.numel() for p in Transformer(cfg, torch.device("meta")).parameters())
+    if rank0:
+        print(f"arch={cfg.name} params={n_params/1e6:.1f}M steps={args.steps} device={dev}")
 
     if args.ckpt_dir:
         report = run_supervised(
@@ -71,15 +101,16 @@ def main(argv=None) -> None:
             batch_fn=pipe.batch, ckpt_dir=args.ckpt_dir,
             ckpt_every=args.ckpt_every, monitor=StragglerMonitor(),
         )
-        print(f"done: {report.steps_done} steps, {report.restarts} restarts, "
-              f"final loss {report.losses[-1]:.4f}")
+        if rank0:
+            print(f"done: {report.steps_done} steps, {report.restarts} restarts, "
+                  f"final loss {report.losses[-1]:.4f}")
         return
 
     state = make_state()
     t0 = time.perf_counter()
     for s in range(args.steps):
         state, metrics = step_fn(state, pipe.batch(s))
-        if s % args.log_every == 0 or s == args.steps - 1:
+        if rank0 and (s % args.log_every == 0 or s == args.steps - 1):
             dt = time.perf_counter() - t0
             tok_s = args.batch * args.seq * (s + 1) / dt
             print(f"step {s:5d} loss {float(metrics['loss']):.4f} "

@@ -11,6 +11,15 @@ flash output cast to ``x.dtype`` before ``wo``. MLA's full-sequence form is
 the expanded one (per-head K and V, the shared rope key broadcast over the
 heads); its decode is the absorbed one, attending in the ``kv_lora`` latent,
 so its cache holds only the latent and the rope key.
+
+On a mesh step (``models.parallel``) the full-sequence forms are
+tensor-parallel over the heads where the specs split them: ``wq`` / ``wk`` /
+``wv`` (MLA: ``wq_b`` / ``wk_b`` / ``wv_b``) column-parallel, ``wo``
+row-parallel with its partial outputs summed over the model axis, each rank
+running attention (the flash kernels too) on its own heads. Where the query
+heads split and the KV heads do not, the KV heads are computed whole and
+each rank keeps those its query heads read. Decode on a mesh comes with the
+serving half of the mesh slice.
 """
 
 from __future__ import annotations
@@ -21,8 +30,19 @@ import torch
 from torch import nn
 
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.models import parallel as par
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import RMSNorm, apply_rope, dtype_of, ninit, param, rms_norm
+from repro_torch.models.layers import (
+    P,
+    RMSNorm,
+    ShardCtx,
+    apply_rope,
+    dtype_of,
+    ninit,
+    param,
+    rms_norm,
+    rmsnorm_specs,
+)
 
 NEG_INF = -1e30
 
@@ -38,6 +58,8 @@ class Attention(nn.Module):
     """GQA projections under ``repro``'s keys: wq (d, H, hd), wk / wv
     (d, KV, hd), wo (H, hd, d); with ``qkv_bias`` also bq (H, hd) and bk /
     bv (KV, hd), initialised to zeros."""
+
+    tp_keys = ("wq", "wk", "wv", "wo", "bq", "bk", "bv")
 
     def __init__(self, cfg: ModelConfig, dtype, device):
         super().__init__()
@@ -62,19 +84,52 @@ class Attention(nn.Module):
                 b.zero_()
 
 
+def attention_specs(ctx: ShardCtx, cfg: ModelConfig, cross: bool = False) -> dict:
+    h_sh = ctx.heads(cfg.n_heads)
+    kv_sh = ctx.heads(cfg.n_kv_heads)
+    dd = ctx.data(cfg.d_model)
+    p = {
+        "wq": P(dd, h_sh, None),
+        "wk": P(dd, kv_sh, None),
+        "wv": P(dd, kv_sh, None),
+        "wo": P(h_sh, None, dd),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = P(h_sh, None)
+        p["bk"] = P(kv_sh, None)
+        p["bv"] = P(kv_sh, None)
+    return p
+
+
 def _project_q(p, cfg: ModelConfig, x):
     q = torch.einsum("bld,dhk->blhk", x, p.wq)
     return q + p.bq if cfg.qkv_bias else q
 
 
-def _project_qkv(p, cfg: ModelConfig, x, kv_src=None):
-    """q from ``x``; k and v from ``kv_src`` (cross-attention) or ``x``."""
+def _project_qkv(p, cfg: ModelConfig, x, kv_src=None, tp=None):
+    """q from ``x``; k and v from ``kv_src`` (cross-attention) or ``x``.
+    With ``tp`` (the query heads split over the model axis) the split
+    projections read their input through ``copy_to``; KV heads that are not
+    split are projected whole from the replicated input."""
     kv_in = x if kv_src is None else kv_src
+    if tp is not None:
+        x = par.copy_to(x, tp)
+        if par.tp_group(p, "wk") is not None:
+            kv_in = x if kv_src is None else par.copy_to(kv_src, tp)
     k = torch.einsum("bld,dhk->blhk", kv_in, p.wk)
     v = torch.einsum("bld,dhk->blhk", kv_in, p.wv)
     if cfg.qkv_bias:
         k, v = k + p.bk, v + p.bv
     return _project_q(p, cfg, x), k, v
+
+
+def _local_kv(k, v, tp, n_heads: int, local_heads: int):
+    """Whole KV heads (B, S, KV, hd) cut to those this rank's query heads
+    read, through ``copy_to``: one per query head, query head h of [r Hl,
+    (r + 1) Hl) reading KV head h // (H / KV)."""
+    lo = tp.index * local_heads
+    idx = torch.arange(lo, lo + local_heads, device=k.device) // (n_heads // k.shape[2])
+    return (par.copy_to(k, tp).index_select(2, idx), par.copy_to(v, tp).index_select(2, idx))
 
 
 def _gqa_scores(q, k):
@@ -124,17 +179,22 @@ def apply_attention(p, cfg: ModelConfig, x, positions, *, causal: bool = True, k
     projected from it, no RoPE and no mask. The mask applies where
     ``causal`` and not ``kv_src``. Returns (y, {"k", "v"} of the keys
     attended to)."""
-    q, k, v = _project_qkv(p, cfg, x, kv_src)
+    tp = par.tp_group(p, "wq")
+    q, k, v = _project_qkv(p, cfg, x, kv_src, tp)
     if kv_src is None:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+    cache = {"k": k, "v": v}
+    if tp is not None and par.tp_group(p, "wk") is None:
+        k, v = _local_kv(k, v, tp, cfg.n_heads, q.shape[2])
     masked = causal and kv_src is None
     if cfg.attn_impl == "flash":
         y = torch.einsum("blhd,hdk->blk", _flash(q, k, v, causal=masked).to(x.dtype), p.wo)
-        return y, {"k": k, "v": v}
-    scores = _gqa_scores(q, k)
-    weights = torch.softmax(_causal(scores) if masked else scores, dim=-1).to(x.dtype)
-    return _gqa_out(weights, v, p), {"k": k, "v": v}
+    else:
+        scores = _gqa_scores(q, k)
+        weights = torch.softmax(_causal(scores) if masked else scores, dim=-1).to(x.dtype)
+        y = _gqa_out(weights, v, p)
+    return (y if tp is None else par.reduce_from(y, tp)), cache
 
 
 def apply_attention_decode(p, cfg: ModelConfig, x, cache: dict, pos: int):
@@ -178,6 +238,8 @@ class MLA(nn.Module):
     wq_b (q_lora, H, hd + rh), wkv_a (d, kv_lora + rh), kv_norm, wk_b / wv_b
     (kv_lora, H, hd), wo (H, hd, d)."""
 
+    tp_keys = ("wq_b", "wk_b", "wv_b", "wo")
+
     def __init__(self, cfg: ModelConfig, dtype, device):
         super().__init__()
         d, h, hd = cfg.d_model, cfg.n_heads, cfg.head_dim
@@ -203,9 +265,27 @@ class MLA(nn.Module):
         self.kv_norm.scale.fill_(1.0)
 
 
-def _mla_q(p, cfg: ModelConfig, x, positions):
-    """(q_nope (B, L, H, hd), q_rope (B, L, H, rh) rotated)."""
+def mla_specs(ctx: ShardCtx, cfg: ModelConfig) -> dict:
+    h_sh = ctx.heads(cfg.n_heads)
+    dd = ctx.data(cfg.d_model)
+    return {
+        "wq_a": P(dd, None),
+        "q_norm": rmsnorm_specs(),
+        "wq_b": P(None, h_sh, None),
+        "wkv_a": P(dd, None),
+        "kv_norm": rmsnorm_specs(),
+        "wk_b": P(None, h_sh, None),
+        "wv_b": P(None, h_sh, None),
+        "wo": P(h_sh, None, dd),
+    }
+
+
+def _mla_q(p, cfg: ModelConfig, x, positions, tp=None):
+    """(q_nope (B, L, H, hd), q_rope (B, L, H, rh) rotated); with ``tp``
+    this rank's heads."""
     cq = rms_norm(p.q_norm, torch.einsum("bld,dq->blq", x, p.wq_a))
+    if tp is not None:
+        cq = par.copy_to(cq, tp)
     q = torch.einsum("blq,qhk->blhk", cq, p.wq_b)
     q_nope, q_rope = q[..., :cfg.head_dim], q[..., cfg.head_dim:]
     return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
@@ -226,8 +306,12 @@ def apply_mla(p, cfg: ModelConfig, x, positions):
     kernel takes q = [q_nope ; q_rope] and k = [k_nope ; k_rope] (dk = hd +
     rh, dv = hd) at scale (hd + rh) ** -0.5."""
     hd, rh = cfg.head_dim, cfg.rope_head_dim
-    q_nope, q_rope = _mla_q(p, cfg, x, positions)
+    tp = par.tp_group(p, "wq_b")
+    q_nope, q_rope = _mla_q(p, cfg, x, positions, tp)
     ckv, k_rope = _mla_latents(p, cfg, x, positions)
+    cache = {"ckv": ckv, "krope": k_rope}
+    if tp is not None:  # the latents enter this rank's heads
+        ckv, k_rope = par.copy_to(ckv, tp), par.copy_to(k_rope, tp)
     k_nope = torch.einsum("blk,khd->blhd", ckv, p.wk_b)
     v = torch.einsum("blk,khd->blhd", ckv, p.wv_b)
     scale = (hd + rh) ** -0.5
@@ -236,12 +320,13 @@ def apply_mla(p, cfg: ModelConfig, x, positions):
         k_full = torch.cat([k_nope, k_rope[:, :, None, :].expand(*k_nope.shape[:3], rh)], dim=-1)
         ctx = _flash(q_full, k_full, v, scale)
         y = torch.einsum("blhd,hdk->blk", ctx.to(x.dtype), p.wo)
-        return y, {"ckv": ckv, "krope": k_rope}
-    scores = (torch.einsum("blhd,bshd->bhls", q_nope, k_nope)
-              + torch.einsum("blhr,bsr->bhls", q_rope, k_rope)).float() * scale
-    w = torch.softmax(_causal(scores), dim=-1).to(x.dtype)
-    ctx = torch.einsum("bhls,bshd->blhd", w, v)
-    return torch.einsum("blhd,hdk->blk", ctx, p.wo), {"ckv": ckv, "krope": k_rope}
+    else:
+        scores = (torch.einsum("blhd,bshd->bhls", q_nope, k_nope)
+                  + torch.einsum("blhr,bsr->bhls", q_rope, k_rope)).float() * scale
+        w = torch.softmax(_causal(scores), dim=-1).to(x.dtype)
+        ctx = torch.einsum("bhls,bshd->blhd", w, v)
+        y = torch.einsum("blhd,hdk->blk", ctx, p.wo)
+    return (y if tp is None else par.reduce_from(y, tp)), cache
 
 
 def apply_mla_decode(p, cfg: ModelConfig, x, cache: dict, pos: int):

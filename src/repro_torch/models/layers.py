@@ -1,22 +1,67 @@
 """Shared building blocks (``repro/models/layers.py:27-171``): norms, RoPE,
-the SwiGLU MLP, initializers, embeddings.
+the SwiGLU MLP, initializers, embeddings, and the sharding helpers.
 
 Parameters live in ``nn.Module``s whose attribute names are ``repro``'s
 parameter-tree keys (``scale``, ``w_gate``, ``tok``, ...), so the functions
 below read ``p.<key>`` where ``repro`` reads ``p["<key>"]``. The numerics are
 ``repro``'s: ``rms_norm`` and ``apply_rope`` work in float32 and cast back to
 the input dtype at the end; RoPE rotates split halves, not interleaved
-pairs. The sharding helpers (``ShardCtx``, ``*_specs``) wait for the
-multi-GPU slice.
+pairs.
+
+Sharding: every parameter module has a ``*_specs`` function returning, per
+parameter key, a spec: a tuple with one entry per dim, each an axis name, a
+tuple of axis names (sharded over their row-major product) or ``None``
+(replicated), as ``repro``'s ``PartitionSpec``. A dim is sharded over an
+axis only when divisible (``shard_if``), so heads that do not divide the
+model axis (qwen2's 12, whisper's 20) stay replicated. On a mesh step
+(``models.parallel``) the MLP is tensor-parallel over ``d_ff`` and the
+embedding and the logits are vocab-parallel where the specs shard them.
 """
 
 from __future__ import annotations
+
+import dataclasses
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.models import parallel as par
 from repro_torch.models.config import ModelConfig
+
+# mesh axis names (fixed by launch/mesh.py)
+POD, DATA, MODEL = "pod", "data", "model"
+
+
+def P(*dims) -> tuple:
+    """A spec: one entry per dim (``repro``'s ``PartitionSpec(*dims)``)."""
+    return tuple(dims)
+
+
+def shard_if(dim: int, size: int, axis: str) -> Optional[str]:
+    """Shard `dim` over `axis` (of `size` devices) only when divisible."""
+    return axis if dim % size == 0 and dim >= size else None
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardCtx:
+    """Mesh-dependent context for building spec trees."""
+
+    model_size: int = 16
+    fsdp: bool = False
+
+    def heads(self, n: int) -> Optional[str]:
+        return shard_if(n, self.model_size, MODEL)
+
+    def ff(self, n: int) -> Optional[str]:
+        return shard_if(n, self.model_size, MODEL)
+
+    def data(self, n: int) -> Optional[str]:
+        # FSDP shards a replicated-over-model dim over the data axis; repro
+        # tests n % 16, not the data axis's size (kept: a spec'd dim the
+        # data axis does not divide raises at placement)
+        return DATA if self.fsdp and n % 16 == 0 else None
 
 
 def dtype_of(cfg: ModelConfig) -> torch.dtype:
@@ -50,6 +95,10 @@ class RMSNorm(nn.Module):
     def __init__(self, d: int, dtype, device):
         super().__init__()
         self.scale = param((d,), dtype, device)
+
+
+def rmsnorm_specs() -> dict:
+    return {"scale": P(None)}
 
 
 def rms_norm(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -89,6 +138,8 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 
 
 class MLP(nn.Module):
+    tp_keys = ("w_gate", "w_up", "w_down")
+
     def __init__(self, d: int, d_ff: int, dtype, device):
         super().__init__()
         self.w_gate = param((d, d_ff), dtype, device)
@@ -103,10 +154,24 @@ class MLP(nn.Module):
         self.w_down.copy_(ninit(generator, (d_ff, d), d_ff**-0.5, self.w_down.dtype))
 
 
+def mlp_specs(ctx: ShardCtx, d: int, d_ff: int) -> dict:
+    m = ctx.ff(d_ff)
+    dd = ctx.data(d)
+    return {"w_gate": P(dd, m), "w_up": P(dd, m), "w_down": P(m, dd)}
+
+
 def apply_mlp(p, x: torch.Tensor) -> torch.Tensor:
+    """SwiGLU. On a mesh step that shards ``d_ff`` over the model axis,
+    column-parallel ``w_gate`` / ``w_up`` and row-parallel ``w_down``: the
+    replicated input enters through ``copy`` (its gradient summed over the
+    model axis) and the partial outputs are summed over it."""
+    tp = par.tp_group(p, "w_gate")
+    if tp is not None:
+        x = par.copy_to(x, tp)
     gate = F.silu(x @ p.w_gate)
     up = x @ p.w_up
-    return (gate * up) @ p.w_down
+    y = (gate * up) @ p.w_down
+    return y if tp is None else par.reduce_from(y, tp)
 
 
 # ---------------------------------------------------------------------------
@@ -115,6 +180,8 @@ def apply_mlp(p, x: torch.Tensor) -> torch.Tensor:
 
 
 class Embed(nn.Module):
+    tp_keys = ("tok", "head")
+
     def __init__(self, cfg: ModelConfig, dtype, device):
         super().__init__()
         self.tok = param((cfg.vocab, cfg.d_model), dtype, device)
@@ -129,10 +196,32 @@ class Embed(nn.Module):
                                   self.head.dtype))
 
 
+def embed_specs(ctx: ShardCtx, cfg: ModelConfig) -> dict:
+    v_shard = ctx.heads(cfg.vocab)  # vocab over model axis
+    p = {"tok": P(v_shard, ctx.data(cfg.d_model))}
+    if not cfg.tie_embeddings:
+        p["head"] = P(ctx.data(cfg.d_model), v_shard)
+    return p
+
+
 def embed_tokens(p, tokens: torch.Tensor) -> torch.Tensor:
-    return F.embedding(tokens.long(), p.tok)
+    """The token embeddings. Vocab-parallel on a mesh step that shards the
+    vocab: each model rank looks up the ids in its range (the others give
+    zero rows) and the rows are summed over the model axis."""
+    tp = par.tp_group(p, "tok")
+    if tp is None:
+        return F.embedding(tokens.long(), p.tok)
+    lo = tp.index * p.tok.shape[0]
+    ids = tokens.long() - lo
+    mine = (ids >= 0) & (ids < p.tok.shape[0])
+    rows = F.embedding(torch.where(mine, ids, torch.zeros_like(ids)), p.tok)
+    return par.reduce_from(rows * mine[..., None].to(rows.dtype), tp)
 
 
 def unembed(p, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The logits; on a mesh step that shards the vocab, this model rank's
+    vocab columns (``par.vocab_lse_gold`` and ``par.gather_vocab`` read
+    them)."""
     w = p.tok.T if cfg.tie_embeddings else p.head
-    return h @ w
+    tp = par.tp_group(p, "tok")
+    return (h if tp is None else par.copy_to(h, tp)) @ w

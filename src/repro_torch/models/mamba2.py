@@ -25,7 +25,16 @@ from torch import nn
 
 from repro_torch.models.attention import TensorSpec
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import RMSNorm, dtype_of, ninit, param, rms_norm
+from repro_torch.models.layers import (
+    P,
+    RMSNorm,
+    ShardCtx,
+    dtype_of,
+    ninit,
+    param,
+    rms_norm,
+    rmsnorm_specs,
+)
 
 CONV_W = 4  # causal depthwise conv window
 
@@ -72,6 +81,23 @@ class Mamba2Block(nn.Module):
         self.gate_norm.scale.fill_(1.0)
         self.out_proj.copy_(ninit(generator, self.out_proj.shape, d_inner**-0.5,
                                   self.out_proj.dtype))
+
+
+def mamba2_block_specs(ctx: ShardCtx, cfg: ModelConfig) -> dict:
+    """Only FSDP splits a Mamba2 block (over ``"data"``); the model axis
+    replicates it."""
+    dd = ctx.data(cfg.d_model)
+    return {
+        "norm": rmsnorm_specs(),
+        "in_proj": P(dd, None),
+        "conv_w": P(None, None),
+        "conv_b": P(None),
+        "a_log": P(None),
+        "d_skip": P(None),
+        "dt_bias": P(None),
+        "gate_norm": rmsnorm_specs(),
+        "out_proj": P(None, dd),
+    }
 
 
 def _causal_conv_seq(w, b, x, init_state):

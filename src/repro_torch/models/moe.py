@@ -16,8 +16,28 @@ weighted output into its token (``.at[tok].add``, one rounding per add in
 ``x.dtype``); the port gathers each token's k weighted outputs in
 assignment order (top-1 first) and sums them in float32 by one reduction,
 rounding once to ``x.dtype``: no atomics, so the same inputs give the same
-bits. ``apply_moe_ep`` (shard_map expert parallelism) comes with the
-multi-GPU slice.
+bits.
+
+On a mesh step (``models.parallel``) the experts are split over the model
+axis as ``moe_specs`` says, in two modes:
+
+  * ``apply_moe`` (``moe_impl="gspmd"``) computes what ``repro``'s global
+    program computes. Each data-parallel rank routes its block of the batch;
+    the capacity is that of the global token count, and slots count in
+    global token order: a rank offsets each expert's positions by the
+    assignments the ranks before it (row-major) made to that expert, from
+    one all-gather of the (E,) counts. The aux loss is built from the
+    globally summed counts and router probabilities. Each model rank runs
+    its experts on the kept assignments routed to them and the partial
+    outputs are summed over the model axis.
+  * ``apply_moe_ep`` (``moe_impl="ep_manual"``, ``repro``'s shard_map
+    expert parallelism) routes each data-parallel block on its own, with
+    the capacity of the block's token count (drops per block), keeps the
+    assignments to the rank's experts [r E / m, (r + 1) E / m) and sums the
+    outputs over the model axis; its aux loss is the mean over the
+    data-parallel ranks of each block's. It needs a mesh.
+
+The shared expert is a tensor-parallel MLP beside either.
 """
 
 from __future__ import annotations
@@ -26,14 +46,17 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.models import parallel as par
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import MLP, apply_mlp, ninit, param
+from repro_torch.models.layers import P, MLP, ShardCtx, apply_mlp, mlp_specs, ninit, param
 
 
 class MoE(nn.Module):
     """Parameters under ``repro``'s keys: router (d, E) float32, w_gate /
     w_up (E, d, F), w_down (E, F, d) and, with shared experts, ``shared``
     (a SwiGLU MLP of width F x n_shared)."""
+
+    tp_keys = ("w_gate", "w_up", "w_down")
 
     def __init__(self, cfg: ModelConfig, dtype, device):
         super().__init__()
@@ -56,6 +79,20 @@ class MoE(nn.Module):
                 w[e].copy_(ninit(generator, w.shape[1:], scale, w.dtype))
         if cfg.n_shared_experts:
             self.shared.init(generator)
+
+
+def moe_specs(ctx: ShardCtx, cfg: ModelConfig) -> dict:
+    e_sh = ctx.heads(cfg.n_experts)  # experts over the model axis (EP)
+    dd = ctx.data(cfg.d_model)
+    p = {
+        "router": P(dd, None),
+        "w_gate": P(e_sh, dd, None),
+        "w_up": P(e_sh, dd, None),
+        "w_down": P(e_sh, None, dd),
+    }
+    if cfg.n_shared_experts:
+        p["shared"] = mlp_specs(ctx, cfg.d_model, cfg.moe_d_ff * cfg.n_shared_experts)
+    return p
 
 
 def capacity(n_tokens: int, cfg: ModelConfig) -> int:
@@ -87,38 +124,95 @@ def expert_slots(expert_ids, c: int):
     return pos.reshape(expert_ids.shape)
 
 
-def apply_moe(p, cfg: ModelConfig, x):
-    """x: (B, L, D) -> (y (B, L, D), aux_loss float32)."""
-    b, l, d = x.shape
-    n, k, e = b * l, cfg.experts_per_token, cfg.n_experts
-    c = capacity(n, cfg)
-    xf = x.reshape(n, d)
-    probs, gate, expert_ids = route(p, cfg, xf)
-
-    # load-balancing aux loss (Switch): E * sum_e f_e * P_e
-    assign = torch.bincount(expert_ids.reshape(-1), minlength=e).float() / (n * k)
-    aux = e * torch.sum(assign * probs.mean(0))
-
-    slot = expert_slots(expert_ids, c)
-    kept = slot < c
-    # the (E, C + 1, D) buffer's last slot takes every dropped assignment
-    # and is cut off: no host sync for a boolean mask
-    buf = x.new_zeros((e, c + 1, d))
-    tok = torch.arange(n, device=x.device).repeat_interleave(k)
-    buf[expert_ids.reshape(-1), slot.reshape(-1).clamp(max=c)] = xf[tok]
+def _experts(p, cfg: ModelConfig, xf, gate, expert_ids, slot, c: int, tp):
+    """The routed experts' weighted outputs (N, D) float32 of the kept
+    assignments (slot < ``c``). With ``tp`` this rank holds experts [r E_l,
+    (r + 1) E_l): it runs those assigned to them, and the partial sums are
+    summed over the model axis (its inputs and gates enter through
+    ``copy_to``)."""
+    n, d = xf.shape
+    k = cfg.experts_per_token
+    e_loc = p.w_gate.shape[0]
+    local_e = expert_ids
+    if tp is not None:
+        xf, gate = par.copy_to(xf, tp), par.copy_to(gate, tp)
+        local_e = expert_ids - tp.index * e_loc
+    mine = (local_e >= 0) & (local_e < e_loc)
+    local_e = torch.where(mine, local_e, torch.zeros_like(local_e))
+    kept = mine & (slot < c)
+    # the (E_l, C + 1, D) buffer's last slot takes every dropped (or other
+    # rank's) assignment and is cut off: no host sync for a boolean mask
+    buf = xf.new_zeros((e_loc, c + 1, d))
+    tok = torch.arange(n, device=xf.device).repeat_interleave(k)
+    to = torch.where(mine, slot, torch.full_like(slot, c)).clamp(max=c)
+    buf[local_e.reshape(-1), to.reshape(-1)] = xf[tok]
     buf = buf[:, :c]
 
     h = torch.bmm(F.silu(torch.bmm(buf, p.w_gate)) * torch.bmm(buf, p.w_up), p.w_down)
 
-    out = h[expert_ids, slot.clamp(max=c - 1)]  # (N, k, D), assignment order
-    w = torch.where(kept, gate, torch.zeros_like(gate)).to(x.dtype)
-    y = (out * w[..., None]).sum(1, dtype=torch.float32).to(x.dtype)
+    out = h[local_e, slot.clamp(max=c - 1)]  # (N, k, D), assignment order
+    w = torch.where(kept, gate, torch.zeros_like(gate)).to(xf.dtype)
+    y = (out * w[..., None]).sum(1, dtype=torch.float32)
+    return y if tp is None else par.reduce_from(y, tp)
+
+
+def apply_moe(p, cfg: ModelConfig, x):
+    """x: (B, L, D) -> (y (B, L, D), aux_loss float32). On a mesh step in
+    gspmd mode, the global program over the data-parallel ranks (see the
+    module docstring)."""
+    b, l, d = x.shape
+    n, k, e = b * l, cfg.experts_per_token, cfg.n_experts
+    xf = x.reshape(n, d)
+    probs, gate, expert_ids = route(p, cfg, xf)
+    counts = torch.bincount(expert_ids.reshape(-1), minlength=e)
+    dp = par.dp_group()
+    if dp is None:
+        c = capacity(n, cfg)
+        slot = expert_slots(expert_ids, c)
+        # load-balancing aux loss (Switch): E * sum_e f_e * P_e
+        assign = counts.float() / (n * k)
+        aux = e * torch.sum(assign * probs.mean(0))
+    else:
+        every = par.all_gather_rows(counts, dp)  # (DP ranks, E), row-major
+        n_all = n * dp.size
+        c = capacity(n_all, cfg)
+        slot = expert_slots(expert_ids, c) + every[:dp.index].sum(0)[expert_ids]
+        assign = every.sum(0).float() / (n_all * k)
+        aux = e * torch.sum(assign * (par.psum(probs.sum(0), dp) / n_all))
+    y = _experts(p, cfg, xf, gate, expert_ids, slot, c, par.tp_group(p, "w_gate")).to(x.dtype)
     if cfg.n_shared_experts:
         y = y + apply_mlp(p.shared, xf)
     return y.reshape(b, l, d), aux
 
 
 def apply_moe_ep(p, cfg: ModelConfig, x, axis: str = "model"):
-    raise NotImplementedError(
-        "moe_impl='ep_manual' is shard_map expert parallelism across devices: it comes with "
-        "the LM side of the multi-GPU slice (ROADMAP Queue 1 item 5), the port's next slice")
+    """``repro``'s manual expert parallelism over the model axis (see the
+    module docstring): x (B, L, D), this data-parallel rank's block ->
+    (y, aux). Raises off a mesh, or where the experts are not split over
+    the model axis."""
+    if axis != "model":
+        raise ValueError(f"expert parallelism runs over the model axis, not {axis!r}")
+    if not par.active():
+        raise ValueError("moe_impl='ep_manual' is expert parallelism over a device mesh: run "
+                         "it on a mesh step (training.train_loop.make_train_step(cfg, tcfg, "
+                         "mesh, specs)), or use moe_impl='gspmd' on one device")
+    tp = par.tp_group(p, "w_gate")
+    if tp is None:
+        raise ValueError(f"ep_manual needs the {cfg.n_experts} experts split over the model "
+                         "axis (moe_specs)")
+    b, l, d = x.shape
+    n, k, e = b * l, cfg.experts_per_token, cfg.n_experts
+    xf = x.reshape(n, d)
+    probs, gate, expert_ids = route(p, cfg, xf)
+    assign = torch.bincount(expert_ids.reshape(-1), minlength=e).float() / (n * k)
+    aux = e * torch.sum(assign * probs.mean(0))
+    dp = par.dp_group()
+    if dp is not None:  # pmean over every axis: the model ranks' agree
+        aux = par.psum(aux, dp) / dp.size
+    c = capacity(n, cfg)
+    y = _experts(p, cfg, xf, gate, expert_ids, expert_slots(expert_ids, c), c, tp).to(x.dtype)
+    if cfg.n_shared_experts:
+        # the shared expert stays outside the expert-parallel region: a
+        # tensor-parallel MLP over its d_ff
+        y = y + apply_mlp(p.shared, xf)
+    return y.reshape(b, l, d), aux

@@ -23,6 +23,11 @@ The block keeps two quirks of ``repro``, which are not faults: the
 channel-mix width is ``int(3.5 * d)``, not ``cfg.d_ff`` (they agree for both
 configs), and the decay LoRA reuses the first stream's ``lora_a[:, :wkv_lora]``
 with ``lora_b[4]``.
+
+``rwkv6_block_specs`` splits the time-mix and channel-mix projections over
+the model axis (``d`` and ``hidden``) as ``repro``'s do; a mesh step gathers
+those blocks whole on use (``training.train_loop``), so every model rank
+runs the whole block.
 """
 
 from __future__ import annotations
@@ -33,7 +38,7 @@ from torch import nn
 
 from repro_torch.models.attention import TensorSpec
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import dtype_of, ninit, param
+from repro_torch.models.layers import P, ShardCtx, dtype_of, ninit, param
 
 EXP_CLAMP = 40.0
 
@@ -188,6 +193,40 @@ class RWKV6Block(nn.Module):
         for w, scale in draws:
             w.copy_(ninit(generator, w.shape, scale, w.dtype))
         tm.w0.sub_(6.0)
+
+
+def rwkv6_block_specs(ctx: ShardCtx, cfg: ModelConfig) -> dict:
+    d = cfg.d_model
+    hidden = int(d * 3.5)
+    m_d = ctx.ff(d)
+    m_h = ctx.ff(hidden)
+    dd = ctx.data(d)
+    ln = {"scale": P(None), "bias": P(None)}
+    return {
+        "ln1": ln,
+        "ln2": ln,
+        "tm": {
+            "mu_x": P(None),
+            "mu": P(None, None),
+            "lora_a": P(dd, None),
+            "lora_b": P(None, None, None),
+            "w0": P(None),
+            "u": P(None, None),
+            "wr": P(dd, m_d),
+            "wk": P(dd, m_d),
+            "wv": P(dd, m_d),
+            "wg": P(dd, m_d),
+            "wo": P(m_d, dd),
+            "ln_x": ln,
+        },
+        "cm": {
+            "mu_k": P(None),
+            "mu_r": P(None),
+            "wk": P(dd, m_h),
+            "wv": P(m_h, dd),
+            "wr": P(dd, m_d),
+        },
+    }
 
 
 def _layer_norm(p, x, eps: float = 1e-5):

@@ -41,6 +41,14 @@ KV, hd) for the vlm, (n_layers, B, max_len, KV, hd) for audio) and the
 cross-attention's keys and values of the frontend per cross layer
 ((n, B, n_frontend_tokens, KV, hd)), written once by prefill and only read
 by decode.
+
+``param_specs`` gives each parameter's spec (``models.layers``), keyed by
+the port's parameter names (``layers.3.attn.wq``): ``repro``'s spec without
+the leading layer dims that its stacking adds. ``cache_specs`` gives the
+decode cache's, in ``repro``'s tree. On a mesh step (``models.parallel``)
+the forward and the loss run tensor-parallel where the specs split the
+model axis, the logits vocab-split, the cross-entropy reducing its max, sum
+of exponentials and gold logit over the model axis.
 """
 
 from __future__ import annotations
@@ -55,18 +63,27 @@ from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba2
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import parallel as par
 from repro_torch.models import rwkv6
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
+    DATA,
     MLP,
+    MODEL,
+    POD,
     Embed,
+    P,
     RMSNorm,
+    ShardCtx,
     apply_mlp,
     dtype_of,
+    embed_specs,
     embed_tokens,
+    mlp_specs,
     ninit,
     param,
     rms_norm,
+    rmsnorm_specs,
     unembed,
 )
 
@@ -231,6 +248,154 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None) -> Tr
         _init_block(model.mtp.block, generator, cfg)
         model.mtp.norm.scale.fill_(1.0)
     return model
+
+
+# ---------------------------------------------------------------------------
+# sharding specs
+# ---------------------------------------------------------------------------
+
+
+def _dense_block_specs(ctx: ShardCtx, cfg: ModelConfig) -> dict:
+    return {
+        "ln1": rmsnorm_specs(),
+        "attn": attn.mla_specs(ctx, cfg) if cfg.use_mla else attn.attention_specs(ctx, cfg),
+        "ln2": rmsnorm_specs(),
+        "mlp": mlp_specs(ctx, cfg.d_model, cfg.d_ff),
+    }
+
+
+def _moe_block_specs(ctx: ShardCtx, cfg: ModelConfig) -> dict:
+    return {
+        "ln1": rmsnorm_specs(),
+        "attn": attn.mla_specs(ctx, cfg) if cfg.use_mla else attn.attention_specs(ctx, cfg),
+        "ln2": rmsnorm_specs(),
+        "moe": moe_mod.moe_specs(ctx, cfg),
+    }
+
+
+def _named_specs(tree: dict, prefix: str, out: dict) -> dict:
+    for key, sub in tree.items():
+        if isinstance(sub, dict):
+            _named_specs(sub, f"{prefix}{key}.", out)
+        else:
+            out[prefix + key] = sub
+    return out
+
+
+def param_specs(cfg: ModelConfig, ctx: ShardCtx = None) -> dict:
+    """{parameter name: spec} of the ``Transformer`` of ``cfg`` under ``ctx``
+    (default ``ShardCtx(fsdp=cfg.fsdp)``), ``repro``'s ``param_specs`` leaf
+    for leaf without the stacked layer dims."""
+    ctx = ctx or ShardCtx(fsdp=cfg.fsdp)
+    out = _named_specs({"embed": embed_specs(ctx, cfg), "final_norm": rmsnorm_specs()}, "", {})
+
+    def stack(name: str, n: int, block: dict) -> None:
+        for i in range(n):
+            _named_specs(block, f"{name}.{i}.", out)
+
+    dense = _dense_block_specs(ctx, cfg)
+    if cfg.family == "dense":
+        stack("layers", cfg.n_layers, dense)
+    elif cfg.family == "moe":
+        stack("dense_layers", cfg.first_dense_layers, dense)
+        stack("layers", cfg.n_layers - cfg.first_dense_layers, _moe_block_specs(ctx, cfg))
+        if cfg.mtp:
+            _named_specs({"proj": P(None, None), "block": dense, "norm": rmsnorm_specs()},
+                         "mtp.", out)
+    elif cfg.family == "ssm":
+        stack("layers", cfg.n_layers, rwkv6.rwkv6_block_specs(ctx, cfg))
+    elif cfg.family == "hybrid":
+        stack("layers", cfg.n_layers, mamba2.mamba2_block_specs(ctx, cfg))
+        _named_specs(dense, "shared_attn.", out)
+    elif cfg.family == "vlm":
+        for g in range(cfg.n_layers // cfg.cross_attn_every):
+            stack(f"groups.{g}.self", cfg.cross_attn_every - 1, dense)
+            _named_specs(dense, f"groups.{g}.cross.", out)
+    elif cfg.family == "audio":
+        stack("encoder", cfg.encoder_layers, dense)
+        _named_specs({"enc_norm": rmsnorm_specs()}, "", out)
+        stack("layers", cfg.n_layers, {**dense, "ln_x": rmsnorm_specs(),
+                                       "cross": attn.attention_specs(ctx, cfg)})
+    else:
+        raise ValueError(cfg.family)
+    return out
+
+
+def cache_specs(cfg: ModelConfig, batch: int, max_len: int, *, dp_size: int = 32,
+                model_size: int = 16, multi_pod: bool = True) -> dict:
+    """``repro``'s mesh-aware spec tree of ``cache_shape`` (quirks kept: the
+    vlm's and audio's cross-cache branches). The batch splits over the
+    data-parallel axes when divisible; KV heads over the model axis when
+    divisible, else the cache's sequence dim (a sequence-sharded KV cache);
+    SSM states their head dim."""
+    dp = (POD, DATA) if multi_pod else (DATA,)
+    dp_spec = dp if len(dp) > 1 else dp[0]
+    b_sh = dp_spec if batch % dp_size == 0 and batch >= dp_size else None
+    kv_ok = cfg.n_kv_heads % model_size == 0 and cfg.n_kv_heads >= model_size
+    seq_ok = max_len % model_size == 0
+
+    def kv_spec(extra_lead: int):
+        # (B, S, KV, hd) with extra_lead stacked layer dims in front
+        lead = (None,) * extra_lead
+        if kv_ok:
+            return P(*lead, b_sh, None, MODEL, None)
+        if seq_ok:
+            return P(*lead, b_sh, MODEL, None, None)
+        return P(*lead, b_sh, None, None, None)
+
+    def seq2_spec(extra_lead: int, last_div: int):
+        # (B, S, X) latent caches (mla): shard S over model when divisible
+        lead = (None,) * extra_lead
+        if seq_ok:
+            return P(*lead, b_sh, MODEL, None)
+        if last_div % model_size == 0:
+            return P(*lead, b_sh, None, MODEL)
+        return P(*lead, b_sh, None, None)
+
+    def map_attn(extra_lead: int):
+        if cfg.use_mla:
+            return {
+                "ckv": seq2_spec(extra_lead, cfg.kv_lora_rank),
+                "krope": P(*((None,) * extra_lead), b_sh, MODEL if seq_ok else None, None),
+            }
+        return {"k": kv_spec(extra_lead), "v": kv_spec(extra_lead)}
+
+    d = cfg.d_model
+    d_sh = MODEL if d % model_size == 0 else None
+    if cfg.family == "dense":
+        return {"layers": map_attn(1)}
+    if cfg.family == "moe":
+        out = {"layers": map_attn(1)}
+        if cfg.first_dense_layers:
+            out["dense_layers"] = map_attn(1)
+        return out
+    if cfg.family == "ssm":
+        h = d // cfg.ssm_head_dim
+        h_sh = MODEL if h % model_size == 0 else None
+        return {"layers": {"tm_x": P(None, b_sh, d_sh), "cm_x": P(None, b_sh, d_sh),
+                           "wkv": P(None, b_sh, h_sh, None, None)}}
+    if cfg.family == "hybrid":
+        d_inner = 2 * d
+        h = d_inner // cfg.ssm_head_dim
+        h_sh = MODEL if h % model_size == 0 else None
+        conv_ch = d_inner + 2 * cfg.ssm_state
+        return {
+            "mamba": {
+                "conv": P(None, b_sh, None, MODEL if conv_ch % model_size == 0 else None),
+                "ssm": P(None, b_sh, h_sh, None, None),
+            },
+            "shared": map_attn(1),
+        }
+    t = cfg.n_frontend_tokens
+    if cfg.family == "vlm":
+        kv = (P(None, b_sh, None, MODEL, None) if kv_ok
+              else P(None, b_sh, MODEL if t % model_size == 0 else None, None, None))
+        return {"self": map_attn(2), "cross": {"k": kv, "v": kv}}
+    if cfg.family == "audio":
+        cross_seq = MODEL if t % model_size == 0 and not kv_ok else None
+        kv = P(None, b_sh, None, MODEL, None) if kv_ok else P(None, b_sh, cross_seq, None, None)
+        return {"self": map_attn(1), "cross": {"k": kv, "v": kv}}
+    raise ValueError(cfg.family)
 
 
 def _moe_fn(cfg: ModelConfig):
@@ -425,11 +590,15 @@ def make_forward(cfg: ModelConfig):
     return fwd
 
 
-def _cross_entropy(logits, labels, mask):
-    """Mean next-token NLL over ``mask``, with an fp32 logsumexp."""
+def _cross_entropy(logits, labels, mask, tp=None):
+    """Mean next-token NLL over ``mask``, with an fp32 logsumexp; with ``tp``
+    over logits split by vocab over the model axis."""
     lf = logits.float()
-    lse = torch.logsumexp(lf, dim=-1)
-    gold = torch.gather(lf, -1, labels[..., None].long())[..., 0]
+    if tp is None:
+        lse = torch.logsumexp(lf, dim=-1)
+        gold = torch.gather(lf, -1, labels[..., None].long())[..., 0]
+    else:
+        lse, gold = par.vocab_lse_gold(lf, labels, tp)
     nll = (lse - gold) * mask
     return nll.sum() / torch.clamp(mask.sum(), min=1.0)
 
@@ -446,15 +615,16 @@ def make_loss_fn(cfg: ModelConfig):
     def loss_fn(params: Transformer, batch: dict) -> torch.Tensor:
         tokens = batch["tokens"]
         logits, aux, logits_mtp = fwd(params, tokens, batch.get("frontend"))
+        tp = par.tp_group(params.embed, "tok")
         labels = torch.roll(tokens, -1, dims=1)
         mask = torch.ones(tokens.shape, dtype=torch.float32, device=tokens.device)
         mask[:, -1] = 0.0
-        loss = _cross_entropy(logits, labels, mask) + AUX_LOSS_COEF * aux
+        loss = _cross_entropy(logits, labels, mask, tp) + AUX_LOSS_COEF * aux
         if logits_mtp is not None:
             mask2 = mask.clone()
             mask2[:, -2] = 0.0
             loss = loss + MTP_LOSS_COEF * _cross_entropy(
-                logits_mtp, torch.roll(tokens, -2, dims=1), mask2)
+                logits_mtp, torch.roll(tokens, -2, dims=1), mask2, tp)
         return loss
 
     return loss_fn
@@ -507,10 +677,15 @@ def make_prefill(cfg: ModelConfig, max_len: int):
     multiple of ``ssm_chunk`` above 1), and for the vlm and audio families
     the cross-attention's keys and values of ``frontend`` (B,
     n_frontend_tokens, D; the audio encoder runs here, once). Runs under
-    ``torch.inference_mode``."""
+    ``torch.inference_mode``. On a mesh step's placement (``models.parallel``)
+    it runs tensor-parallel and gathers the vocab-split logits; a KV cache
+    split by heads there comes with the serving half of the mesh slice."""
 
     @torch.inference_mode()
     def prefill(params: Transformer, tokens: torch.Tensor, frontend=None):
+        if par.active() and any(isinstance(m, attn.Attention) and par.tp_group(m, "wk")
+                                is not None for m in params.modules()):
+            par.refuse("a KV cache split by heads")
         b, l = tokens.shape
         if l > max_len:
             raise ValueError(f"prompt length {l} exceeds max_len {max_len}")
@@ -560,7 +735,9 @@ def make_prefill(cfg: ModelConfig, max_len: int):
                     for key, t in c.items():
                         cache[g][key][i, :, :l] = t
         h = rms_norm(params.final_norm, h[:, -1:])
-        return unembed(params.embed, h, cfg)[:, 0], cache
+        logits = unembed(params.embed, h, cfg)[:, 0]
+        tp = par.tp_group(params.embed, "tok")
+        return (logits if tp is None else par.gather_vocab(logits, tp)), cache
 
     return prefill
 
@@ -575,6 +752,7 @@ def make_decode_step(cfg: ModelConfig):
 
     @torch.inference_mode()
     def decode(params: Transformer, token: torch.Tensor, cache: dict, pos: int):
+        par.refuse("cached decode")
         h = embed_tokens(params.embed, token[:, None])
         layer = lambda tree, *i: {k: t[i] for k, t in tree.items()}
         if cfg.family == "ssm":

@@ -1,8 +1,9 @@
 """Batched serving engine (``repro/serving/engine.py:18-75``): prefill once
 per request batch, then step the decoder over the KV cache (or, for the ssm
 and hybrid families, the recurrent state, whose size does not depend on
-``max_len``); greedy or temperature sampling. The mesh shardings (``cache_shardings``) wait for the
-multi-GPU slice.
+``max_len``); greedy or temperature sampling. The mesh shardings
+(``cache_shardings``, ``ServingEngine(mesh=)``) come with the serving half
+of the mesh slice (ROADMAP Queue 1 item 5).
 """
 
 from __future__ import annotations

@@ -4,9 +4,14 @@ The numerics are ``repro``'s: fp32 math, the clip scale from the global
 norm of the gradients, bias correction, decoupled weight decay on the
 parameter, and each parameter rounded once per update to its own dtype.
 ``moment_dtype`` chooses fp32 or bf16 moments. The port updates the
-parameters and moments in place (``repro`` returns new arrays); the
-parameter shardings (``opt_state_specs``) wait for the multi-GPU slice.
-Parameters and moments are dicts keyed by the model's parameter names.
+parameters and moments in place (``repro`` returns new arrays). Parameters
+and moments are dicts keyed by the model's parameter names.
+
+On a mesh the moments are split as their parameters (``opt_state_specs``,
+so FSDP splits them over the data axis too) and AdamW runs on each rank's
+blocks; the clip scale comes from ``global_norm`` of the whole logical
+gradients, which a mesh step computes from the blocks (``mesh_global_norm``
+in ``training.train_loop``) and passes in.
 """
 
 from __future__ import annotations
@@ -55,19 +60,26 @@ def init_opt_state(params: dict, cfg: OptConfig) -> dict:
     }
 
 
+def opt_state_specs(param_specs: dict) -> dict:
+    return {"m": param_specs, "v": param_specs, "step": ()}
+
+
 def global_norm(grads) -> torch.Tensor:
     """sqrt of the sum of squares of every gradient, in float32."""
     return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in grads))
 
 
 @torch.no_grad()
-def adamw_update(grads: dict, opt_state: dict, params: dict, cfg: OptConfig) -> dict:
+def adamw_update(grads: dict, opt_state: dict, params: dict, cfg: OptConfig,
+                 gnorm: torch.Tensor = None) -> dict:
     """One AdamW step on ``params`` and ``opt_state`` (both updated in place);
-    ``grads`` keyed as ``params``. Returns the metrics ``lr`` and
-    ``grad_norm`` (0-d float32 tensors)."""
+    ``grads`` keyed as ``params``; ``gnorm`` the gradients' global norm where
+    they are blocks of larger ones (default: ``global_norm`` of ``grads``).
+    Returns the metrics ``lr`` and ``grad_norm`` (0-d float32 tensors)."""
     step = opt_state["step"] + 1
     lr = lr_schedule(cfg, step)
-    gnorm = global_norm(grads.values())
+    if gnorm is None:
+        gnorm = global_norm(grads.values())
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     stepf = step.float()
     c1 = 1 - torch.pow(torch.tensor(cfg.b1, device=step.device), stepf)

@@ -73,12 +73,11 @@ WORLDS = {  # world: (shape, axes, cases)
 STUB = {2: {"data": 2}, 4: {"data": 4}, 8: {"pod": 2, "data": 2, "model": 2}}
 
 
-def spawn(d: pathlib.Path, world: int, shape: str, axes: str, cases: str,
-          timeout_s: float = 60.0) -> list[dict]:
-    """Run the ranks of ``world`` over ``d/inputs.npz``; every rank's outputs.
-    Fails (killing every rank) past ``SPAWN_LIMIT_S``."""
+def start(d: pathlib.Path, world: int, shape: str, axes: str, cases: str,
+          timeout_s: float = 60.0):
+    """Start the ranks of ``world`` over ``d/inputs.npz`` (``join`` waits)."""
     env = dict(os.environ, PYTHONPATH=f"{REPO / 'src'}:{REPO}", OMP_NUM_THREADS="1")
-    store = d / f"store{world}_{cases.replace(',', '_')}"
+    store = d / f"store{world}_{cases.replace(',', '_').replace(':', '_')}"
     procs = []
     for r in range(world):
         log = open(d / f"rank{r}.log", "w")
@@ -88,7 +87,13 @@ def spawn(d: pathlib.Path, world: int, shape: str, axes: str, cases: str,
              str(d), "--timeout", str(timeout_s)], cwd=REPO, env=env, stdout=log,
             stderr=subprocess.STDOUT))
         log.close()
-    deadline = time.monotonic() + SPAWN_LIMIT_S
+    return d, world, cases, procs, time.monotonic() + SPAWN_LIMIT_S
+
+
+def join(handle) -> list[dict]:
+    """Every rank's outputs of a started world. Fails (killing every rank)
+    past ``SPAWN_LIMIT_S`` from its start."""
+    d, world, cases, procs, deadline = handle
     try:
         for p in procs:
             p.wait(timeout=max(deadline - time.monotonic(), 0.1))
@@ -105,6 +110,12 @@ def spawn(d: pathlib.Path, world: int, shape: str, axes: str, cases: str,
     assert [p.returncode for p in procs] == [0] * world, [
         (d / f"rank{r}.log").read_text() for r in range(world)]
     return [dict(np.load(d / f"rank{r}.npz")) for r in range(world)]
+
+
+def spawn(d: pathlib.Path, world: int, shape: str, axes: str, cases: str,
+          timeout_s: float = 60.0) -> list[dict]:
+    """Run the ranks of ``world`` over ``d/inputs.npz``; every rank's outputs."""
+    return join(start(d, world, shape, axes, cases, timeout_s))
 
 
 def save_seg(inp: dict, prefix: str, seg) -> None:

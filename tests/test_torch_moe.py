@@ -140,9 +140,12 @@ def test_moe_routing_rules():
 
 
 def test_ep_manual_raises_item_5():
+    """ep_manual is expert parallelism over a device mesh (item 5's training
+    half): off a mesh it raises rather than running the one-device program
+    (tests/test_torch_lm_mesh.py holds it on meshes)."""
     cfg = dataclasses.replace(get_smoke_config("kimi-k2-1t-a32b"), moe_impl="ep_manual")
     model = tfm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5"):
+    with pytest.raises(ValueError, match="expert parallelism over a device mesh"):
         tfm.make_forward(cfg)(model, torch.zeros((1, 4), dtype=torch.int32))
 
 

@@ -163,7 +163,7 @@ def test_int8_quantization_matches_repro_and_bound():
     np.testing.assert_allclose(float(scale), float(rscale), rtol=1e-7)
     deq = dequantize_int8(q, scale)
     assert float((deq - torch.tensor(g)).abs().max()) <= float(scale) / 2 + 1e-9
-    with pytest.raises(NotImplementedError, match=r"multi-GPU slice \(ROADMAP Queue 1 item 5\)"):
+    with pytest.raises(ValueError, match="data-parallel ranks of a device mesh"):
         compressed_psum_mean({"w": torch.tensor(g)}, ("data",))
 
 
@@ -357,11 +357,24 @@ def test_loss_decreases():
 
 
 def test_train_step_rejects_mesh_and_compression():
-    _, cfg = _cfgs()
-    with pytest.raises(NotImplementedError, match=r"multi-GPU slice \(ROADMAP Queue 1 item 5\)"):
+    """A mesh must be a DeviceMesh (tests/test_torch_lm_mesh.py holds the
+    mesh step); grad_compression without a mesh runs the plain step, as
+    repro's does."""
+    _, cfg = _cfgs(dtype="float32")
+    with pytest.raises(TypeError, match="DeviceMesh"):
         make_train_step(cfg, TrainConfig(), mesh=object())
-    with pytest.raises(NotImplementedError, match=r"multi-GPU slice \(ROADMAP Queue 1 item 5\)"):
-        make_train_step(cfg, TrainConfig(grad_compression=True))
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 8), generator=torch.Generator().manual_seed(0),
+                                     dtype=torch.int32)}
+    out = []
+    for compress in (False, True):
+        tcfg = TrainConfig(grad_compression=compress)
+        state = make_train_state(cfg, tcfg, torch.Generator().manual_seed(1), "cpu")
+        state, met = make_train_step(cfg, tcfg)(state, batch)
+        assert "residual" not in state
+        out.append((float(met["loss"]), float(met["grad_norm"]),
+                    [p.detach().clone() for p in state["params"].parameters()]))
+    assert out[0][:2] == out[1][:2]
+    assert all(torch.equal(a, b) for a, b in zip(out[0][2], out[1][2]))
 
 
 # ---------------------------------------------------------------------------

@@ -1,12 +1,14 @@
-"""One rank of the port's mesh tests, on the CPU under gloo.
+"""One rank of the port's mesh tests (the index side's and the LM training
+side's), on the CPU under gloo.
 
     python -m tests.torch_dist_ranks CASE[,CASE...] --rank R --world W \\
         --shape 2,2,2 --axes pod,data,model --store FILE --dir DIR
 
-``tests/test_torch_distributed.py`` spawns one process per rank (repo root as
-the working directory, ``src`` on ``PYTHONPATH``); each reads
+``tests/test_torch_distributed.py`` and ``tests/test_torch_lm_mesh.py``
+spawn one process per rank (repo root as the working directory, ``src`` on
+``PYTHONPATH``); each reads
 ``DIR/inputs.npz``, which the test wrote from repro's arrays, runs the cases
-in order and writes ``DIR/rank{R}.npz``. Imports torch and repro_torch
+in order (``CASE:ARG`` passes ARG) and writes ``DIR/rank{R}.npz``. Imports torch and repro_torch
 only. Every collective has the mesh's timeout, so a rank left alone raises
 instead of hanging.
 """
@@ -262,10 +264,346 @@ def case_orphan(mesh, inp, out) -> None:
     out["orphan_seconds"] = np.asarray(time.monotonic() - t0)
 
 
+# -- the LM's training side ---------------------------------------------------
+
+LM_STEPS, LM_BATCH, LM_SEQ = 2, 8, 32
+LM_OPT = dict(lr=3e-4, warmup_steps=2, total_steps=10)
+LM_ROUTER_SCALE = 10.0  # decisive routing where torch and XLA round near-ties apart
+LM_CASES = {  # name: (arch, smoke-config overrides at fp32, microbatches)
+    "llama": ("llama3.2-1b", {}, 1),
+    "llama_mb2": ("llama3.2-1b", {}, 2),
+    "llama_fsdp": ("llama3.2-1b", {"fsdp": True, "remat": "full"}, 1),
+    "llama_fsdp_mb2": ("llama3.2-1b", {"fsdp": True}, 2),
+    "dsv3": ("deepseek-v3-671b", {}, 1),  # capacity 1.25: drops on
+    "dsv3_mb2": ("deepseek-v3-671b", {}, 2),
+    "rwkv": ("rwkv6-7b", {}, 1),
+    "zamba": ("zamba2-1.2b", {}, 1),
+    "vlm": ("llama-3.2-vision-90b", {}, 1),
+    "whisper": ("whisper-large-v3", {}, 1),
+}
+# tests/ep_check.py's settings: kimi-k2's smoke config at 8 experts, a
+# capacity factor with no drops; with drops, the default factor at 1.0
+EP_ARCH, EP_CFG, EP_TOKENS = "kimi-k2-1t-a32b", dict(capacity_factor=8.0, n_experts=8), (8, 16)
+EP_DROP_FACTOR = 1.0
+CMP_LEAVES = {"a": (64, 48), "b": (8,), "c": (5, 7, 3)}  # compressed_psum_mean's grads
+_STATES: dict = {}  # the last train state of each step case, for the checkpoint cases
+CKPT_DIR: list = []  # set by main: the directory the checkpoint cases share
+CKPT_WAIT_S = 90.0
+
+
+def lm_config(name: str):
+    from repro_torch.configs import get_smoke_config
+
+    arch, kw, mb = LM_CASES[name]
+    return dataclasses.replace(get_smoke_config(arch), dtype="float32", **kw), mb
+
+
+def flatten_tree(tree, prefix: str, out: dict) -> dict:
+    for key, sub in tree.items():
+        if isinstance(sub, dict):
+            flatten_tree(sub, f"{prefix}/{key}", out)
+        else:  # a copy: a CPU tensor's numpy view changes with the next step
+            out[f"{prefix}/{key}"] = np.array(sub)
+    return out
+
+
+def unflatten_tree(inp, prefix: str) -> dict:
+    tree: dict = {}
+    for key in inp:
+        if key.startswith(prefix + "/"):
+            node = tree
+            parts = key[len(prefix) + 1:].split("/")
+            for p in parts[:-1]:
+                node = node.setdefault(p, {})
+            node[parts[-1]] = inp[key]
+    return tree
+
+
+def lm_batch(inp, name: str, s: int) -> dict:
+    batch = {"tokens": torch.as_tensor(inp["lm_tokens"][s])}
+    if f"{name}_frontend" in inp:
+        batch["frontend"] = torch.as_tensor(inp[f"{name}_frontend"][s])
+    return batch
+
+
+def placed_state(cfg, mesh, tree):
+    """repro's parameters (a flat npz tree), zero moments, placed on the mesh."""
+    from repro_torch.convert import model_params_from_numpy
+    from repro_torch.launch.sharding import place_state
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.train_loop import mesh_sharding
+
+    model = model_params_from_numpy(cfg, tree, "cpu")
+    state = {"params": model, "opt": opt.init_opt_state(dict(model.named_parameters()),
+                                                        opt.OptConfig(**LM_OPT))}
+    return place_state(state, mesh_sharding(cfg, mesh))
+
+
+def save_whole(mesh, state, prefix: str, out: dict) -> None:
+    """The state gathered whole (collective); rank 0 writes repro's tree."""
+    from repro_torch.convert import train_state_to_numpy
+    from repro_torch.launch.sharding import gather_state
+
+    sh = state["params"].placement
+    whole = gather_state({"params": state["params"], "opt": state["opt"]}, sh.tree_specs(), mesh)
+    if dist.get_rank() == 0:
+        flatten_tree(train_state_to_numpy(whole), prefix, out)
+
+
+def split_as_specs(state) -> int:
+    """Leaves (parameters and both moments) whose block is smaller than the
+    whole, after checking every block's shape against its spec."""
+    from repro_torch.launch.sharding import local_shape
+    from repro_torch.models.transformer import Transformer
+
+    sh = state["params"].placement
+    whole = dict(Transformer(state["params"].cfg, torch.device("meta")).named_parameters())
+    n = 0
+    for name, p in state["params"].named_parameters():
+        want = local_shape(whole[name].shape, sh.specs[name], sh.mesh)
+        for t in (p, state["opt"]["m"][name], state["opt"]["v"][name]):
+            if tuple(t.shape) != want:
+                raise AssertionError(f"{name}: block {tuple(t.shape)}, its spec gives {want}")
+        n += 3 * (want != tuple(whole[name].shape))
+    return n
+
+
+def case_lmstep(mesh, inp, out, name: str, compressed: str = "") -> None:
+    """LM_STEPS mesh steps of case ``name`` from repro's parameters; the
+    losses, grad norms, the number of split leaves and (rank 0) the whole
+    state after each step."""
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.train_loop import TrainConfig, make_train_step, mesh_sharding
+
+    cfg, mb = lm_config(name)
+    tcfg = TrainConfig(opt=opt.OptConfig(**LM_OPT), microbatches=mb,
+                       grad_compression=bool(compressed))
+    state = placed_state(cfg, mesh, unflatten_tree(inp, f"{name}_params"))
+    tag = name + ("_cmp" if compressed else "")
+    out[f"{tag}_split"] = np.asarray(split_as_specs(state))
+    step = make_train_step(cfg, tcfg, mesh, mesh_sharding(cfg, mesh).specs)
+    losses, norms = [], []
+    for s in range(LM_STEPS):
+        if compressed:
+            save_block_grads(mesh, state, step, lm_batch(inp, name, s), f"{tag}_raw{s}", out)
+        state, met = step(state, lm_batch(inp, name, s))
+        if compressed:
+            save_dp_blocks(mesh, state, state["residual"], f"{tag}_res{s}", out)
+        losses.append(float(met["loss"]))
+        norms.append(float(met["grad_norm"]))
+        save_whole(mesh, state, f"{tag}_state{s + 1}", out)
+    out[f"{tag}_loss"], out[f"{tag}_gnorm"] = np.asarray(losses), np.asarray(norms)
+    _STATES[tag] = state
+
+
+def save_block_grads(mesh, state, step, batch, prefix: str, out: dict) -> None:
+    """The compressed mode's gradients of this data-parallel rank's block
+    before the mean, and its loss (see ``save_dp_blocks``)."""
+    loss, grads = step.raw_grads(state, batch)
+    save_dp_blocks(mesh, state, grads, prefix, out, loss=loss)
+
+
+def save_dp_blocks(mesh, state, tree: dict, prefix: str, out: dict, loss=None) -> None:
+    """{name: this rank's tensor} gathered over the model axis, written by
+    the ranks at model index 0 under the rank's data-parallel index."""
+    from repro_torch.launch.mesh import axis_group
+    from repro_torch.launch.sharding import gather_state
+
+    specs = state["params"].placement.specs
+    model_only = {k: tuple(e if e == "model" else None for e in sp) for k, sp in specs.items()}
+    whole = gather_state(tree, model_only, mesh)
+    model = axis_group(mesh, ("model",))
+    if model is None or model.index == 0:
+        r = axis_group(mesh, ("pod", "data")).index
+        if loss is not None:
+            out[f"{prefix}_loss{r}"] = np.asarray(float(loss))
+        for k, g in whole.items():
+            out[f"{prefix}_{r}/{k}"] = g.numpy()
+
+
+def case_cmp(mesh, inp, out) -> None:
+    """compressed_psum_mean over the data-parallel axes, each rank's grads
+    and residual those of its data-parallel index."""
+    from repro_torch.launch.mesh import axis_group
+    from repro_torch.training.grad_compression import compressed_payload, compressed_psum_mean
+
+    r = axis_group(mesh, ("pod", "data")).index
+    grads = {k: torch.as_tensor(inp[f"cmp_g_{k}"][r]) for k in CMP_LEAVES}
+    res = {k: torch.as_tensor(inp[f"cmp_r_{k}"][r]) for k in CMP_LEAVES}
+    q_sum, _, _, _ = compressed_payload(grads, ("pod", "data"), res, mesh)
+    mean, new_res = compressed_psum_mean(grads, ("pod", "data"), res, mesh)
+    out["cmp_q_sum"] = q_sum.numpy()
+    for k in CMP_LEAVES:
+        out[f"cmp_mean_{k}"], out[f"cmp_res_{k}"] = mean[k].numpy(), new_res[k].numpy()
+
+
+def ep_config(drops: bool):
+    from repro_torch.configs import get_smoke_config
+
+    cfg = dataclasses.replace(get_smoke_config(EP_ARCH), dtype="float32", **EP_CFG)
+    return dataclasses.replace(cfg, capacity_factor=EP_DROP_FACTOR) if drops else cfg
+
+
+def whole_logits(mesh, cfg, state, tokens):
+    """The forward's logits of the global batch on the mesh, gathered whole
+    (vocab over the model axis, rows over the data-parallel axes)."""
+    from repro_torch.launch.mesh import axis_group
+    from repro_torch.launch.sharding import all_gather, dp_block
+    from repro_torch.models import parallel as par
+    from repro_torch.models import transformer as tfm
+    from repro_torch.training.train_loop import mesh_model
+
+    with torch.no_grad(), mesh_model(state["params"], mesh):
+        logits, aux, _ = tfm.make_forward(cfg)(state["params"], dp_block(tokens, mesh))
+        tp = par.tp_group(state["params"].embed, "tok")
+        logits = logits if tp is None else par.gather_vocab(logits, tp)
+    return all_gather(logits, axis_group(mesh, ("pod", "data")), mesh, 0), aux
+
+
+def case_ep(mesh, inp, out) -> None:
+    """kimi-k2's smoke config at ep_check's settings on the mesh, gspmd and
+    ep_manual: the whole logits, the aux losses, and (rank 0) the whole
+    gradients with the aux loss off; then ep_manual with drops."""
+    from repro_torch.launch.sharding import gather_state
+    from repro_torch.models import transformer as tfm
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.train_loop import TrainConfig, make_train_step
+
+    tokens = torch.as_tensor(inp["ep_tokens"])
+    coef = tfm.AUX_LOSS_COEF
+    for drops in (False, True):
+        for impl in ("gspmd", "ep_manual"):
+            if drops and impl == "gspmd":
+                continue
+            cfg = dataclasses.replace(ep_config(drops), moe_impl=impl)
+            tag = f"ep_{impl}" + ("_drops" if drops else "")
+            state = placed_state(cfg, mesh, unflatten_tree(inp, "ep_params"))
+            logits, aux = whole_logits(mesh, cfg, state, tokens)
+            out[f"{tag}_logits"], out[f"{tag}_aux"] = logits.numpy(), np.asarray(float(aux))
+            if drops:
+                continue
+            step = make_train_step(cfg, TrainConfig(opt=opt.OptConfig(**LM_OPT)), mesh)
+            tfm.AUX_LOSS_COEF = 0.0
+            try:
+                _, grads = step.grads(state, {"tokens": tokens})
+            finally:
+                tfm.AUX_LOSS_COEF = coef
+            sh = state["params"].placement
+            whole = gather_state(grads, sh.specs, mesh)
+            if dist.get_rank() == 0:
+                for k, g in whole.items():
+                    out[f"{tag}_grad/{k}"] = g.numpy()
+
+
+def case_ckpt_save(mesh, inp, out) -> None:
+    """The llama case's state after its steps, saved on this mesh."""
+    from repro_torch.checkpoint import save_checkpoint
+
+    save_checkpoint(CKPT_DIR[0], LM_STEPS, _STATES["llama"])
+
+
+def case_ckpt_restore(mesh, inp, out) -> None:
+    """That checkpoint (waited for: the saving world runs beside this one)
+    restored onto this mesh (a target of another shape), then gathered
+    whole."""
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.train_loop import TrainConfig, make_train_state
+
+    import time
+
+    from repro_torch.checkpoint import latest_step
+
+    cfg, _ = lm_config("llama")
+    target = make_train_state(cfg, TrainConfig(opt=opt.OptConfig(**LM_OPT)),
+                              torch.Generator().manual_seed(5), "cpu", mesh=mesh)
+    deadline = time.monotonic() + CKPT_WAIT_S  # the saving world runs beside this one
+    while latest_step(CKPT_DIR[0]) != LM_STEPS:
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"no checkpoint of step {LM_STEPS} in {CKPT_DIR[0]}")
+        time.sleep(0.2)
+    state = restore_checkpoint(CKPT_DIR[0], LM_STEPS, target)
+    out["ckpt_split"] = np.asarray(split_as_specs(state))
+    save_whole(mesh, state, "ckpt_state", out)
+
+
+def case_roundtrip(mesh, inp, out) -> None:
+    """shard_state then gather_state gives back every config's whole state."""
+    from repro_torch.launch.sharding import gather_state, shard_state
+    from repro_torch.training.train_loop import TrainConfig, make_train_state, mesh_sharding
+
+    same = []
+    for name in ("llama_fsdp", "dsv3", "rwkv", "zamba", "vlm", "whisper"):
+        cfg, _ = lm_config(name)
+        whole = make_train_state(cfg, TrainConfig(), torch.Generator().manual_seed(1), "cpu")
+        for t in whole["opt"]["m"].values():
+            t.normal_(generator=torch.Generator().manual_seed(2))
+        ref = {n: p.detach().clone() for n, p in whole["params"].named_parameters()}
+        ref_m = {n: t.clone() for n, t in whole["opt"]["m"].items()}
+        specs = mesh_sharding(cfg, mesh).tree_specs()
+        back = gather_state(shard_state(whole, specs, mesh), specs, mesh)
+        same.append(all(torch.equal(p, ref[n]) for n, p in back["params"].named_parameters())
+                    and all(torch.equal(t, ref_m[n]) for n, t in back["opt"]["m"].items()))
+    out["roundtrip"] = np.asarray(same)
+
+
+def case_lm_refusals(mesh, inp, out) -> None:
+    """What must raise on the LM side: a mesh of another world size, a
+    spec'd dim its axis does not divide, a tensor of another device type, a
+    mesh that is not a DeviceMesh, a state not placed on the mesh, ep_manual
+    and the compressed mean off a mesh, and on the mesh a prefill whose KV
+    cache the model axis splits by heads and a cached decode (both the
+    serving half's)."""
+    from repro_torch.launch.sharding import shard_state
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.moe import apply_moe_ep
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.grad_compression import compressed_psum_mean
+    from repro_torch.training.train_loop import (TrainConfig, make_train_state, make_train_step,
+                                                 mesh_model)
+
+    cfg, _ = lm_config("llama")
+    tcfg = TrainConfig(opt=opt.OptConfig(**LM_OPT))
+    one = make_train_state(cfg, tcfg, torch.Generator().manual_seed(0), "cpu")
+    placed = make_train_state(cfg, tcfg, torch.Generator().manual_seed(0), "cpu", mesh=mesh)
+    tokens = {"tokens": torch.zeros((LM_BATCH, 4), dtype=torch.int32)}
+
+    def on_mesh(fn):
+        with mesh_model(placed["params"], mesh):
+            fn()
+
+    cache = {g: tfm._zero_state(spec, "cpu") for g, spec in tfm.cache_shape(cfg, 2, 8).items()}
+    tries = [
+        lambda: make_mesh((2 * dist.get_world_size(), 1, 1), ("pod", "data", "model"),
+                          device_type="cpu"),
+        lambda: shard_state({"w": torch.zeros(3)}, {"w": ("model",)}, mesh),
+        lambda: shard_state({"w": torch.zeros(4, device="meta")}, {"w": ("model",)}, mesh),
+        lambda: make_train_step(cfg, tcfg, mesh=object()),
+        lambda: make_train_step(cfg, tcfg, mesh)(one, tokens),
+        lambda: apply_moe_ep(None, ep_config(False), torch.zeros(1, 2, 4)),
+        lambda: compressed_psum_mean({"w": torch.zeros(2)}, ("data",)),
+        lambda: on_mesh(lambda: tfm.make_prefill(cfg, 8)(placed["params"], tokens["tokens"][:2])),
+        lambda: on_mesh(lambda: tfm.make_decode_step(cfg)(
+            placed["params"], torch.zeros(2, dtype=torch.int32), cache, 0)),
+    ]
+    raised = []
+    for fn in tries:
+        try:
+            fn()
+            raised.append(0)
+        except NotImplementedError:
+            raised.append(2)
+        except (RuntimeError, ValueError, TypeError):
+            raised.append(1)
+    out["lm_refusals"] = np.asarray(raised)
+
+
 CASES = {"helpers": case_helpers, "search": case_search, "build": case_build,
          "descent": case_descent, "placement": case_placement, "serve": case_serve,
          "router": case_router, "ingest": case_ingest, "refusals": case_refusals,
-         "orphan": case_orphan}
+         "orphan": case_orphan, "lmstep": case_lmstep, "cmp": case_cmp, "ep": case_ep,
+         "ckpt_save": case_ckpt_save, "ckpt_restore": case_ckpt_restore,
+         "roundtrip": case_roundtrip, "lm_refusals": case_lm_refusals}
 
 
 def main(argv=None) -> int:
@@ -286,9 +624,11 @@ def main(argv=None) -> int:
                          device_type="cpu", store=dist.FileStore(a.store, a.world),
                          rank=a.rank, world_size=a.world, timeout_s=a.timeout)
         inp = dict(np.load(d / "inputs.npz"))
+        CKPT_DIR[:] = [d.parent / "ckpt"]
         out: dict = {}
         for case in a.cases.split(","):
-            CASES[case](mesh, inp, out)
+            name, *args = case.split(":")
+            CASES[name](mesh, inp, out, *args)
         np.savez(d / f"rank{a.rank}.npz", **out)
         if "orphan" not in a.cases:  # an orphan's group has lost its peer
             dist.destroy_process_group()
