@@ -300,6 +300,9 @@ MESH_BUILD_SEGMENTS = 4
 MESH_SEED = 200
 MESH_BUILD = None  # BuildConfig() (patched small for a CPU rehearsal)
 LM_MESH_PREFILL = (4, 256)  # phase 14 (c): deepseek-v3's prefill, rows x tokens
+SERVE_MESH_MOE = (8, 128, 17)  # phase 15 (b): deepseek-v3's requests, prompt, new tokens
+SERVE_MESH_SMOKE = (4, 16, 8)  # phase 15 (c), (d): requests, prompt, new tokens
+MESH_SERVE_GAP = 2e-2  # phase 15 (a), (c): max |logit difference| mesh vs local (0 expected)
 RECALL_GAP = 0.02  # int8 three-path recall@10 must stay within this of fp32 (ROADMAP Queue 1)
 # int8-stored brute-force top-10 overlap with fp32's: sound 0.9996, planted
 # scale faults 0.0009 and 0.9769 on an H100 at 2^20 (PERF.md, Findings PR 12)
@@ -4646,10 +4649,10 @@ def frontend_readings(cfg, params, out, frontend, l: int):
         before = {k: (t.data_ptr(), t.clone()) for k, t in cache["cross"].items()}
         dec_cross = []
 
-        def dec(p, cfg_, x, ctx):
+        def dec(p, cfg_, x, ctx, spec=None):
             if plant:  # the next layer's (or group's) cross cache
                 ctx = {k: t[(len(dec_cross) + 1) % n] for k, t in cache["cross"].items()}
-            dec_cross.append(sound_dec(p, cfg_, x, ctx))
+            dec_cross.append(sound_dec(p, cfg_, x, ctx, spec))
             return dec_cross[-1]
 
         got = [logits]
@@ -5580,8 +5583,10 @@ def phase_lm_mesh(results: dict, device: str = "cuda") -> None:
         sync()
         init_s = time.perf_counter() - t
 
+        pre_specs = tfm.mesh_cache_specs(dcfg, mesh, *tokens.shape)
+
         def prefill(c):
-            with mesh_model(params, mesh):
+            with mesh_model(params, mesh, global_dp=True, cache_specs=pre_specs):
                 return tfm.make_prefill(c, tokens.shape[1])(params, tokens)[0]
 
         ep_cfg = dataclasses.replace(dcfg, moe_impl="ep_manual")
@@ -5694,12 +5699,276 @@ def phase_lm_mesh(results: dict, device: str = "cuda") -> None:
     need(not fails, f"phase 14: {len(fails)} gate(s) failed: {fails}")
 
 
-PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14)
+@contextlib.contextmanager
+def sampled_logits(engine, want=None):
+    """Inside, ``engine.generate``'s sampling steps are read: without
+    ``want`` each step's whole logits are kept (the yielded dict's
+    ``"logits"``); with ``want`` (such a list) each step is compared with
+    its own and only the largest |difference|, whether every step is equal
+    bit for bit, and the steps read are kept."""
+    import torch
+
+    got = {"logits": [], "gap": 0.0, "bitwise": True, "steps": 0}
+    sound = engine._sample
+
+    def read(logits, generator):
+        i = got["steps"]
+        got["steps"] += 1
+        if want is None:
+            got["logits"].append(logits.clone())
+        else:
+            d = float((logits.float() - want[i].float()).abs().max())
+            got["gap"] = max(got["gap"], d if math.isfinite(d) else math.inf)
+            got["bitwise"] &= torch_equal(logits, want[i])
+        return sound(logits, generator)
+
+    engine._sample = read
+    try:
+        yield got
+    finally:
+        engine._sample = sound
+
+
+def phase_lm_serve_mesh(results: dict, device: str = "cuda") -> None:
+    """Phase 15: the LM's serving half over a device mesh of one card. An
+    NCCL process group of world 1 in this process, a (1, 1, 1) ("pod",
+    "data", "model") mesh, each model served by ``ServingEngine(mesh=)``
+    against the local engine from the same weights and prompts: (a)
+    llama3.2-1b at full width and depth at phase 6's batch (64 requests of
+    1,088-token prompts, 64 new tokens), local and mesh run paired (local,
+    mesh, local, mesh), the tokens equal, the logits' max |difference|, the
+    mesh prefill's flash launches (one a layer) and its caught forward call
+    against the plain version; (b) deepseek-v3 cut as phase 10 cuts it,
+    from its latent cache, 16 decode steps, in gspmd and ep_manual modes;
+    (c) the smoke configs of rwkv6, zamba2, the vlm and whisper, attention
+    through the flash kernel (the vlm's and whisper's cross-attention
+    prefill non-causal at L != S), their prefill launches counted; (d) a
+    planted fault: a block of the cache overwritten with other positions'
+    entries after prefill. Every reading is printed; the phase fails at its
+    end if any gate did. (``device="cpu"`` rehearses it under gloo, with
+    smaller configs patched in.)"""
+    import copy
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.sharding import place_model
+    from repro_torch.models import transformer as tfm
+    from repro_torch.obs.tracer import TraceContext
+    from repro_torch.serving.engine import ServeConfig, ServingEngine
+    from repro_torch.training.train_loop import mesh_sharding
+
+    t_phase = time.perf_counter()
+    fails: list = []
+
+    def check(ok: bool, msg: str) -> None:
+        if not ok:
+            fails.append(msg)
+            say(f"phase 15 FAILED: {msg}")
+
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    counted = [0]
+
+    def on_path(fn, count: bool = True):
+        """A mesh path's call with the flash-forward count zeroed just
+        before and read just after: (its result, its launches), added to
+        the phase's count unless ``count`` is false (a planted fault)."""
+        fa.flash_attention_fwd.launches = 0
+        out = fn()
+        sync()
+        n = fa.flash_attention_fwd.launches
+        counted[0] += n if count else 0
+        return out, n
+
+    gen = lambda seed: torch.Generator(device=device).manual_seed(seed)  # noqa: E731
+    mesh = make_mesh((1, 1, 1), ("pod", "data", "model"),
+                     device_type="cuda" if device == "cuda" else "cpu", store=dist.HashStore(),
+                     rank=0, world_size=1, timeout_s=MESH_TIMEOUT_S)
+    try:
+        say(f"phase 15 mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))} on {mesh.device_type} "
+            f"({dist.get_backend()})")
+
+        # ---- (a) llama3.2-1b whole, at phase 6's batch, paired ---------------
+        cfg = dataclasses.replace(get_config("llama3.2-1b"), attn_impl="flash")
+        t = time.perf_counter()
+        params = tfm.init_params(cfg, gen(0), device)
+        placed = place_model(copy.deepcopy(params), mesh_sharding(cfg, mesh))
+        lp = RAG_TOP_K * RAG_CTX + RAG_PROMPT
+        scfg = ServeConfig(max_len=RAG_MAX_LEN, batch=RAG_REQUESTS)
+        engines = {"local": ServingEngine(cfg, params, scfg),
+                   "mesh": ServingEngine(cfg, placed, scfg, mesh=mesh)}
+        prompts = torch.randint(0, cfg.vocab, (RAG_REQUESTS, lp), generator=gen(1),
+                                device=device, dtype=torch.int32)
+        for eng in engines.values():  # warm-up: library handles, allocator
+            eng.generate(prompts[:8, :64], 2)
+        sync()
+        say(f"phase 15 (a) setup: {cfg.name} {cfg.n_layers} layers d_model {cfg.d_model} "
+            f"{cfg.dtype} flash, a placed copy of its parameters, {RAG_REQUESTS} x {lp} prompts, "
+            f"max_len {RAG_MAX_LEN}, warm-up: {time.perf_counter() - t:.1f} s")
+        want, toks, times, readings, launches = None, {}, [], [], []
+        for run, kind in enumerate(("local", "mesh", "local", "mesh")):
+            eng, trace = engines[kind], TraceContext(f"phase 15 {kind}")
+            with sampled_logits(eng, want) as got, contextlib.ExitStack() as stack:
+                if run == 1:
+                    fwd_call = stack.enter_context(first_call(fa, "flash_attention_fwd"))
+                if kind == "mesh":
+                    out, n = on_path(lambda: eng.generate(prompts, RAG_GEN, trace=trace))
+                    launches.append(n)
+                else:
+                    out = eng.generate(prompts, RAG_GEN, trace=trace)
+                    sync()
+            if want is None:
+                want = got["logits"]
+            else:
+                readings.append((kind, got["gap"], got["bitwise"], got["steps"]))
+            toks.setdefault(kind, []).append(out)
+            span = lambda name: trace.find(name)[0]  # noqa: E731
+            times.append((kind, span("prefill").t1 - span("prefill").t0,
+                          span("decode").t1 - span("decode").t0))
+        same = all(torch.equal(o, toks["local"][0]) for ts in toks.values() for o in ts)
+        flash_want = cfg.n_layers if device == "cuda" else 0  # the CPU runs the plain version
+        mesh_gap = max(g for k, g, _, _ in readings if k == "mesh")
+        say(f"phase 15 (a) {cfg.name} {RAG_REQUESTS} requests, prompt {lp}, {RAG_GEN} tokens "
+            f"greedy, paired runs (prefill s, decode s): " + "; ".join(
+                f"{k} {p:.3f} {d:.3f}" for k, p, d in times)
+            + f"; tokens equal in all four: {same}; logits against the first local run's "
+            + "; ".join(f"{k} max |diff| {g!r} (bit for bit {b}, {n} steps)"
+                        for k, g, b, n in readings)
+            + f"; mesh prefill flash launches {launches} (want {flash_want} each)")
+        check(same, "(a) the mesh engine's tokens differ from the local engine's")
+        check(mesh_gap <= MESH_SERVE_GAP, f"(a) mesh logits differ by {mesh_gap}")
+        check(launches == [flash_want] * 2, f"(a) mesh prefill flash launches {launches}")
+        check_caught_flash(results, "llama3.2-1b mesh serving", fwd_call[0], device,
+                           phase="phase 15", gate="(a)")
+
+        # ---- (d) planted: a cache block overwritten with other positions' ----
+        short = prompts[:SERVE_MESH_SMOKE[0], :SERVE_MESH_SMOKE[1]]
+        n_new = SERVE_MESH_SMOKE[2]
+        with sampled_logits(engines["local"]) as ref_l:
+            ref_toks = engines["local"].generate(short, n_new)
+        sound_prefill, half = engines["mesh"]._prefill, SERVE_MESH_SMOKE[1] // 2
+
+        def planted(*args):
+            logits, cache = sound_prefill(*args)
+            for tree in cache.values():
+                for t in tree.values():  # (layers, B, S, KV, hd): positions [0, h) <- [h, 2h)
+                    t[:, :, :half] = t[:, :, half:2 * half]
+            return logits, cache
+
+        readings_d = {}
+        for label in ("sound", "planted"):
+            eng = engines["mesh"]
+            eng._prefill = planted if label == "planted" else sound_prefill
+            try:
+                with sampled_logits(eng, ref_l["logits"]) as got:
+                    out, _ = on_path(lambda: eng.generate(short, n_new), count=False)
+            finally:
+                eng._prefill = sound_prefill
+            readings_d[label] = (got["gap"], bool(torch.equal(out, ref_toks)))
+        say(f"phase 15 (d) {SERVE_MESH_SMOKE[0]} x {SERVE_MESH_SMOKE[1]} prompts, {n_new} tokens, "
+            f"mesh against local: sound max |diff| {readings_d['sound'][0]!r} (tokens equal "
+            f"{readings_d['sound'][1]}); planted, the cache's positions [0, {half}) overwritten "
+            f"with [{half}, {2 * half})'s after prefill: {readings_d['planted'][0]!r} (tokens "
+            f"equal {readings_d['planted'][1]})")
+        check(readings_d["sound"][1] and readings_d["sound"][0] <= MESH_SERVE_GAP,
+              f"(d) the sound short run differs: {readings_d['sound']}")
+        check(not (readings_d["planted"][1] and readings_d["planted"][0] <= MESH_SERVE_GAP),
+              "(d) a cache block overwritten with other positions' entries passes the gate")
+        del engines, params, placed, want, toks, ref_l, fwd_call
+        torch.cuda.empty_cache() if device == "cuda" else None
+
+        # ---- (b) deepseek-v3 from its latent cache, gspmd and ep_manual ------
+        name = "deepseek-v3-671b"
+        dcfg = dataclasses.replace(get_config(name), attn_impl="flash", n_layers=MOE_DEPTH[name])
+        b, lp_b, n_b = SERVE_MESH_MOE
+        t = time.perf_counter()
+        params = tfm.init_params(dcfg, gen(2), device)
+        prompts = torch.randint(0, dcfg.vocab, (b, lp_b), generator=gen(3), device=device,
+                                dtype=torch.int32)
+        scfg = ServeConfig(max_len=lp_b + n_b, batch=b)
+        local = ServingEngine(dcfg, params, scfg)
+        sync()
+        init_s = time.perf_counter() - t
+        t = time.perf_counter()
+        with sampled_logits(local) as ref_b:
+            toks_l = local.generate(prompts, n_b)
+        sync()
+        local_s = time.perf_counter() - t
+        place_model(params, mesh_sharding(dcfg, mesh))  # in place: the local engine is done
+        got_b, mesh_s = {}, {}
+        for impl in ("gspmd", "ep_manual"):
+            eng = ServingEngine(dataclasses.replace(dcfg, moe_impl=impl), params, scfg, mesh=mesh)
+            t = time.perf_counter()
+            with sampled_logits(eng, ref_b["logits"]) as got:
+                out, n = on_path(lambda: eng.generate(prompts, n_b))
+            mesh_s[impl] = time.perf_counter() - t
+            got_b[impl] = (out, got["gap"], got["bitwise"], n)
+        cache = tfm.cache_shape(dcfg, b, lp_b + n_b)["layers"]
+        say(f"phase 15 (b) {name} at {dcfg.n_layers} layers ({init_s:.1f} s to draw), "
+            f"{b} requests, prompt {lp_b}, {n_b - 1} decode steps from the latent cache "
+            f"{ {k: tuple(v.shape) for k, v in cache.items()} }: local {local_s:.3f} s; "
+            + "; ".join(f"{impl} {mesh_s[impl]:.3f} s, tokens equal "
+                        f"{bool(torch.equal(o, toks_l))}, logits max |diff| {g!r} (bit for bit "
+                        f"{bw}), flash launches {n}" for impl, (o, g, bw, n) in got_b.items()))
+        for impl, (o, g, _, n) in got_b.items():
+            check(bool(torch.equal(o, toks_l)), f"(b) {impl}: tokens differ from the local engine's")
+            check(g <= DECODE_GAP, f"(b) {impl}: logits differ by {g}")
+            want_n = dcfg.n_layers if device == "cuda" else 0
+            check(n == want_n, f"(b) {impl}: prefill flash launches {n} != {want_n}")
+        del params, local, eng, ref_b, got_b
+        torch.cuda.empty_cache() if device == "cuda" else None
+
+        # ---- (c) the recurrent, vlm and audio smoke configs -------------------
+        b_c, lp_c, n_c = SERVE_MESH_SMOKE
+        for name in ("rwkv6-7b", "zamba2-1.2b", "llama-3.2-vision-90b", "whisper-large-v3"):
+            c = dataclasses.replace(get_smoke_config(name), attn_impl="flash")
+            # the mesh prefill's attentions: the shared block's applications
+            # (hybrid), every self and cross layer (vlm), the encoder's and
+            # the decoder's self and cross layers (audio); rwkv6 has none
+            want_n = {"hybrid": c.n_layers // max(c.attn_every, 1), "vlm": c.n_layers,
+                      "audio": c.encoder_layers + 2 * c.n_layers}.get(c.family, 0)
+            want_n = want_n if device == "cuda" else 0
+            params = tfm.init_params(c, gen(4), device)
+            placed = place_model(copy.deepcopy(params), mesh_sharding(c, mesh))
+            prompts = torch.randint(0, c.vocab, (b_c, lp_c), generator=gen(5), device=device,
+                                    dtype=torch.int32)
+            fe = None
+            if c.family in ("vlm", "audio"):
+                fe = FRONTEND_SCALE * torch.randn((b_c, c.n_frontend_tokens, c.d_model),
+                                                  generator=gen(6), device=device)
+            scfg = ServeConfig(max_len=lp_c + n_c, batch=b_c)
+            local = ServingEngine(c, params, scfg)
+            with sampled_logits(local) as ref_c:
+                toks_l = local.generate(prompts, n_c, frontend=fe)
+            eng = ServingEngine(c, placed, scfg, mesh=mesh)
+            with sampled_logits(eng, ref_c["logits"]) as got:
+                out, n = on_path(lambda: eng.generate(prompts, n_c, frontend=fe))
+            same = bool(torch.equal(out, toks_l))
+            say(f"phase 15 (c) {name} smoke ({c.family}, {c.dtype}), {b_c} x {lp_c} prompts, "
+                f"{n_c} tokens: tokens equal {same}, logits max |diff| {got['gap']!r} (bit for "
+                f"bit {got['bitwise']}), mesh prefill flash launches {n} (want {want_n})")
+            check(same, f"(c) {name}: tokens differ from the local engine's")
+            check(got["gap"] <= MESH_SERVE_GAP, f"(c) {name}: logits differ by {got['gap']}")
+            check(n == want_n, f"(c) {name}: prefill flash launches {n} != {want_n}")
+            del params, placed, local, eng, ref_c
+    finally:
+        dist.destroy_process_group()
+    results["flash_attention_fwd"]["launches"] = (
+        results["flash_attention_fwd"].get("launches", 0) + counted[0])
+    say(f"phase 15: {time.perf_counter() - t_phase:.1f} s; flash launches on the mesh serving "
+        f"paths ((a)'s two mesh runs, (b)'s two prefills, (c)'s prefills) {counted[0]}")
+    need(not fails, f"phase 15: {len(fails)} gate(s) failed: {fails}")
+
+
+PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15)
 
 
 def parse_phases(argv) -> set:
     """``--phases 1,4,11``: a partial run, for finding faults (phase 1 always
-    runs; 8 and 13 need 5, and 6, 10 and 11 need 4; 12 and 14 need nothing). It
+    runs; 8 and 13 need 5, and 6, 10 and 11 need 4; 12, 14 and 15 need nothing). It
     prints no kernels line and no last line. Without the flag, every phase."""
     import argparse
 
@@ -5779,6 +6048,9 @@ def main(argv=None) -> int:
         if 14 in phases:  # before phase 9, which stays last
             phase_lm_mesh(results)
             torch.cuda.empty_cache()
+        if 15 in phases:
+            phase_lm_serve_mesh(results)
+            torch.cuda.empty_cache()
         # last, not after phase 8: run before phase 7, phase 9 leaves phase
         # 7's profiled step one flash-forward record short (the first one
         # of the backward) while the wrapper counts all 32 and the step's
@@ -5833,7 +6105,8 @@ def main(argv=None) -> int:
         if chk.get("device_ms") is not None:  # host-bound shapes: the kernels' own time
             kernels[-1]["device_ms"] = chk["device_ms"]
         extra = [ch for ch in r["checks"]
-                 if ch.get("phase") in ("phase 10", "phase 11", "phase 12", "phase 14")]
+                 if ch.get("phase") in ("phase 10", "phase 11", "phase 12", "phase 14",
+                                         "phase 15")]
         if extra:  # the shapes phases 10-12's models gave the kernel, caught on their paths
             kernels[-1]["checks"] = extra
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -2,6 +2,7 @@
 7's training step? On one GPU:
 
     python3 examples/torch_profile_after_text.py [--docs 8192] [--bwd-checks]
+        [--prune-profile N] [--no-text]
 
 It builds the kernels (phase 1), then profiles one phase 7 training step
 (llama3.2-1b at full width and depth, 8 x 2048 tokens, bf16, flash) with
@@ -78,11 +79,43 @@ def profiled(label: str, step, cpu: bool) -> None:
         order=order, ends=ends, cupti_dropped_global=dropped, log_lines=lines[:8])), flush=True)
 
 
+def prune_profile(n_docs: int) -> None:
+    """Phase 4's profiler session: the first ``cs.PROFILED_CHUNKS`` prune
+    chunks of a build over ``n_docs`` docs, replayed under torch.profiler
+    with CPU and CUDA activity (as ``cs.phase_full`` replays them)."""
+    import torch
+
+    from repro_torch.core import pruning
+    from repro_torch.core.build_pipeline import build_index
+    from repro_torch.data.corpus import CorpusConfig, make_corpus
+
+    c = make_corpus(CorpusConfig(n_docs=n_docs, n_queries=8, n_topics=64, d_dense=1024, seed=0))
+    with cs.prune_chunks_caught(cs.PROFILED_CHUNKS) as chunks:
+        build_index(c.docs)
+    replay = lambda: [pruning._prune_chunk(*a, **kw) for a, kw in chunks]  # noqa: E731
+    replay()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        replay()
+        torch.cuda.synchronize()
+    kern = cs.cuda_kernels(prof)
+    print(json.dumps(dict(prune_profile_docs=n_docs, chunks=len(chunks),
+                          launches=sum(v[0] for v in kern.values()),
+                          pairwise_tile=sum(v[0] for k, v in kern.items()
+                                            if "pairwise_tile" in k))), flush=True)
+    del chunks[:], c
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--docs", type=int, default=8192)
     ap.add_argument("--bwd-checks", action="store_true",
                     help="run phase 7's backward checks after phase 9")
+    ap.add_argument("--prune-profile", type=int, default=0, metavar="N",
+                    help="before phase 9, phase 4's profiled prune chunks over N docs")
+    ap.add_argument("--no-text", action="store_true", help="leave phase 9 out")
     args = ap.parse_args(argv)
 
     import torch
@@ -104,17 +137,22 @@ def main(argv=None) -> None:
     for cpu in (False, True):
         profiled("before phase 9", step, cpu)
 
-    cut = args.docs / cs.TEXT_DOCS
-    cs.TEXT_DOCS = args.docs
-    cs.TEXT_STREAM = max(cs.TEXT_STREAM_BATCH, int(cs.TEXT_STREAM * cut) // 256 * 256)
-    cs.TEXT_DELETES = max(64, int(cs.TEXT_DELETES * cut))
-    try:
-        cs.phase_text(collections.defaultdict(
-            lambda: {"launches": 0, "max_abs_err": 0.0, "checks": []}))
-    except cs.SmokeFailure as e:  # the trace is the question here, not the gates
-        print(f"phase 9 at {args.docs} docs: a gate failed: {e}", flush=True)
-    torch.cuda.empty_cache()
-    label = f"after phase 9 at {args.docs} docs"
+    label = "after"
+    if args.prune_profile:
+        prune_profile(args.prune_profile)
+        label += f" phase 4's profiled prune chunks over {args.prune_profile} docs,"
+    if not args.no_text:
+        cut = args.docs / cs.TEXT_DOCS
+        cs.TEXT_DOCS = args.docs
+        cs.TEXT_STREAM = max(cs.TEXT_STREAM_BATCH, int(cs.TEXT_STREAM * cut) // 256 * 256)
+        cs.TEXT_DELETES = max(64, int(cs.TEXT_DELETES * cut))
+        try:
+            cs.phase_text(collections.defaultdict(
+                lambda: {"launches": 0, "max_abs_err": 0.0, "checks": []}))
+        except cs.SmokeFailure as e:  # the trace is the question here, not the gates
+            print(f"phase 9 at {args.docs} docs: a gate failed: {e}", flush=True)
+        torch.cuda.empty_cache()
+        label += f" phase 9 at {args.docs} docs"
     if args.bwd_checks:
         cs.phase_flash_bwd(cfg, collections.defaultdict(
             lambda: {"launches": 0, "max_abs_err": 0.0, "checks": []}))

@@ -7,8 +7,12 @@ the index side runs over them (the LM side's, with placement, are in
 ``torch.distributed`` process group across them, and a ``DeviceMesh`` naming
 the same axes (``"pod"``, ``"data"``, ``"model"``). A mesh on ``"cuda"`` runs
 NCCL with rank r on ``cuda:{LOCAL_RANK}``; a mesh on ``"cpu"`` runs gloo and
-exists only when the caller asks for it (tests, ``--device cpu``). Nothing
-falls back: a missing NCCL, a process group of another backend, or a world
+exists only when the caller asks for it (tests, ``--device cpu``). A dry
+mesh (``dry=True``, device type ``"meta"``) runs a fake process group whose
+collectives do nothing, over as many ranks as the mesh has; this process is
+one of them (rank 0 unless told): the dry run (``launch/dryrun.py``)
+evaluates a rank's program there on meta tensors, allocating nothing. It is
+only ever asked for. Nothing falls back: a missing NCCL, a process group of another backend, or a world
 size other than the mesh's raises, and a tensor on another device type than
 the mesh's never enters a collective.
 
@@ -118,6 +122,7 @@ def make_mesh(
     rank: Optional[int] = None,
     world_size: Optional[int] = None,
     timeout_s: float = DEFAULT_TIMEOUT_S,
+    dry: bool = False,
 ) -> DeviceMesh:
     """A ``DeviceMesh`` of ``shape`` named ``axis_names`` over the world.
 
@@ -126,7 +131,11 @@ def make_mesh(
     ``"cuda"`` (this rank's device set to ``cuda:{LOCAL_RANK}``), gloo on
     ``"cpu"``; ``timeout_s`` bounds every collective of the mesh. The world
     must hold exactly ``prod(shape)`` ranks. Every rank calls this at the
-    same point: it creates the mesh's groups."""
+    same point: it creates the mesh's groups. ``dry``: a fake world of
+    ``prod(shape)`` ranks on ``"meta"`` (see the module docstring), this
+    process its rank ``rank`` (default 0)."""
+    if dry:
+        return _make_dry_mesh(shape, axis_names, device_type, rank or 0)
     if device_type not in _BACKEND:
         raise ValueError(f"device_type must be one of {sorted(_BACKEND)}, got {device_type!r}")
     shape, axis_names = tuple(int(s) for s in shape), tuple(axis_names)
@@ -151,10 +160,29 @@ def make_mesh(
     return mesh
 
 
+def _make_dry_mesh(shape, axis_names, device_type: str, rank: int) -> DeviceMesh:
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if device_type != "meta":
+        raise ValueError(f"a dry mesh holds meta tensors, not {device_type!r} ones")
+    shape, axis_names = tuple(int(s) for s in shape), tuple(axis_names)
+    n = int(np.prod(shape))
+    if dist.is_initialized():
+        if dist.get_backend() != "fake" or dist.get_world_size() != n:
+            raise RuntimeError(f"a dry mesh of {n} ranks needs a fake process group of as many; "
+                               f"one of {dist.get_backend()} over {dist.get_world_size()} is open")
+    else:
+        dist.init_process_group("fake", store=FakeStore(), rank=rank, world_size=n)
+    mesh = DeviceMesh("meta", torch.arange(n).reshape(shape), mesh_dim_names=axis_names)
+    for axes in (("pod", "data"), ("model",)):
+        axis_group(mesh, axes)
+    return mesh
+
+
 def make_production_mesh(*, multi_pod: bool = False, **kwargs) -> DeviceMesh:
     """16 x 16 = 256 devices a pod; multi-pod adds the pod axis (repro's
-    shapes). Needs a world of 256 (512) ranks; ``kwargs`` go to
-    ``make_mesh``."""
+    shapes). Needs a world of 256 (512) ranks, or ``dry=True``; ``kwargs``
+    go to ``make_mesh``."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     return make_mesh(shape, axes, **kwargs)

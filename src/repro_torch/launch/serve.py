@@ -1,6 +1,7 @@
 """Serving launcher of the port (``repro/launch/serve.py``): batched
 generation with optional hybrid-retrieval augmentation, on the CUDA device
-unless ``--device`` says otherwise.
+unless ``--device`` says otherwise. It takes no mesh, as ``repro``'s does
+not: ``ServingEngine(mesh=)`` is the library's (``serving.engine``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b --smoke \\
         --requests 16 --prompt-len 16 --gen 32 [--rag] [--device cpu]
@@ -38,7 +39,8 @@ def main(argv=None) -> None:
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     params = tfm.init_params(cfg, torch.Generator(device=dev).manual_seed(args.seed), dev)
     max_len = args.prompt_len + args.gen + (64 if args.rag else 0)
-    eng = ServingEngine(cfg, params, ServeConfig(max_len=max_len, temperature=args.temperature))
+    eng = ServingEngine(cfg, params, ServeConfig(max_len=max_len, batch=args.requests,
+                                                 temperature=args.temperature))
     rng = np.random.default_rng(args.seed)
     prompts = torch.as_tensor(
         rng.integers(0, cfg.vocab, size=(args.requests, args.prompt_len)), dtype=torch.int32,

@@ -1,5 +1,6 @@
-"""Placement of a train state on a device mesh, and the collectives of a
-mesh step (``repro``'s ``NamedSharding`` placement and what GSPMD inserts).
+"""Placement of a train state and of a decode cache on a device mesh, and
+the collectives of a mesh step (``repro``'s ``NamedSharding`` placement and
+what GSPMD inserts).
 
 A spec (``models.layers.P``) has one entry per dim: an axis name, a tuple of
 axis names (the dim split over their row-major product, as ``batch_spec``
@@ -29,6 +30,10 @@ same objective:
                    parameter gathered on use: every model rank computes the
                    same thing on the same data, so the gradients are whole
                    already and a sum would scale them by the model size.
+
+A decode cache is placed by a tree of ``NamedSharding`` (``repro``'s
+``cache_shardings``, ``serving.engine``): ``shard_cache`` / ``gather_cache``
+are ``shard_state`` / ``gather_state`` over such a tree.
 
 Nothing here touches device or process-group state at import time.
 """
@@ -337,6 +342,14 @@ class StateSharding:
         return train_state_specs(self.specs)
 
 
+def place_model(model, sharding: StateSharding):
+    """A whole model (every rank's the same) cut to this rank's blocks in
+    place, recording ``placement`` (what ``ServingEngine(mesh=)`` serves)."""
+    out = shard_state(model, sharding.specs, sharding.mesh)
+    out.placement = sharding
+    return out
+
+
 def place_state(state: dict, sharding: StateSharding) -> dict:
     """A whole train state (every rank's the same) cut to this rank's blocks
     (``shard_state``), its model recording ``placement``."""
@@ -344,3 +357,44 @@ def place_state(state: dict, sharding: StateSharding) -> dict:
                       sharding.mesh)
     out["params"].placement = sharding
     return out
+
+
+# ---------------------------------------------------------------------------
+# decode caches
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class NamedSharding:
+    """Where one leaf lives on a mesh: ``repro``'s
+    ``jax.sharding.NamedSharding(mesh, spec)``, seen from this rank."""
+
+    mesh: object
+    spec: tuple
+
+    def shard_shape(self, shape) -> tuple[int, ...]:
+        """The block's shape of a leaf of ``shape`` (raises where a split dim
+        does not divide)."""
+        return local_shape(shape, self.spec, self.mesh)
+
+
+def _specs_of(shardings):
+    return ({k: _specs_of(v) for k, v in shardings.items()} if isinstance(shardings, dict)
+            else shardings.spec)
+
+
+def _mesh_of(shardings):
+    while isinstance(shardings, dict):
+        shardings = next(iter(shardings.values()))
+    return shardings.mesh
+
+
+def shard_cache(cache: dict, shardings: dict) -> dict:
+    """This rank's block of every leaf of a whole cache (``shard_state``
+    over a tree of ``NamedSharding``)."""
+    return shard_state(cache, _specs_of(shardings), _mesh_of(shardings))
+
+
+def gather_cache(cache: dict, shardings: dict) -> dict:
+    """Every leaf whole on every rank from the rank's blocks (collective)."""
+    return gather_state(cache, _specs_of(shardings), _mesh_of(shardings))

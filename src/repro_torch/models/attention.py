@@ -18,8 +18,25 @@ tensor-parallel over the heads where the specs split them: ``wq`` / ``wk`` /
 row-parallel with its partial outputs summed over the model axis, each rank
 running attention (the flash kernels too) on its own heads. Where the query
 heads split and the KV heads do not, the KV heads are computed whole and
-each rank keeps those its query heads read. Decode on a mesh comes with the
-serving half of the mesh slice.
+each rank keeps those its query heads read.
+
+Decode on a mesh (serving) reads the cache as ``cache_specs`` splits it,
+the cache leaves' spec passed as ``spec``:
+
+  * KV heads split over ``"model"``: each rank decodes its heads, as the
+    full-sequence form computes them, and ``reduce_from`` sums the output
+    projection's partial results;
+  * the sequence dim (or a cross cache's frontend tokens) split: each rank
+    scores its positions against every query head and returns its partial
+    output with its log-sum-exp (``partial_softmax``); the ranks combine
+    them exactly by all-reduces over ``"model"``, the largest LSE first,
+    then the rescaled sums (``combine_partials``: the partial-softmax
+    reduction XLA inserts in ``repro``). A rank whose positions all lie
+    beyond ``pos`` contributes a zero output at an LSE of -inf.
+
+Where the query heads split and the cache's KV heads do not, the query is
+gathered whole, attention runs over every head, and each rank keeps its
+heads' context for its block of ``wo``.
 """
 
 from __future__ import annotations
@@ -33,6 +50,7 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models import parallel as par
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
+    MODEL,
     P,
     RMSNorm,
     ShardCtx,
@@ -143,12 +161,61 @@ def _gqa_scores(q, k):
     return torch.einsum("blkgd,bskd->bkgls", qg, k).float() / root
 
 
-def _gqa_out(weights, v, p):
-    """weights: (B, KV, G, L, S); v: (B, S, KV, hd) -> (B, L, D)."""
+def _gqa_ctx(weights, v):
+    """weights: (B, KV, G, L, S); v: (B, S, KV, hd) -> the context (B, L, H,
+    hd)."""
     b, kvh, g, l, s = weights.shape
     ctx = torch.einsum("bkgls,bskd->blkgd", weights, v)
-    ctx = ctx.reshape(b, l, kvh * g, v.shape[-1])
-    return torch.einsum("blhd,hdk->blk", ctx, p.wo)
+    return ctx.reshape(b, l, kvh * g, v.shape[-1])
+
+
+def _gqa_out(weights, v, p):
+    """weights: (B, KV, G, L, S); v: (B, S, KV, hd) -> (B, L, D)."""
+    return torch.einsum("blhd,hdk->blk", _gqa_ctx(weights, v), p.wo)
+
+
+def partial_softmax(scores, valid, dtype):
+    """One rank's share of a softmax over positions split across ranks:
+    ``scores`` (..., S) float32, ``valid`` broadcastable to it. Returns
+    (the weights over this rank's positions, normalised among them and cast
+    to ``dtype``; their log-sum-exp (..., 1) float32). With no valid
+    position the weights are 0 and the LSE is -inf, with no NaN."""
+    masked = torch.where(valid, scores, torch.full_like(scores, float("-inf")))
+    m = masked.amax(-1, keepdim=True)
+    m = torch.where(torch.isinf(m), torch.zeros_like(m), m)
+    e = torch.exp(masked - m)
+    l = e.sum(-1, keepdim=True)
+    w = (e / torch.where(l > 0, l, torch.ones_like(l))).to(dtype)
+    return w, torch.log(l) + m
+
+
+def combine_partials(out, lse, ag):
+    """The exact softmax output from each rank's partial ``out`` (..., d),
+    normalised over its positions, and its LSE (..., 1): the largest LSE
+    over the group first, then the sums of the outputs and of the weights
+    rescaled to it (float32; ``out``'s dtype back)."""
+    top = par.all_reduce(lse, ag, torch.distributed.ReduceOp.MAX)
+    scale = torch.exp(lse - top)  # 0 for a rank with no valid position
+    sums = par.all_reduce(torch.cat([out.float() * scale, scale], dim=-1), ag)
+    return (sums[..., :-1] / sums[..., -1:]).to(out.dtype)
+
+
+def _decode_heads(q, tp, kv_split: bool):
+    """The query heads decode attends with: this rank's where the cache's
+    KV heads are split with them (or nothing is split), else every head
+    (gathered)."""
+    return q if tp is None or kv_split else par.all_gather(q, tp, 2)
+
+
+def _project_out(p, ctx, tp, kv_split: bool):
+    """ctx (B, L, H or this rank's heads, hd) through ``wo``: with ``tp``,
+    this rank's heads through its rows, the partial outputs summed."""
+    if tp is None:
+        return torch.einsum("blhd,hdk->blk", ctx, p.wo)
+    if not kv_split:
+        n = p.wo.shape[0]
+        ctx = ctx.narrow(2, tp.index * n, n)
+    return par.reduce_from(torch.einsum("blhd,hdk->blk", ctx, p.wo), tp)
 
 
 def _flash(q, k, v, scale=None, causal=True):
@@ -197,29 +264,71 @@ def apply_attention(p, cfg: ModelConfig, x, positions, *, causal: bool = True, k
     return (y if tp is None else par.reduce_from(y, tp)), cache
 
 
-def apply_attention_decode(p, cfg: ModelConfig, x, cache: dict, pos: int):
+def _seq_group(spec, dim: int = 1):
+    """The model axis's group where a cache leaf's ``spec`` splits dim
+    ``dim`` (positions or frontend tokens) over more than one rank, else
+    None (a split over a group of one is the whole dim: decode runs as on
+    one device)."""
+    ag = par.model_group() if spec is not None and spec[dim] == MODEL else None
+    return ag if ag is not None and ag.size > 1 else None
+
+
+def apply_attention_decode(p, cfg: ModelConfig, x, cache: dict, pos: int, spec=None):
     """Single-token cached decode: writes the new K/V at ``pos`` of
     ``cache`` {"k", "v": (B, S, KV, hd)} in place (``repro`` returns an
     updated copy; the port keeps one cache buffer) and attends to positions
-    [0, pos]. Returns (y, cache)."""
-    q, k_new, v_new = _project_qkv(p, cfg, x)
+    [0, pos]. On a mesh, ``spec`` is the cache leaves' (see the module
+    docstring): with the sequence split, this rank holds positions [r S_l,
+    (r + 1) S_l) and writes the new entry only where ``pos`` falls among
+    them. Returns (y, cache)."""
+    tp = par.tp_group(p, "wq")
+    kv_split = par.tp_group(p, "wk") is not None
+    seq = _seq_group(spec)
+    q, k_new, v_new = _project_qkv(p, cfg, x, tp=tp)
     posv = torch.full((x.shape[0], 1), pos, dtype=torch.int32, device=x.device)
-    q = apply_rope(q, posv, cfg.rope_theta)
+    q = _decode_heads(apply_rope(q, posv, cfg.rope_theta), tp, kv_split)
     k_new = apply_rope(k_new, posv, cfg.rope_theta)
     k, v = cache["k"], cache["v"]
-    k[:, pos:pos + 1] = k_new.to(k.dtype)
-    v[:, pos:pos + 1] = v_new.to(v.dtype)
-    scores = _up_to(_gqa_scores(q, k), pos)  # (B, KV, G, 1, S)
-    weights = torch.softmax(scores, dim=-1).to(x.dtype)
-    return _gqa_out(weights, v, p), cache
+    lo = 0 if seq is None else seq.index * k.shape[1]
+    if 0 <= pos - lo < k.shape[1]:
+        k[:, pos - lo:pos - lo + 1] = k_new.to(k.dtype)
+        v[:, pos - lo:pos - lo + 1] = v_new.to(v.dtype)
+    scores = _gqa_scores(q, k)  # (B, KV, G, 1, S)
+    if seq is None:
+        ctx = _gqa_ctx(torch.softmax(_up_to(scores, pos), dim=-1).to(x.dtype), v)
+    else:
+        valid = torch.arange(lo, lo + k.shape[1], device=x.device) <= pos
+        w, lse = partial_softmax(scores, valid, x.dtype)
+        ctx = combine_partials(_gqa_ctx(w, v), _gqa_lse(lse), seq)
+    return _project_out(p, ctx, tp, kv_split), cache
 
 
-def apply_cross_attention_decode(p, cfg: ModelConfig, x, ctx_cache: dict):
+def _gqa_lse(lse):
+    """(B, KV, G, L, 1) -> (B, L, H, 1), the context's layout."""
+    b, kvh, g, l, _ = lse.shape
+    return lse.permute(0, 3, 1, 2, 4).reshape(b, l, kvh * g, 1)
+
+
+def apply_cross_attention_decode(p, cfg: ModelConfig, x, ctx_cache: dict, spec=None):
     """Decode-time cross-attention: x (B, 1, D) attends, unmasked, to the
     whole fixed ``ctx_cache`` {"k", "v": (B, T, KV, hd)} that the prefill's
-    cross-attention returned; the cache is read, never written."""
-    weights = torch.softmax(_gqa_scores(_project_q(p, cfg, x), ctx_cache["k"]), dim=-1)
-    return _gqa_out(weights.to(x.dtype), ctx_cache["v"], p)
+    cross-attention returned; the cache is read, never written. On a mesh
+    ``spec`` splits its KV heads or its frontend tokens, as the self
+    cache's heads or positions (every token valid)."""
+    tp = par.tp_group(p, "wq")
+    kv_split = par.tp_group(p, "wk") is not None
+    seq = _seq_group(spec)
+    if tp is not None:
+        x = par.copy_to(x, tp)
+    q = _decode_heads(_project_q(p, cfg, x), tp, kv_split)
+    scores = _gqa_scores(q, ctx_cache["k"])
+    if seq is None:
+        ctx = _gqa_ctx(torch.softmax(scores, dim=-1).to(x.dtype), ctx_cache["v"])
+    else:
+        w, lse = partial_softmax(scores, torch.ones((), dtype=torch.bool, device=x.device),
+                                 x.dtype)
+        ctx = combine_partials(_gqa_ctx(w, ctx_cache["v"]), _gqa_lse(lse), seq)
+    return _project_out(p, ctx, tp, kv_split)
 
 
 def kv_cache_shape(cfg: ModelConfig, batch: int, max_len: int) -> dict:
@@ -329,27 +438,59 @@ def apply_mla(p, cfg: ModelConfig, x, positions):
     return (y if tp is None else par.reduce_from(y, tp)), cache
 
 
-def apply_mla_decode(p, cfg: ModelConfig, x, cache: dict, pos: int):
+def apply_mla_decode(p, cfg: ModelConfig, x, cache: dict, pos: int, spec=None):
     """Compressed-cache MLA decode by projection absorption: W_uk folds into
     the query and W_uv into the output, so attention runs in the
     ``kv_lora`` latent and per-head K/V are never materialised. Writes the
     new latent and rope key at ``pos`` of ``cache`` {"ckv": (B, S, kv_lora),
-    "krope": (B, S, rh)} in place. Returns (y, cache)."""
+    "krope": (B, S, rh)} in place. On a mesh ``spec`` ({"ckv", "krope"})
+    splits the positions (each rank scores its block against every head;
+    ``combine_partials``) or the latent's last dim (each rank's share of
+    the latent scores summed over the model axis, the latent context
+    gathered); the heads of ``wq_b`` / ``wk_b`` / ``wv_b`` / ``wo`` split as
+    in the full-sequence form. Returns (y, cache)."""
     hd, rh = cfg.head_dim, cfg.rope_head_dim
+    tp = par.tp_group(p, "wq_b")
+    seq = _seq_group(None if spec is None else spec["ckv"])
+    lat = _seq_group(None if spec is None else spec["ckv"], 2)
     posv = torch.full((x.shape[0], 1), pos, dtype=torch.int32, device=x.device)
-    q_nope, q_rope = _mla_q(p, cfg, x, posv)  # (B, 1, H, hd / rh)
+    q_nope, q_rope = _mla_q(p, cfg, x, posv, tp)  # (B, 1, H, hd / rh)
     ckv_new, krope_new = _mla_latents(p, cfg, x, posv)
     ckv, krope = cache["ckv"], cache["krope"]
-    ckv[:, pos:pos + 1] = ckv_new.to(ckv.dtype)
-    krope[:, pos:pos + 1] = krope_new.to(krope.dtype)
+    lo = 0 if seq is None else seq.index * ckv.shape[1]
+    if 0 <= pos - lo < ckv.shape[1]:
+        if lat is not None:
+            ckv_new = ckv_new.narrow(2, lat.index * ckv.shape[2], ckv.shape[2])
+        ckv[:, pos - lo:pos - lo + 1] = ckv_new.to(ckv.dtype)
+        krope[:, pos - lo:pos - lo + 1] = krope_new.to(krope.dtype)
     q_eff = torch.einsum("blhd,khd->blhk", q_nope, p.wk_b)  # (B, 1, H, kv_lora)
+    every = seq is not None or lat is not None
+    if every:  # every head scores this rank's share of the cache
+        q_eff, q_rope = _decode_heads(q_eff, tp, False), _decode_heads(q_rope, tp, False)
     scale = 1.0 / torch.sqrt(torch.tensor(float(hd + rh), dtype=torch.float32, device=x.device))
-    scores = (torch.einsum("blhk,bsk->bhls", q_eff, ckv)
-              + torch.einsum("blhr,bsr->bhls", q_rope, krope)).float() * scale
-    w = torch.softmax(_up_to(scores, pos), dim=-1).to(x.dtype)
-    ctx = torch.einsum("bhls,bsk->blhk", w, ckv)  # the latent context
+    if lat is not None:
+        q_eff = q_eff.narrow(3, lat.index * ckv.shape[2], ckv.shape[2])
+        nope = par.all_reduce(torch.einsum("blhk,bsk->bhls", q_eff, ckv), lat)
+        scores = (nope + torch.einsum("blhr,bsr->bhls", q_rope, krope)).float() * scale
+    else:
+        scores = (torch.einsum("blhk,bsk->bhls", q_eff, ckv)
+                  + torch.einsum("blhr,bsr->bhls", q_rope, krope)).float() * scale
+    if seq is None:
+        w = torch.softmax(_up_to(scores, pos), dim=-1).to(x.dtype)
+        ctx = torch.einsum("bhls,bsk->blhk", w, ckv)  # the latent context
+        if lat is not None:
+            ctx = par.all_gather(ctx, lat, 3)
+    else:
+        valid = torch.arange(lo, lo + ckv.shape[1], device=x.device) <= pos
+        w, lse = partial_softmax(scores, valid, x.dtype)
+        ctx = combine_partials(torch.einsum("bhls,bsk->blhk", w, ckv), lse.transpose(1, 2),
+                               seq)
+    if every and tp is not None:
+        n = p.wv_b.shape[1]
+        ctx = ctx.narrow(2, tp.index * n, n)
     v = torch.einsum("blhk,khd->blhd", ctx, p.wv_b)  # W_uv absorbed
-    return torch.einsum("blhd,hdk->blk", v, p.wo), cache
+    y = torch.einsum("blhd,hdk->blk", v, p.wo)
+    return (y if tp is None else par.reduce_from(y, tp)), cache
 
 
 def mla_cache_shape(cfg: ModelConfig, batch: int, max_len: int) -> dict:

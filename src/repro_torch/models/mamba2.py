@@ -15,6 +15,12 @@ at B 64, L 1088, H 64, P 64, where these keep each temporary at ~1.1 GB.
 The causal depthwise conv (window ``CONV_W``) is ``CONV_W`` shifted
 multiply-adds in float32, rounded once to the model dtype, so no cuDNN
 convolution (and none of its TF32) is involved.
+
+On a mesh the block's parameters are replicated over the model axis (only
+FSDP splits them), while ``cache_specs`` splits its decode state: the conv
+state's channels and the SSM state's heads. Serving there, each rank runs
+the scan on the heads whose state it holds and the heads' outputs are
+gathered; the conv state is gathered on use (it is ``CONV_W - 1`` rows).
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.models import parallel as par
 from repro_torch.models.attention import TensorSpec
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
@@ -193,23 +200,36 @@ def _split_proj(cfg: ModelConfig, proj):
 def apply_mamba2_block(p: Mamba2Block, cfg: ModelConfig, x_in, state: dict, *,
                        chunked: bool = True):
     """x_in: (B, L, D); state {"conv": (B, CONV_W - 1, C), "ssm": (B, H, P,
-    N) float32}. The chunked form runs where ``chunked`` and L is a multiple
-    of ``cfg.ssm_chunk`` above 1, else the per-step scan. Returns (x, the
-    state after the last position)."""
-    d_inner, n, pdim, h, _ = _dims(cfg)
+    N) float32}, on a mesh its channels and heads whole or this rank's
+    block (see the module docstring). The chunked form runs where
+    ``chunked`` and L is a multiple of ``cfg.ssm_chunk`` above 1, else the
+    per-step scan. Returns (x, the state after the last position: ``conv``
+    whole, ``ssm`` of the heads this rank ran)."""
+    d_inner, n, pdim, h, conv_ch = _dims(cfg)
     b, l, _ = x_in.shape
     proj = rms_norm(p.norm, x_in) @ p.in_proj
     z, xbc, dt = _split_proj(cfg, proj)
-    xbc, conv_state = _causal_conv_seq(p.conv_w, p.conv_b, xbc, state["conv"])
+    conv0 = state["conv"]
+    if conv0.shape[-1] != conv_ch:
+        conv0 = par.all_gather(conv0, par.model_group(), -1)
+    xbc, conv_state = _causal_conv_seq(p.conv_w, p.conv_b, xbc, conv0)
     xs = xbc[..., :d_inner].reshape(b, l, h, pdim)
     bmat, cmat = xbc[..., d_inner:d_inner + n], xbc[..., d_inner + n:]
     dt = F.softplus(dt.float() + p.dt_bias)
-    a_neg = -torch.exp(p.a_log)
+    a_neg, d_skip = -torch.exp(p.a_log), p.d_skip
+    ag = None
+    if state["ssm"].shape[1] != h:  # this rank's heads
+        ag = par.model_group()
+        hl = state["ssm"].shape[1]
+        xs, dt, a_neg, d_skip = (t.narrow(dim, ag.index * hl, hl) for t, dim in
+                                 ((xs, 2), (dt, 2), (a_neg, 0), (d_skip, 0)))
     if chunked and l % cfg.ssm_chunk == 0 and l > 1:
         y, s_fin = ssd_chunked(xs, dt, a_neg, bmat, cmat, state["ssm"], cfg.ssm_chunk)
     else:
         y, s_fin = ssd_scan(xs, dt, a_neg, bmat, cmat, state["ssm"])
-    y = y + p.d_skip[:, None] * xs.float()
+    y = y + d_skip[:, None] * xs.float()
+    if ag is not None:
+        y = par.all_gather(y, ag, 2)
     y = y.reshape(b, l, d_inner).to(x_in.dtype)
     y = rms_norm(p.gate_norm, y * F.silu(z))
     return x_in + y @ p.out_proj, {"conv": conv_state, "ssm": s_fin}

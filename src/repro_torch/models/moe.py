@@ -109,6 +109,14 @@ def route(p, cfg: ModelConfig, xf):
     return probs, gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9), expert_ids
 
 
+def _expert_counts(expert_ids, e: int):
+    """Assignments per expert (E,) int64: ``bincount`` with a shape fixed by
+    ``e``, so it also runs on meta tensors (the dry run)."""
+    flat = expert_ids.reshape(-1)
+    return torch.zeros(e, dtype=torch.int64, device=flat.device).index_add_(
+        0, flat, torch.ones_like(flat))
+
+
 def expert_slots(expert_ids, c: int):
     """Each assignment's slot in its expert's group, in assignment order
     ((N, k) -> (N, k) int64): the rank of the assignment among those to the
@@ -164,7 +172,7 @@ def apply_moe(p, cfg: ModelConfig, x):
     n, k, e = b * l, cfg.experts_per_token, cfg.n_experts
     xf = x.reshape(n, d)
     probs, gate, expert_ids = route(p, cfg, xf)
-    counts = torch.bincount(expert_ids.reshape(-1), minlength=e)
+    counts = _expert_counts(expert_ids, e)
     dp = par.dp_group()
     if dp is None:
         c = capacity(n, cfg)
@@ -204,7 +212,7 @@ def apply_moe_ep(p, cfg: ModelConfig, x, axis: str = "model"):
     n, k, e = b * l, cfg.experts_per_token, cfg.n_experts
     xf = x.reshape(n, d)
     probs, gate, expert_ids = route(p, cfg, xf)
-    assign = torch.bincount(expert_ids.reshape(-1), minlength=e).float() / (n * k)
+    assign = _expert_counts(expert_ids, e).float() / (n * k)
     aux = e * torch.sum(assign * probs.mean(0))
     dp = par.dp_group()
     if dp is not None:  # pmean over every axis: the model ranks' agree

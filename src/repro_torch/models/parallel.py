@@ -17,6 +17,11 @@ There:
     order and aux loss are the whole batch's), None in the compressed mode,
     where each data-parallel rank runs the one-device program on its block.
 
+Serving on a mesh (``serving.engine.ServingEngine(mesh=)``) runs prefill
+and decode inside ``on_mesh`` too, with ``cache_specs``: the decode cache's
+spec tree (``models.transformer.cache_specs``), by which each rank holds
+and updates its block of every cache leaf (``cache_specs()`` reads it).
+
 Outside ``on_mesh`` both are None and every model function runs on one
 device as before. The state is a module global, not thread-local: the
 backward's recomputation (remat) runs on autograd's threads.
@@ -40,6 +45,7 @@ class _Active:
     names: dict  # id(module) -> its parameter-name prefix
     model: object  # the model axis's AxisGroup, or None
     dp: object  # the data-parallel axes' AxisGroup in gspmd mode, else None
+    cache: Optional[dict] = None  # the decode cache's spec tree while serving
 
 
 _ACTIVE: Optional[_Active] = None
@@ -60,11 +66,13 @@ def computes_split(module, key: str) -> bool:
 
 
 @contextlib.contextmanager
-def on_mesh(model, mesh, specs: dict, *, global_dp: bool = True):
+def on_mesh(model, mesh, specs: dict, *, global_dp: bool = True,
+            cache_specs: Optional[dict] = None):
     """Run the model functions of ``model`` (a ``Transformer``) as one rank
     of ``mesh`` with its parameters split as ``specs`` say (see the module
     docstring). ``global_dp``: the forward is the global program over the
-    data-parallel ranks (gspmd mode)."""
+    data-parallel ranks (gspmd mode). ``cache_specs``: the decode cache's
+    spec tree, for prefill and decode."""
     global _ACTIVE
     from repro_torch.launch.mesh import axis_group
 
@@ -72,7 +80,8 @@ def on_mesh(model, mesh, specs: dict, *, global_dp: bool = True):
         raise RuntimeError("on_mesh does not nest")
     names = {id(m): (f"{n}." if n else "") for n, m in model.named_modules()}
     dp = axis_group(mesh, ("pod", "data"))
-    _ACTIVE = _Active(mesh, specs, names, axis_group(mesh, (MODEL,)), dp if global_dp else None)
+    _ACTIVE = _Active(mesh, specs, names, axis_group(mesh, (MODEL,)), dp if global_dp else None,
+                      cache_specs)
     try:
         yield _ACTIVE
     finally:
@@ -96,6 +105,20 @@ def tp_group(p, key: str):
 
 def dp_group():
     return None if _ACTIVE is None else _ACTIVE.dp
+
+
+def active_mesh():
+    return None if _ACTIVE is None else _ACTIVE.mesh
+
+
+def model_group():
+    """The model axis's group on a mesh (None off one, or without the axis)."""
+    return None if _ACTIVE is None else _ACTIVE.model
+
+
+def cache_specs() -> Optional[dict]:
+    """The decode cache's spec tree while serving on a mesh, else None."""
+    return None if _ACTIVE is None else _ACTIVE.cache
 
 
 def copy_to(x, ag):
@@ -126,9 +149,39 @@ def all_gather_rows(t, ag):
 
 def gather_vocab(logits, ag):
     """Vocab-split logits made whole (inference: no autograd)."""
+    return all_gather(logits, ag, dim=-1)
+
+
+def all_gather(t, ag, dim: int):
+    """Every rank's ``t`` concatenated on ``dim`` in the group's order
+    (inference: no autograd)."""
     from repro_torch.launch import sharding
 
-    return sharding.all_gather(logits, ag, _ACTIVE.mesh, dim=-1)
+    return sharding.all_gather(t, ag, _ACTIVE.mesh, dim=dim)
+
+
+def all_reduce(t, ag, op=None):
+    """``t`` reduced over the group, a sum unless ``op`` (inference: no
+    autograd)."""
+    from repro_torch.launch import sharding
+
+    return sharding.all_reduce(t, ag, _ACTIVE.mesh, op or torch.distributed.ReduceOp.SUM)
+
+
+def gather_slice(t, ag, dim: int):
+    """This rank's slice made whole for a computation every rank of the
+    group repeats (backward: the rank's slice of the gradient)."""
+    from repro_torch.launch import sharding
+
+    return sharding.gather_slice(t, ag, _ACTIVE.mesh, dim)
+
+
+def my_slice(t, ag, dim: int):
+    """This rank's block along ``dim`` of a replicated ``t`` that enters a
+    split computation (its gradient all-reduced over the group, so each
+    rank's block of it is summed into the whole)."""
+    n = t.shape[dim] // ag.size
+    return copy_to(t, ag).narrow(dim, ag.index * n, n)
 
 
 class _VocabCrossEntropy(torch.autograd.Function):
@@ -165,12 +218,3 @@ class _VocabCrossEntropy(torch.autograd.Function):
 
 def vocab_lse_gold(lf, labels, ag):
     return _VocabCrossEntropy.apply(lf, labels, ag, _ACTIVE.mesh)
-
-
-def refuse(what: str) -> None:
-    """Raise when a mesh step is active: ``what`` comes with the serving
-    half of the mesh slice."""
-    if _ACTIVE is not None:
-        raise NotImplementedError(
-            f"{what} over a device mesh comes with the serving half of the mesh slice "
-            "(ROADMAP Queue 1 item 5): cache_shardings and ServingEngine(mesh=)")

@@ -25,9 +25,21 @@ configs), and the decay LoRA reuses the first stream's ``lora_a[:, :wkv_lora]``
 with ``lora_b[4]``.
 
 ``rwkv6_block_specs`` splits the time-mix and channel-mix projections over
-the model axis (``d`` and ``hidden``) as ``repro``'s do; a mesh step gathers
-those blocks whole on use (``training.train_loop``), so every model rank
-runs the whole block.
+the model axis (``d`` and ``hidden``) as ``repro``'s do, and on a mesh
+(``models.parallel``; training and serving alike) the block is
+tensor-parallel over them:
+
+  * time mix: ``wr`` / ``wk`` / ``wv`` / ``wg`` column-parallel, ``wo``
+    row-parallel with its partial outputs summed over the model axis. Where
+    the model axis divides the heads, each rank runs the WKV recurrence on
+    its heads (the decay's ``lora_b`` and ``w0``, ``u`` and ``ln_x`` cut to
+    them) and holds their
+    ``wkv`` state; else r / k / v / g are gathered and every rank runs every
+    head (the state replicated, as ``cache_specs`` keeps it);
+  * channel mix: ``wk`` column- and ``wv`` row-parallel over ``hidden``,
+    the receptance ``wr`` column-parallel and gathered;
+  * the token-shift states ``tm_x`` / ``cm_x`` may be held split over
+    ``d`` (``cache_specs``); the block gathers them on use.
 """
 
 from __future__ import annotations
@@ -36,6 +48,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.models import parallel as par
 from repro_torch.models.attention import TensorSpec
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import P, ShardCtx, dtype_of, ninit, param
@@ -138,6 +151,8 @@ class TimeMix(nn.Module):
     """mu_x (d), mu (5, d), lora_a (d, 5 lora), lora_b (5, lora, d), w0 (d)
     and u (H, K) in float32, wr / wk / wv / wg / wo (d, d), ln_x."""
 
+    tp_keys = ("wr", "wk", "wv", "wg", "wo")
+
     def __init__(self, cfg: ModelConfig, dtype, device):
         super().__init__()
         d, lora, hd = cfg.d_model, cfg.wkv_lora, cfg.ssm_head_dim
@@ -154,6 +169,8 @@ class TimeMix(nn.Module):
 
 class ChannelMix(nn.Module):
     """mu_k, mu_r (d), wk (d, hidden), wv (hidden, d), wr (d, d)."""
+
+    tp_keys = ("wk", "wv", "wr")
 
     def __init__(self, cfg: ModelConfig, dtype, device):
         super().__init__()
@@ -238,7 +255,7 @@ def _layer_norm(p, x, eps: float = 1e-5):
     return (out * p.scale.float() + p.bias.float()).to(x.dtype)
 
 
-def _group_norm_heads(p, y, h: int, eps: float = 1e-5):
+def _group_norm_heads(scale, bias, y, h: int, eps: float = 1e-5):
     """GroupNorm with one group per head over (B, L, H, K); float32 out,
     flattened to (B, L, H K)."""
     b, l, _, kdim = y.shape
@@ -246,7 +263,7 @@ def _group_norm_heads(p, y, h: int, eps: float = 1e-5):
     mu = yf.mean(-1, keepdim=True)
     var = ((yf - mu) ** 2).mean(-1, keepdim=True)
     yn = ((yf - mu) * torch.rsqrt(var + eps)).reshape(b, l, h * kdim)
-    return yn * p.scale.float() + p.bias.float()
+    return yn * scale.float() + bias.float()
 
 
 def _ddlerp(tm, x, shifted):
@@ -261,50 +278,84 @@ def _ddlerp(tm, x, shifted):
             for i in range(5)]
 
 
-def _decay(tm, xw):
-    w_raw = tm.w0.float() + xw.float()
+def _decay(w0, xw):
+    w_raw = w0.float() + xw.float()
     return torch.exp(-torch.exp(torch.clamp(w_raw, -20.0, 4.0)))
+
+
+def _whole_d(t, d: int):
+    """A token-shift state (B, d) the cache holds split over the model axis,
+    gathered (inference)."""
+    return t if t.shape[-1] == d else par.all_gather(t, par.model_group(), -1)
+
+
+def _column(x, w, tp):
+    """x @ w for a column-parallel ``w`` (``tp``: the replicated input enters
+    through ``copy_to``)."""
+    return (x if tp is None else par.copy_to(x, tp)) @ w
 
 
 def apply_rwkv6_block(p: RWKV6Block, cfg: ModelConfig, x, state: dict, *, chunked: bool = True):
     """x: (B, L, D); state {"tm_x": (B, D), "cm_x": (B, D), "wkv": (B, H, K,
-    K) float32}. The chunked form runs where ``chunked`` and L is a multiple
-    of ``cfg.ssm_chunk`` above 1, else the per-step scan. Returns (x, the
-    state after the last position)."""
+    K) float32} (on a mesh: ``tm_x`` / ``cm_x`` whole or this rank's slice
+    of D, ``wkv`` whole or this rank's heads). The chunked form runs where
+    ``chunked`` and L is a multiple of ``cfg.ssm_chunk`` above 1, else the
+    per-step scan. Returns (x, the state after the last position: ``tm_x``
+    and ``cm_x`` whole, ``wkv`` of the heads this rank ran)."""
     hd = cfg.ssm_head_dim
-    h = cfg.d_model // hd
+    d = cfg.d_model
+    h = d // hd
     b, l, _ = x.shape
+    tm, cm = p.tm, p.cm
+    tp = par.tp_group(tm, "wr")
+    heads = tp is not None and h % tp.size == 0  # each rank runs its heads
 
     # ---- time mix ----
     xin = _layer_norm(p.ln1, x)
-    shifted = torch.cat([state["tm_x"][:, None], xin[:, :-1]], dim=1)
-    tm = p.tm
+    shifted = torch.cat([_whole_d(state["tm_x"], d)[:, None], xin[:, :-1]], dim=1)
     xr, xk, xv, xg, xw = _ddlerp(tm, xin, shifted)
-    r = (xr @ tm.wr).reshape(b, l, h, hd)
-    k = (xk @ tm.wk).reshape(b, l, h, hd)
-    v = (xv @ tm.wv).reshape(b, l, h, hd)
-    g = F.silu(xg @ tm.wg)
-    w_dyn = torch.tanh(xw @ tm.lora_a[:, :cfg.wkv_lora]) @ tm.lora_b[4]  # repro's reuse
-    w = _decay(tm, w_dyn).reshape(b, l, h, hd)
-    del xr, xk, xv, xg, xw, w_dyn
+    r, k, v = (_column(xs, w, tp) for xs, w in ((xr, tm.wr), (xk, tm.wk), (xv, tm.wv)))
+    g = F.silu(_column(xg, tm.wg, tp))
+    lora_w = torch.tanh(xw @ tm.lora_a[:, :cfg.wkv_lora])  # repro's reuse
+    lb, w0, u, scale, bias = tm.lora_b[4], tm.w0, tm.u, tm.ln_x.scale, tm.ln_x.bias
+    if heads:  # this rank's heads: the replicated pieces cut to them
+        lora_w = par.copy_to(lora_w, tp)
+        lb, w0, scale, bias = (par.my_slice(t, tp, -1) for t in (lb, w0, scale, bias))
+        u = par.my_slice(u, tp, 0)
+    elif tp is not None:  # the columns do not fall on heads: every rank runs every head
+        r, k, v, g = (par.gather_slice(t, tp, -1) for t in (r, k, v, g))
+    w = _decay(w0, lora_w @ lb)
+    del xr, xk, xv, xg, xw, lora_w
+    hl = r.shape[-1] // hd
+    r, k, v, w = (t.reshape(b, l, hl, hd) for t in (r, k, v, w))
+    s0 = state["wkv"]
+    if s0.shape[1] != hl:  # a whole zero state (the forward) cut to this rank's heads
+        s0 = s0.narrow(1, tp.index * hl, hl)
 
     if chunked and l % cfg.ssm_chunk == 0 and l > 1:
-        y, s_fin = wkv6_chunked(r, k, v, w, tm.u, state["wkv"], cfg.ssm_chunk)
+        y, s_fin = wkv6_chunked(r, k, v, w, u, s0, cfg.ssm_chunk)
     else:
-        y, s_fin = wkv6_scan(r, k, v, w, tm.u, state["wkv"])
-    y = _group_norm_heads(tm.ln_x, y, h).to(x.dtype)
-    x = x + (y * g) @ tm.wo
+        y, s_fin = wkv6_scan(r, k, v, w, u, s0)
+    yg = _group_norm_heads(scale, bias, y, hl).to(x.dtype) * g
+    if tp is not None and not heads:
+        yg = par.my_slice(yg, tp, -1)
+    out = yg @ tm.wo
+    x = x + (out if tp is None else par.reduce_from(out, tp))
 
     # ---- channel mix ----
     xin2 = _layer_norm(p.ln2, x)
-    shifted2 = torch.cat([state["cm_x"][:, None], xin2[:, :-1]], dim=1)
-    cm = p.cm
+    shifted2 = torch.cat([_whole_d(state["cm_x"], d)[:, None], xin2[:, :-1]], dim=1)
     dx2 = shifted2 - xin2
     xk2 = xin2 + dx2 * cm.mu_k
     xr2 = xin2 + dx2 * cm.mu_r
-    kk = torch.square(F.relu(xk2 @ cm.wk))
-    rr = torch.sigmoid(xr2 @ cm.wr)
-    x = x + rr * (kk @ cm.wv)
+    tp_h, tp_r = par.tp_group(cm, "wk"), par.tp_group(cm, "wr")
+    kv = torch.square(F.relu(_column(xk2, cm.wk, tp_h))) @ cm.wv
+    rr = torch.sigmoid(_column(xr2, cm.wr, tp_r))
+    if tp_h is not None:
+        kv = par.reduce_from(kv, tp_h)
+    if tp_r is not None:
+        rr = par.gather_slice(rr, tp_r, -1)
+    x = x + rr * kv
     return x, {"tm_x": xin[:, -1], "cm_x": xin2[:, -1], "wkv": s_fin}
 
 

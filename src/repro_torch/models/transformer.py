@@ -49,6 +49,17 @@ decode cache's, in ``repro``'s tree. On a mesh step (``models.parallel``)
 the forward and the loss run tensor-parallel where the specs split the
 model axis, the logits vocab-split, the cross-entropy reducing its max, sum
 of exponentials and gold logit over the model axis.
+
+Prefill and decode run on a mesh too (``serving.engine.ServingEngine(mesh=)``
+drives them): each rank takes its rows of the batch and holds its block of
+every cache leaf, as the cache specs the caller gave ``par.on_mesh``
+(``models.parallel.cache_specs()``; ``mesh_cache_specs``) split it. Prefill
+allocates only the rank's blocks and writes each block from the entries it
+computed (a KV cache split by heads from the rank's own heads, one split by
+positions or frontend tokens from its share of the whole entries); decode
+reads and updates them in place (``models.attention``, ``rwkv6``,
+``mamba2``). The logits come back whole over the vocabulary
+(``par.gather_vocab``), for the rank's rows.
 """
 
 from __future__ import annotations
@@ -420,12 +431,15 @@ def _block_seq(p, cfg: ModelConfig, h, positions, causal: bool = True):
     return h + y2, aux, cache
 
 
-def _block_decode(p, cfg: ModelConfig, h, cache: dict, pos: int):
+def _block_decode(p, cfg: ModelConfig, h, cache: dict, pos: int, spec=None):
+    """One dense or MoE block's decode step; ``spec``: its cache slot's
+    leaves' specs on a mesh."""
     hn = rms_norm(p.ln1, h)
     if cfg.use_mla:
-        y, _ = attn.apply_mla_decode(p.attn, cfg, hn, cache, pos)
+        y, _ = attn.apply_mla_decode(p.attn, cfg, hn, cache, pos, spec)
     else:
-        y, _ = attn.apply_attention_decode(p.attn, cfg, hn, cache, pos)
+        y, _ = attn.apply_attention_decode(p.attn, cfg, hn, cache, pos,
+                                           None if spec is None else spec["k"])
     h = h + y
     hn = rms_norm(p.ln2, h)
     if isinstance(p, MoEBlock):
@@ -663,10 +677,88 @@ def cache_shape(cfg: ModelConfig, batch: int, max_len: int) -> dict:
     return out
 
 
-def _store(tree: dict, i: int, state: dict) -> None:
-    """Block ``i``'s state into its slot of the stacked cache, in place."""
-    for key, t in state.items():
-        tree[key][i].copy_(t)
+def mesh_cache_specs(cfg: ModelConfig, mesh, batch: int, max_len: int) -> dict:
+    """``cache_specs`` for a ``DeviceMesh``: the data-parallel axes' and the
+    model axis's sizes (1 where the mesh lacks the axis), two data-parallel
+    axes when it has ``"pod"`` (``repro``'s ``cache_shardings``)."""
+    from repro_torch.launch.mesh import axis_sizes, mesh_dp_size
+
+    return cache_specs(cfg, batch, max_len, dp_size=mesh_dp_size(mesh),
+                       model_size=axis_sizes(mesh).get(MODEL, 1),
+                       multi_pod=POD in mesh.mesh_dim_names)
+
+
+def _model_only(spec) -> tuple:
+    """A cache leaf's spec without its batch entry: a rank holds its rows
+    already, so only the model axis's splits cut the leaf further."""
+    return tuple(e if e == MODEL else None for e in spec)
+
+
+def _new_cache(cfg: ModelConfig, b: int, max_len: int, specs, device) -> dict:
+    """Zeros of the cache of ``b`` rows: whole off a mesh, else this rank's
+    block of every leaf (raises where a split dim does not divide)."""
+    from repro_torch.launch.sharding import local_shape
+
+    out = {}
+    for g, tree in cache_shape(cfg, b, max_len).items():
+        out[g] = {}
+        for k, s in tree.items():
+            shape = s.shape if specs is None else local_shape(
+                s.shape, _model_only(specs[g][k]), par.active_mesh())
+            out[g][k] = torch.zeros(shape, dtype=s.dtype, device=device)
+    return out
+
+
+def _slot(tree: dict, *i) -> dict:
+    """One block's entries of a stacked cache group (views)."""
+    return {k: t[i] for k, t in tree.items()}
+
+
+def _put(dst, src, spec, prefix: bool) -> None:
+    """Write ``src``, one block's cache entries, into ``dst``, its slot of
+    this rank's cache (in place). ``prefix``: ``src`` holds positions [0, L)
+    of a cache of ``max_len`` (dim 1), else the whole leaf. On a mesh
+    (``spec``, the slot's spec) a dim the model axis splits is cut to this
+    rank's block where ``src`` holds it whole (a split position dim: the
+    prompt's positions in the rank's block)."""
+    if spec is not None:
+        ag = par.model_group()
+        for d, entry in enumerate(spec):
+            if d == 0 or entry != MODEL or ag is None:
+                continue
+            n = dst.shape[d]
+            if prefix and d == 1:
+                lo = min(ag.index * n, src.shape[1])
+                src = src.narrow(1, lo, min(n, src.shape[1] - lo))
+            elif src.shape[d] != n:
+                src = src.narrow(d, ag.index * n, n)
+    if prefix:
+        dst[:, :src.shape[1]] = src
+    else:
+        dst.copy_(src)
+
+
+def _specs_for():
+    """The cache specs prefill and decode work by: None off a mesh; on one
+    those the caller gave ``par.on_mesh``."""
+    if not par.active():
+        return None
+    specs = par.cache_specs()
+    if specs is None:
+        raise ValueError("prefill and decode on a mesh need the cache's specs: run them "
+                         "through ServingEngine(mesh=) (or par.on_mesh(..., cache_specs=))")
+    return specs
+
+
+def _layer_specs(specs, group: str, lead: int):
+    """{leaf: spec} of one block's slot of cache group ``group`` (``lead``
+    stacked dims dropped), None off a mesh."""
+    return None if specs is None else {k: sp[lead:] for k, sp in specs[group].items()}
+
+
+def _write(tree: dict, idx, entries: dict, lspecs, prefix: bool) -> None:
+    for key, t in entries.items():
+        _put(tree[key][idx], t, None if lspecs is None else lspecs[key], prefix)
 
 
 def make_prefill(cfg: ModelConfig, max_len: int):
@@ -677,15 +769,13 @@ def make_prefill(cfg: ModelConfig, max_len: int):
     multiple of ``ssm_chunk`` above 1), and for the vlm and audio families
     the cross-attention's keys and values of ``frontend`` (B,
     n_frontend_tokens, D; the audio encoder runs here, once). Runs under
-    ``torch.inference_mode``. On a mesh step's placement (``models.parallel``)
-    it runs tensor-parallel and gathers the vocab-split logits; a KV cache
-    split by heads there comes with the serving half of the mesh slice."""
+    ``torch.inference_mode``. On a mesh (``models.parallel``) ``tokens`` and
+    ``frontend`` are the rank's rows: it runs tensor-parallel, returns this
+    rank's block of the cache and the rows' logits whole over the vocab
+    (see the module docstring)."""
 
     @torch.inference_mode()
     def prefill(params: Transformer, tokens: torch.Tensor, frontend=None):
-        if par.active() and any(isinstance(m, attn.Attention) and par.tp_group(m, "wk")
-                                is not None for m in params.modules()):
-            par.refuse("a KV cache split by heads")
         b, l = tokens.shape
         if l > max_len:
             raise ValueError(f"prompt length {l} exceeds max_len {max_len}")
@@ -694,46 +784,41 @@ def make_prefill(cfg: ModelConfig, max_len: int):
             if tuple(frontend.shape) != (b, cfg.n_frontend_tokens, cfg.d_model):
                 raise ValueError(f"frontend shape {tuple(frontend.shape)}, the cache wants "
                                  f"{(b, cfg.n_frontend_tokens, cfg.d_model)}")
-        cache = {g: _zero_state(spec, tokens.device)
-                 for g, spec in cache_shape(cfg, b, max_len).items()}
+        specs = _specs_for()
+        cache = _new_cache(cfg, b, max_len, specs, tokens.device)
         positions = _positions(l, tokens.device)
         h = embed_tokens(params.embed, tokens)
         if cfg.family == "ssm":
             for i, blk in enumerate(params.layers):
-                zero = _zero_state(rwkv6.rwkv6_state_shape(cfg, b), h.device)
-                h, st = rwkv6.apply_rwkv6_block(blk, cfg, h, zero)
-                _store(cache["layers"], i, st)
+                h, st = rwkv6.apply_rwkv6_block(blk, cfg, h, _slot(cache["layers"], i))
+                _write(cache["layers"], i, st, _layer_specs(specs, "layers", 1), False)
         elif cfg.family == "hybrid":
             for idx, g in _hybrid_groups(cfg):
                 for i in idx:
-                    zero = _zero_state(mamba2.mamba2_state_shape(cfg, b), h.device)
-                    h, st = mamba2.apply_mamba2_block(params.layers[i], cfg, h, zero)
-                    _store(cache["mamba"], i, st)
+                    h, st = mamba2.apply_mamba2_block(params.layers[i], cfg, h,
+                                                      _slot(cache["mamba"], i))
+                    _write(cache["mamba"], i, st, _layer_specs(specs, "mamba", 1), False)
                 if g is not None:
                     h, _, c = _block_seq(params.shared_attn, cfg, h, positions)
-                    for key, t in c.items():
-                        cache["shared"][key][g, :, :l] = t
+                    _write(cache["shared"], g, c, _layer_specs(specs, "shared", 1), True)
         elif cfg.family == "vlm":
             for g, grp in enumerate(params.groups):
                 for i, blk in enumerate(grp.self):
                     h, _, c = _block_seq(blk, cfg, h, positions)
-                    for key, t in c.items():
-                        cache["self"][key][g, i, :, :l] = t
+                    _write(cache["self"], (g, i), c, _layer_specs(specs, "self", 2), True)
                 h, c = _cross_block(grp.cross, cfg, h, positions, frontend)
-                _store(cache["cross"], g, c)
+                _write(cache["cross"], g, c, _layer_specs(specs, "cross", 1), False)
         elif cfg.family == "audio":
             enc = _encode_audio(params, cfg, frontend)
             for i, lyr in enumerate(params.layers):
                 h, c, cc = _decoder_layer(lyr, cfg, h, positions, enc)
-                for key, t in c.items():
-                    cache["self"][key][i, :, :l] = t
-                _store(cache["cross"], i, cc)
+                _write(cache["self"], i, c, _layer_specs(specs, "self", 1), True)
+                _write(cache["cross"], i, cc, _layer_specs(specs, "cross", 1), False)
         else:
             for g, blocks in params.stacks():
                 for i, blk in enumerate(blocks):
                     h, _, c = _block_seq(blk, cfg, h, positions)
-                    for key, t in c.items():
-                        cache[g][key][i, :, :l] = t
+                    _write(cache[g], i, c, _layer_specs(specs, g, 1), True)
         h = rms_norm(params.final_norm, h[:, -1:])
         logits = unembed(params.embed, h, cfg)[:, 0]
         tp = par.tp_group(params.embed, "tok")
@@ -748,45 +833,57 @@ def make_decode_step(cfg: ModelConfig):
     positions, one 2.4 GB buffer; ``repro`` returns a functional copy) and
     returned; a recurrent state is overwritten by the step's (the per-step
     forms, as ``repro`` decodes); the cross-attention's cache is only read.
-    Runs under ``torch.inference_mode``."""
+    Runs under ``torch.inference_mode``. On a mesh, ``token`` is the rank's
+    rows and ``cache`` its blocks, split as the cache specs the caller gave
+    ``par.on_mesh`` (``ServingEngine(mesh=)``); the logits come back whole
+    over the vocab."""
 
     @torch.inference_mode()
     def decode(params: Transformer, token: torch.Tensor, cache: dict, pos: int):
-        par.refuse("cached decode")
+        specs = _specs_for()
+        pos = int(pos)
         h = embed_tokens(params.embed, token[:, None])
-        layer = lambda tree, *i: {k: t[i] for k, t in tree.items()}
         if cfg.family == "ssm":
+            ls = _layer_specs(specs, "layers", 1)
             for i, blk in enumerate(params.layers):
-                h, st = rwkv6.apply_rwkv6_block(blk, cfg, h, layer(cache["layers"], i),
+                h, st = rwkv6.apply_rwkv6_block(blk, cfg, h, _slot(cache["layers"], i),
                                                 chunked=False)
-                _store(cache["layers"], i, st)
+                _write(cache["layers"], i, st, ls, False)
         elif cfg.family == "hybrid":
+            ls, ss = _layer_specs(specs, "mamba", 1), _layer_specs(specs, "shared", 1)
             for idx, g in _hybrid_groups(cfg):
                 for i in idx:
                     h, st = mamba2.apply_mamba2_block(params.layers[i], cfg, h,
-                                                      layer(cache["mamba"], i), chunked=False)
-                    _store(cache["mamba"], i, st)
+                                                      _slot(cache["mamba"], i), chunked=False)
+                    _write(cache["mamba"], i, st, ls, False)
                 if g is not None:
-                    h = _block_decode(params.shared_attn, cfg, h, layer(cache["shared"], g),
-                                      int(pos))
+                    h = _block_decode(params.shared_attn, cfg, h, _slot(cache["shared"], g),
+                                      pos, ss)
         elif cfg.family == "vlm":
+            ss, cs = _layer_specs(specs, "self", 2), _layer_specs(specs, "cross", 1)
             for g, grp in enumerate(params.groups):
                 for i, blk in enumerate(grp.self):
-                    h = _block_decode(blk, cfg, h, layer(cache["self"], g, i), int(pos))
+                    h = _block_decode(blk, cfg, h, _slot(cache["self"], g, i), pos, ss)
                 p = grp.cross
-                h = h + attn.apply_cross_attention_decode(p.attn, cfg, rms_norm(p.ln1, h),
-                                                          layer(cache["cross"], g))
+                h = h + attn.apply_cross_attention_decode(
+                    p.attn, cfg, rms_norm(p.ln1, h), _slot(cache["cross"], g),
+                    None if cs is None else cs["k"])
                 h = h + apply_mlp(p.mlp, rms_norm(p.ln2, h))
         elif cfg.family == "audio":
+            ss, cs = _layer_specs(specs, "self", 1), _layer_specs(specs, "cross", 1)
             for i, lyr in enumerate(params.layers):
-                h = _block_decode(lyr, cfg, h, layer(cache["self"], i), int(pos))
-                h = h + attn.apply_cross_attention_decode(lyr.cross, cfg, rms_norm(lyr.ln_x, h),
-                                                          layer(cache["cross"], i))
+                h = _block_decode(lyr, cfg, h, _slot(cache["self"], i), pos, ss)
+                h = h + attn.apply_cross_attention_decode(
+                    lyr.cross, cfg, rms_norm(lyr.ln_x, h), _slot(cache["cross"], i),
+                    None if cs is None else cs["k"])
         else:
             for g, blocks in params.stacks():
+                ls = _layer_specs(specs, g, 1)
                 for i, blk in enumerate(blocks):
-                    h = _block_decode(blk, cfg, h, layer(cache[g], i), int(pos))
+                    h = _block_decode(blk, cfg, h, _slot(cache[g], i), pos, ls)
         h = rms_norm(params.final_norm, h)
-        return unembed(params.embed, h, cfg)[:, 0], cache
+        logits = unembed(params.embed, h, cfg)[:, 0]
+        tp = par.tp_group(params.embed, "tok")
+        return (logits if tp is None else par.gather_vocab(logits, tp)), cache
 
     return decode

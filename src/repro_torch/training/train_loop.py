@@ -15,9 +15,10 @@ port writes out:
 
   * the model axis: tensor parallelism where the specs split it (attention
     heads, MLP ``d_ff``, the experts, the vocab of the embedding and the
-    logits; ``models.parallel``); parameters whose module does not compute
-    on blocks (rwkv6's time- and channel-mix projections) are gathered
-    whole on use, their gradients this rank's slice;
+    logits, rwkv6's time- and channel-mix projections;
+    ``models.parallel``); a model-split parameter whose module does not
+    compute on blocks would be gathered whole on use, its gradient this
+    rank's slice (every module the specs split computes on blocks now);
   * the data axis (``cfg.fsdp``): dims that ``ShardCtx.data`` splits are
     all-gathered before use, their gradients reduce-scattered (summed)
     over ``"data"``;
@@ -200,15 +201,19 @@ def _for_use(model, specs: dict, mesh, manual: bool):
 
 
 @contextlib.contextmanager
-def mesh_model(model, mesh, *, compressed: bool = False):
+def mesh_model(model, mesh, *, global_dp: bool, compressed: bool = False, cache_specs=None):
     """Inside, the model functions run ``model`` (a placed ``Transformer``)
     as this rank of ``mesh``: tensor-parallel where its ``placement``'s
     specs split the model axis, the rest gathered
-    (``models.parallel``); the global program over the data-parallel ranks,
-    or, ``compressed``, the one-device program on the rank's block. Yields
-    {name: the tensor gradients are taken against}."""
+    (``models.parallel``). ``global_dp``: the forward is the global program
+    over the data-parallel ranks, else the one-device program on each
+    rank's rows (the compressed mode's step; serving a batch the
+    data-parallel ranks do not split). ``compressed``: the gradients stay
+    whole over ``"data"`` (``_for_use``). ``cache_specs``: the decode
+    cache's, which prefill and decode on the mesh need.
+    Yields {name: the tensor gradients are taken against}."""
     specs = model.placement.specs
-    with par.on_mesh(model, mesh, specs, global_dp=not compressed):
+    with par.on_mesh(model, mesh, specs, global_dp=global_dp, cache_specs=cache_specs):
         used, wrt = _for_use(model, specs, mesh, compressed)
         with _swapped(model, used):
             yield wrt
@@ -287,7 +292,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None, param_specs_
 
     def grads_on_mesh(model, micro: list):
         def run(mb):
-            with mesh_model(model, mesh, compressed=manual) as wrt:
+            with mesh_model(model, mesh, global_dp=not manual, compressed=manual) as wrt:
                 loss = loss_fn(model, mb)
                 return loss, torch.autograd.grad(loss, list(wrt.values()))
 

@@ -1,11 +1,11 @@
-"""One rank of the port's mesh tests (the index side's and the LM training
-side's), on the CPU under gloo.
+"""One rank of the port's mesh tests (the index side's, the LM training
+side's and its serving side's), on the CPU under gloo.
 
     python -m tests.torch_dist_ranks CASE[,CASE...] --rank R --world W \\
         --shape 2,2,2 --axes pod,data,model --store FILE --dir DIR
 
-``tests/test_torch_distributed.py`` and ``tests/test_torch_lm_mesh.py``
-spawn one process per rank (repo root as the working directory, ``src`` on
+``tests/test_torch_distributed.py``, ``tests/test_torch_lm_mesh.py`` and
+``tests/test_torch_lm_serve_mesh.py`` spawn one process per rank (repo root as the working directory, ``src`` on
 ``PYTHONPATH``); each reads
 ``DIR/inputs.npz``, which the test wrote from repro's arrays, runs the cases
 in order (``CASE:ARG`` passes ARG) and writes ``DIR/rank{R}.npz``. Imports torch and repro_torch
@@ -16,6 +16,7 @@ instead of hanging.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import pathlib
 import sys
@@ -396,6 +397,63 @@ def case_lmstep(mesh, inp, out, name: str, compressed: str = "") -> None:
     _STATES[tag] = state
 
 
+@contextlib.contextmanager
+def float64_compute():
+    """Inside, the port's model functions compute in float64: ``dtype_of``
+    gives float64, new tensors default to it, and ``Tensor.float()`` (the
+    model's upcast of bf16 for its float32 arithmetic) keeps a float64
+    tensor as it is."""
+    mods = [m for n, m in list(sys.modules.items())
+            if n.startswith("repro_torch") and hasattr(m, "dtype_of")]
+    saved = [(m, m.dtype_of) for m in mods]
+    as_float, default = torch.Tensor.float, torch.get_default_dtype()
+    torch.Tensor.float = lambda t, *a, **k: t if t.dtype == torch.float64 else as_float(t, *a, **k)
+    torch.set_default_dtype(torch.float64)
+    for m in mods:
+        m.dtype_of = lambda cfg: torch.float64
+    try:
+        yield
+    finally:
+        torch.Tensor.float = as_float
+        torch.set_default_dtype(default)
+        for m, fn in saved:
+            m.dtype_of = fn
+
+
+def case_lmstep64(mesh, inp, out, name: str) -> None:
+    """One mesh step of case ``name`` and the one-device step, both in
+    float64 from repro's parameters on the first batch; (rank 0) the
+    largest |difference| of the first moment, relative to each leaf's
+    largest, over the leaves."""
+    from repro_torch.convert import model_params_from_numpy
+    from repro_torch.launch.sharding import gather_state, place_state
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.train_loop import TrainConfig, make_train_step, mesh_sharding
+
+    cfg, mb = lm_config(name)
+    tcfg = TrainConfig(opt=opt.OptConfig(**LM_OPT), microbatches=mb)
+    with float64_compute():
+        def state():
+            model = model_params_from_numpy(cfg, unflatten_tree(inp, f"{name}_params"), "cpu")
+            for p in model.parameters():
+                p.data = p.data.double()
+            o = opt.init_opt_state(dict(model.named_parameters()), tcfg.opt)
+            for k in ("m", "v"):
+                o[k] = {n: t.double() for n, t in o[k].items()}
+            return {"params": model, "opt": o}
+
+        one, _ = make_train_step(cfg, tcfg)(state(), lm_batch(inp, name, 0))
+        sh = mesh_sharding(cfg, mesh)
+        st, _ = make_train_step(cfg, tcfg, mesh, sh.specs)(place_state(state(), sh),
+                                                           lm_batch(inp, name, 0))
+        whole = gather_state({"params": st["params"], "opt": st["opt"]},
+                             st["params"].placement.tree_specs(), mesh)
+    if dist.get_rank() == 0:
+        gaps = [float((whole["opt"]["m"][k] - w).abs().max() / w.abs().max().clamp_min(1e-300))
+                for k, w in one["opt"]["m"].items()]
+        out[f"{name}_m64_gap"] = np.asarray(max(gaps))
+
+
 def save_block_grads(mesh, state, step, batch, prefix: str, out: dict) -> None:
     """The compressed mode's gradients of this data-parallel rank's block
     before the mean, and its loss (see ``save_dp_blocks``)."""
@@ -453,7 +511,7 @@ def whole_logits(mesh, cfg, state, tokens):
     from repro_torch.models import transformer as tfm
     from repro_torch.training.train_loop import mesh_model
 
-    with torch.no_grad(), mesh_model(state["params"], mesh):
+    with torch.no_grad(), mesh_model(state["params"], mesh, global_dp=True):
         logits, aux, _ = tfm.make_forward(cfg)(state["params"], dp_block(tokens, mesh))
         tp = par.tp_group(state["params"].embed, "tok")
         logits = logits if tp is None else par.gather_vocab(logits, tp)
@@ -551,9 +609,8 @@ def case_lm_refusals(mesh, inp, out) -> None:
     """What must raise on the LM side: a mesh of another world size, a
     spec'd dim its axis does not divide, a tensor of another device type, a
     mesh that is not a DeviceMesh, a state not placed on the mesh, ep_manual
-    and the compressed mean off a mesh, and on the mesh a prefill whose KV
-    cache the model axis splits by heads and a cached decode (both the
-    serving half's)."""
+    and the compressed mean off a mesh, and on the mesh a cached decode
+    given no cache specs (``ServingEngine(mesh=)`` gives them)."""
     from repro_torch.launch.sharding import shard_state
     from repro_torch.models import transformer as tfm
     from repro_torch.models.moe import apply_moe_ep
@@ -569,7 +626,7 @@ def case_lm_refusals(mesh, inp, out) -> None:
     tokens = {"tokens": torch.zeros((LM_BATCH, 4), dtype=torch.int32)}
 
     def on_mesh(fn):
-        with mesh_model(placed["params"], mesh):
+        with mesh_model(placed["params"], mesh, global_dp=True):
             fn()
 
     cache = {g: tfm._zero_state(spec, "cpu") for g, spec in tfm.cache_shape(cfg, 2, 8).items()}
@@ -582,7 +639,6 @@ def case_lm_refusals(mesh, inp, out) -> None:
         lambda: make_train_step(cfg, tcfg, mesh)(one, tokens),
         lambda: apply_moe_ep(None, ep_config(False), torch.zeros(1, 2, 4)),
         lambda: compressed_psum_mean({"w": torch.zeros(2)}, ("data",)),
-        lambda: on_mesh(lambda: tfm.make_prefill(cfg, 8)(placed["params"], tokens["tokens"][:2])),
         lambda: on_mesh(lambda: tfm.make_decode_step(cfg)(
             placed["params"], torch.zeros(2, dtype=torch.int32), cache, 0)),
     ]
@@ -598,12 +654,85 @@ def case_lm_refusals(mesh, inp, out) -> None:
     out["lm_refusals"] = np.asarray(raised)
 
 
+# -- the LM's serving side ------------------------------------------------------
+
+SERVE_CASES = {  # name: (arch, smoke-config overrides at fp32, batch, prompt, new tokens, max_len)
+    "llama": ("llama3.2-1b", {}, 8, 6, 4, 16),
+    "llama_odd": ("llama3.2-1b", {}, 6, 6, 4, 16),  # rows the data-parallel axes do not divide
+    "llama_rep": ("llama3.2-1b", {}, 4, 6, 4, 18),  # 18 positions: no split of the KV cache
+    "edge": ("llama3.2-1b", {}, 4, 2, 9, 16),  # decode at 2..9: inside, on and past the blocks
+    "dsv3": ("deepseek-v3-671b", {}, 8, 6, 4, 16),
+    "dsv3_lat": ("deepseek-v3-671b", {}, 4, 6, 4, 18),  # the latent split over its last dim
+    "dsv3_ep": ("deepseek-v3-671b", {"moe_impl": "ep_manual", "capacity_factor": 8.0}, 8, 6, 4,
+                16),
+    "rwkv": ("rwkv6-7b", {}, 8, 16, 4, 32),  # 16 positions: the chunked prefill
+    "rwkv_hd64": ("rwkv6-7b", {"ssm_head_dim": 64}, 4, 6, 4, 16),  # 2 heads: columns off heads
+    "zamba": ("zamba2-1.2b", {}, 8, 16, 4, 32),
+    "vlm": ("llama-3.2-vision-90b", {}, 8, 6, 4, 16),
+    "whisper": ("whisper-large-v3", {}, 8, 6, 4, 16),
+    "whisper_kv2": ("whisper-large-v3", {"n_kv_heads": 2}, 4, 6, 4, 16),
+}
+
+
+def serve_config(name: str):
+    from repro_torch.configs import get_smoke_config
+
+    arch, kw, b, lp, n, max_len = SERVE_CASES[name]
+    return dataclasses.replace(get_smoke_config(arch), dtype="float32", **kw), b, lp, n, max_len
+
+
+def case_serve_lm(mesh, inp, out, name: str) -> None:
+    """``ServingEngine(mesh=)`` on case ``name`` from repro's parameters and
+    prompts: the tokens, the whole logits every step sampled from, and this
+    rank's blocks of the cache after prefill (and their shapes' placement
+    by ``cache_shardings``; gathered whole and cut again, the same blocks)."""
+    from repro_torch.convert import model_params_from_numpy
+    from repro_torch.launch.sharding import gather_cache, place_model, shard_cache
+    from repro_torch.serving.engine import ServeConfig, ServingEngine, cache_shardings
+    from repro_torch.training.train_loop import mesh_sharding
+
+    cfg, b, lp, n, max_len = serve_config(name)
+    model = place_model(model_params_from_numpy(cfg, unflatten_tree(inp, f"serve_{name}_params"),
+                                                "cpu"), mesh_sharding(cfg, mesh))
+    eng = ServingEngine(cfg, model, ServeConfig(max_len=max_len, batch=b), mesh=mesh)
+    seen, sample, prefill = [], eng._sample, eng._prefill
+
+    def record(logits, generator):
+        seen.append(logits.clone())
+        return sample(logits, generator)
+
+    shards = cache_shardings(cfg, mesh, b, max_len)
+
+    def caught(*args):
+        logits, cache = prefill(*args)
+        flatten_tree({g: {k: t.clone() for k, t in tree.items()} for g, tree in cache.items()},
+                     f"serve_{name}_cache", out)
+        back = shard_cache(gather_cache(cache, shards), shards)
+        out[f"serve_{name}_roundtrip"] = np.asarray(all(
+            torch.equal(back[g][k], t) for g, tree in cache.items() for k, t in tree.items()))
+        return logits, cache
+
+    eng._sample, eng._prefill = record, caught
+    fe = inp.get(f"serve_{name}_frontend")
+    toks = eng.generate(torch.as_tensor(inp[f"serve_{name}_prompts"]), n,
+                        frontend=None if fe is None else torch.as_tensor(fe))
+    out[f"serve_{name}_tokens"] = toks.numpy()
+    out[f"serve_{name}_logits"] = torch.stack(seen).numpy()
+    from repro_torch.models.transformer import cache_shape
+
+    for g, tree in cache_shape(cfg, b, max_len).items():
+        for k, spec in tree.items():
+            out[f"serve_{name}_shard/{g}/{k}"] = np.asarray(shards[g][k].shard_shape(spec.shape))
+
+
 CASES = {"helpers": case_helpers, "search": case_search, "build": case_build,
          "descent": case_descent, "placement": case_placement, "serve": case_serve,
          "router": case_router, "ingest": case_ingest, "refusals": case_refusals,
-         "orphan": case_orphan, "lmstep": case_lmstep, "cmp": case_cmp, "ep": case_ep,
+         "orphan": case_orphan, "lmstep": case_lmstep, "lmstep64": case_lmstep64,
+         "cmp": case_cmp, "ep": case_ep,
          "ckpt_save": case_ckpt_save, "ckpt_restore": case_ckpt_restore,
-         "roundtrip": case_roundtrip, "lm_refusals": case_lm_refusals}
+         "roundtrip": case_roundtrip, "lm_refusals": case_lm_refusals,
+         "serve_lm": case_serve_lm}
 
 
 def main(argv=None) -> int:
