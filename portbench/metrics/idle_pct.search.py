@@ -1,0 +1,8 @@
+"""Share of a traced stretch of search calls in which no device operation
+ran."""
+
+from portbench.trace import idle_pct
+
+
+def read(record):
+    return idle_pct(record)
