@@ -48,7 +48,7 @@ Phases (each prints its own lines; any failure exits nonzero):
      twin, each served through HybridSearchService (default ServiceConfig)
      under three-path, RRF and keyword-constrained specs: QPS, p50/p99
      request latency, recall@10 against brute force over all 2^20 docs,
-     nDCG@10, the index-bytes gauges, compiles, and the launches of every
+     nDCG@10, the index-bytes gauges, new shape keys, and the launches of every
      kernel variant while each pool served (each pool must run its own
      variants and not the other's); then int8 storage against fp32 apart
      from the graph: brute-force top-10 overlap and the score gap against
@@ -1662,9 +1662,11 @@ def phase_serving(corpus_bundle, results: dict, device: str = "cuda", keep=None)
                 f"{lat.quantile(0.99) * 1e3:.2f} ms vector recall@10 {rec:.4f} nDCG@10 {nd:.4f}")
         launches[dtype] = {k: w.launches for k, w in wrappers.items()}  # read just after
         buckets = svc.metrics.get("allanpoe_serving_batches_total").values()
-        need(svc.stats.compiles == len(buckets),
-             f"phase 5 {dtype}: {svc.stats.compiles} compiles for {len(buckets)} bucket shapes")
-        say(f"phase 5 {dtype} index bytes: {json.dumps(gauges)}; compiles {svc.stats.compiles} "
+        need(svc.stats.new_shape_keys == len(buckets),
+             f"phase 5 {dtype}: {svc.stats.new_shape_keys} new shape keys for {len(buckets)} "
+             "bucket shapes")
+        say(f"phase 5 {dtype} index bytes: {json.dumps(gauges)}; new shape keys "
+            f"{svc.stats.new_shape_keys} "
             f"for bucket shapes {sorted(b[0] for b in buckets)} over "
             f"{svc.stats.batches} batches")
         # 64 queries through the plain versions: the same ids up to ties
@@ -1901,7 +1903,7 @@ def phase_mesh(corpus_bundle, served: dict, results: dict, card: str = "not a ca
                         f"({card}); ids {'equal' if same else 'DIFFER'}")
                     need(same, f"phase 13 (b) {dtype} {name}: ids differ from phase 5's")
                 say(f"phase 13 (b) {dtype}: {svc.stats.batches} batches, "
-                    f"{svc.stats.compiles} compiles")
+                    f"{svc.stats.new_shape_keys} new shape keys")
 
         # ---- (c) the sharded build against the sequential one --------------
         docs = c.docs[0:MESH_BUILD_DOCS]

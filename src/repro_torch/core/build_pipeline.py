@@ -22,17 +22,27 @@ back-link pass that gives old nodes edges to them.
 Random draws: torch cannot reproduce ``jax.random``, so the builder takes a
 ``torch.Generator`` and, optionally, precomputed draws (``BuildDraws``), which
 lets a test feed in the draws ``repro`` made.
+
+Under an active ``obs.tracing`` context a build records the spans ``build``
+> ``build.descent`` (> ``build.descent.init``, ``build.descent.round`` per
+round), ``build.refinement`` (> ``build.refinement.path`` per path, each >
+``build.refinement.init`` and ``.round``), ``build.prune`` (>
+``build.prune.self_scores``, ``build.prune.chunk`` per node chunk),
+``build.entry_points`` and ``build.logical_edges`` (DESIGN.md §12).
+``build_index(report=...)`` reads its ``stage_seconds`` from those stage
+spans, under a context of its own when none is active.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-import time
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import knn_graph, pruning
 from repro_torch.core.fusion import FusionSpec
 from repro_torch.core.index import BuildConfig, HybridIndex
@@ -103,20 +113,22 @@ def _on(t: torch.Tensor, device) -> torch.Tensor:
 
 
 def _descent_init(
-    corpus: FusedVectors, weights: PathWeights | None, nbr_ids: torch.Tensor, cfg: KnnConfig
+    corpus: FusedVectors, weights: PathWeights | None, nbr_ids: torch.Tensor, cfg: KnnConfig,
+    stage: str = "build.descent",
 ):
     """Score and sort the initial rows (k == row width: the fused top-k is
-    the sort), chunk by chunk."""
+    the sort), chunk by chunk; span ``<stage>.init``."""
     k = cfg.k
     ids_out, sc_out = [], []
-    for s, e in _chunks(corpus.n, cfg.node_chunk):
-        top, pos = ops.fused_topk_vs_ids(
-            _rows(corpus, s, e, weights), corpus, nbr_ids[s:e], k, use_kernel=cfg.use_kernel
-        )
-        ids = ops.take_topk_ids(nbr_ids[s:e], pos)
-        ids_out.append(ids)
-        sc_out.append(torch.where(ids >= 0, top, torch.full_like(top, float("-inf"))))
-    return torch.cat(ids_out), torch.cat(sc_out)
+    with obs.span(stage + ".init"):
+        for s, e in _chunks(corpus.n, cfg.node_chunk):
+            top, pos = ops.fused_topk_vs_ids(
+                _rows(corpus, s, e, weights), corpus, nbr_ids[s:e], k, use_kernel=cfg.use_kernel
+            )
+            ids = ops.take_topk_ids(nbr_ids[s:e], pos)
+            ids_out.append(ids)
+            sc_out.append(torch.where(ids >= 0, top, torch.full_like(top, float("-inf"))))
+        return torch.cat(ids_out), torch.cat(sc_out)
 
 
 def _descent_rounds(
@@ -126,21 +138,25 @@ def _descent_rounds(
     nbr_scores: torch.Tensor,
     cfg: KnnConfig,
     rand_rounds: Sequence[torch.Tensor],
+    stage: str = "build.descent",
 ):
     """One NN-Descent round per table in ``rand_rounds``; each streams node
-    chunks against the round-start neighbor table."""
+    chunks against the round-start neighbor table. Span ``<stage>.round``
+    per round."""
     n = corpus.n
     node_ids = torch.arange(n, dtype=torch.int32, device=nbr_ids.device)
-    for rand_ids in rand_rounds:
-        ids_out, sc_out = [], []
-        for s, e in _chunks(n, cfg.node_chunk):
-            ids_c, sc_c = knn_graph._descent_round_chunk(
-                corpus, nbr_ids, _rows(corpus, s, e, weights), node_ids[s:e],
-                nbr_ids[s:e], nbr_scores[s:e], rand_ids[s:e], cfg,
-            )
-            ids_out.append(ids_c)
-            sc_out.append(sc_c)
-        nbr_ids, nbr_scores = torch.cat(ids_out), torch.cat(sc_out)
+    round_span = stage + ".round"
+    for r, rand_ids in enumerate(rand_rounds):
+        with obs.span(round_span, i=r):
+            ids_out, sc_out = [], []
+            for s, e in _chunks(n, cfg.node_chunk):
+                ids_c, sc_c = knn_graph._descent_round_chunk(
+                    corpus, nbr_ids, _rows(corpus, s, e, weights), node_ids[s:e],
+                    nbr_ids[s:e], nbr_scores[s:e], rand_ids[s:e], cfg,
+                )
+                ids_out.append(ids_c)
+                sc_out.append(sc_c)
+            nbr_ids, nbr_scores = torch.cat(ids_out), torch.cat(sc_out)
     return nbr_ids, nbr_scores
 
 
@@ -195,18 +211,19 @@ def _path_refinement(
     pcfg = dataclasses.replace(cfg.knn, iters=cfg.path_refine_iters, k=max(pk, 12))
     per_path = []
     for p, w in enumerate(SINGLE_PATH_WEIGHTS):
-        nbr = knn_ids[:, : pcfg.k]
-        if nbr.shape[1] < pcfg.k:  # knn.k < 12: widen with random ids
-            extra = knn_graph._init_graph(n, pcfg.k - nbr.shape[1], generator, dev)
-            nbr = torch.cat([nbr, extra], dim=1)
-        if draws.path_rounds is not None:
-            rounds = [_on(r, dev) for r in draws.path_rounds[p]]
-        else:
-            rounds = [_randint(n, (n, pcfg.extra_random), generator, dev)
-                      for _ in range(pcfg.iters)]
-        ids, scores = _descent_init(corpus, w, nbr.contiguous(), pcfg)
-        ids, _ = _descent_rounds(corpus, w, ids, scores, pcfg, rounds)
-        per_path.append(ids[:, :pk])
+        with obs.span("build.refinement.path", path=p):
+            nbr = knn_ids[:, : pcfg.k]
+            if nbr.shape[1] < pcfg.k:  # knn.k < 12: widen with random ids
+                extra = knn_graph._init_graph(n, pcfg.k - nbr.shape[1], generator, dev)
+                nbr = torch.cat([nbr, extra], dim=1)
+            if draws.path_rounds is not None:
+                rounds = [_on(r, dev) for r in draws.path_rounds[p]]
+            else:
+                rounds = [_randint(n, (n, pcfg.extra_random), generator, dev)
+                          for _ in range(pcfg.iters)]
+            ids, scores = _descent_init(corpus, w, nbr.contiguous(), pcfg, "build.refinement")
+            ids, _ = _descent_rounds(corpus, w, ids, scores, pcfg, rounds, "build.refinement")
+            per_path.append(ids[:, :pk])
     return torch.stack(per_path, dim=1)
 
 
@@ -245,22 +262,14 @@ def _entry_points(
 # ---------------------------------------------------------------------------
 
 
-class _Stages:
-    """Seconds per build stage, read on the host after a device sync (only
-    when the caller asks for them)."""
-
-    def __init__(self, out: dict | None, device):
-        self.out, self.device = out, device
-        self.t = time.perf_counter() if out is not None else 0.0
-
-    def mark(self, name: str) -> None:
-        if self.out is None:
-            return
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        now = time.perf_counter()
-        self.out[name] = now - self.t
-        self.t = now
+@contextlib.contextmanager
+def _stage(name: str, sync_on):
+    """One build stage as a span, ended by a sync of ``sync_on`` (a CUDA
+    device, or None for no sync) so that the span holds its device work."""
+    with obs.span(name):
+        yield
+        if sync_on is not None:
+            torch.cuda.synchronize(sync_on)
 
 
 def build_graph(
@@ -269,27 +278,29 @@ def build_graph(
     generator: torch.Generator,
     *,
     draws: BuildDraws | None = None,
-    stage_seconds: dict | None = None,
+    sync_stages: bool = False,
 ) -> GraphArrays:
     """All graph stages (Algorithm 1 steps 1-3 + entry points): one
-    dispatch, ``corpus.n`` build rows."""
+    dispatch, ``corpus.n`` build rows. ``sync_stages`` ends each stage with
+    a device sync, so its span's seconds hold its device work."""
     dispatch.tick()
     dispatch.build_rows_tick(corpus.n)
     draws = draws or BuildDraws()
-    clock = _Stages(stage_seconds, corpus.device)
-    knn_ids, knn_scores = _nn_descent(
-        corpus, cfg.knn, generator, init_graph=draws.init_graph, rounds=draws.rounds
-    )
-    clock.mark("descent")
+    sync_on = corpus.device if sync_stages and corpus.device.type == "cuda" else None
+    with _stage("build.descent", sync_on):
+        knn_ids, knn_scores = _nn_descent(
+            corpus, cfg.knn, generator, init_graph=draws.init_graph, rounds=draws.rounds
+        )
     path_ids = None
-    if cfg.path_refine_iters > 0:
-        path_ids = _path_refinement(corpus, knn_ids, cfg, _graph_pk(cfg), generator, draws)
-    clock.mark("refinement")
-    cself = pruning.self_scores(corpus, use_kernel=cfg.prune.use_kernel)
-    sem, kw = pruning.prune_all(corpus, knn_ids, knn_scores, cself, path_ids, cfg.prune)
-    clock.mark("prune")
-    entries = _entry_points(corpus, cself, min(cfg.n_entry, corpus.n), cfg.prune.use_kernel)
-    clock.mark("entry_points")
+    with _stage("build.refinement", sync_on):
+        if cfg.path_refine_iters > 0:
+            path_ids = _path_refinement(corpus, knn_ids, cfg, _graph_pk(cfg), generator, draws)
+    with _stage("build.prune", sync_on):
+        with obs.span("build.prune.self_scores"):
+            cself = pruning.self_scores(corpus, use_kernel=cfg.prune.use_kernel)
+        sem, kw = pruning.prune_all(corpus, knn_ids, knn_scores, cself, path_ids, cfg.prune)
+    with _stage("build.entry_points", sync_on):
+        entries = _entry_points(corpus, cself, min(cfg.n_entry, corpus.n), cfg.prune.use_kernel)
     return GraphArrays(knn_ids, knn_scores, sem, kw, entries, cself)
 
 
@@ -308,29 +319,32 @@ def build_index(
     """Full construction (Algorithm 1) on ``device`` (``None`` -> CUDA;
     raises when CUDA is absent). ``generator`` defaults to seed 0 on the
     device. ``report`` (a dict), when given, receives ``stage_seconds``
-    (seconds per stage, each ended by a device sync) and ``knn_ids`` (the
-    NN-Descent graph the edges were pruned from)."""
+    (the seconds of each stage span, each graph stage ended by a device
+    sync) and ``knn_ids`` (the NN-Descent graph the edges were pruned
+    from)."""
     dev = resolve_device(device)
     corpus = corpus.to(dev)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
-    stage_seconds = None if report is None else report.setdefault("stage_seconds", {})
-    g = build_graph(corpus, cfg, generator, draws=draws, stage_seconds=stage_seconds)
-    if report is not None:
-        report["knn_ids"] = g.knn_ids
     n = corpus.n
-
-    # Step 4: logical edges (host-side numpy)
-    t0 = time.perf_counter()
-    if kg_triplets is not None and doc_entities is not None and n_entities > 0:
-        log = build_logical_edges(
-            kg_triplets, np.asarray(doc_entities), n_entities,
-            l_cap=cfg.logical_cap, m_cap=cfg.entity_doc_cap,
-        )
-    else:
-        log = LogicalEdges.empty(n)
-    if stage_seconds is not None:
-        stage_seconds["logical_edges"] = time.perf_counter() - t0
+    # the stage seconds are the stage spans': with no context active, the
+    # build records them into one of its own
+    own = obs.TraceContext("build") if report is not None and obs.active() is None else None
+    with obs.tracing(own), obs.span("build", n=n) as span:
+        g = build_graph(corpus, cfg, generator, draws=draws, sync_stages=report is not None)
+        # Step 4: logical edges (host-side numpy)
+        with obs.span("build.logical_edges"):
+            if kg_triplets is not None and doc_entities is not None and n_entities > 0:
+                log = build_logical_edges(
+                    kg_triplets, np.asarray(doc_entities), n_entities,
+                    l_cap=cfg.logical_cap, m_cap=cfg.entity_doc_cap,
+                )
+            else:
+                log = LogicalEdges.empty(n)
+    if report is not None:
+        report["stage_seconds"] = {c.name.removeprefix("build."): c.duration
+                                   for c in span.children}
+        report["knn_ids"] = g.knn_ids
 
     t = lambda a: torch.as_tensor(a).to(dev)
     return HybridIndex(

@@ -17,6 +17,7 @@ import dataclasses
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.knn_graph import reverse_neighbors
 from repro_torch.core.usms import PAD_IDX, FusedVectors, PathWeights, weighted_query
 from repro_torch.kernels import ops
@@ -233,16 +234,17 @@ def prune_all(
     cfg: PruneConfig,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """RNG-IP pruning over node chunks, given the self scores (the build
-    pipeline's stages 2-3)."""
+    pipeline's stages 2-3); span ``build.prune.chunk`` per chunk."""
     n = corpus.n
     rev = reverse_neighbors(knn_ids, max(cfg.degree // 4, 1))
     node_ids = torch.arange(n, dtype=torch.int32, device=knn_ids.device)
     sems, kws = [], []
     for s in range(0, n, cfg.node_chunk):
         e = min(s + cfg.node_chunk, n)
-        sem, kw, _ = _prune_chunk(corpus, corpus[s:e], node_ids[s:e], knn_ids[s:e],
-                                  knn_scores[s:e], cself, rev[s:e],
-                                  None if path_ids is None else path_ids[s:e], cfg)
+        with obs.span("build.prune.chunk", start=s):
+            sem, kw, _ = _prune_chunk(corpus, corpus[s:e], node_ids[s:e], knn_ids[s:e],
+                                      knn_scores[s:e], cself, rev[s:e],
+                                      None if path_ids is None else path_ids[s:e], cfg)
         sems.append(sem)
         kws.append(kw)
     return torch.cat(sems), torch.cat(kws)

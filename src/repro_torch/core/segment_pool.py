@@ -26,6 +26,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch import obs
 from repro_torch.core.build_pipeline import BuildDraws, build_index, pad_index_rows
 from repro_torch.core.distributed import (
     SegmentedIndex,
@@ -193,7 +194,8 @@ def build_pool_segment(
     single-segment stacked index (leaves (1, ...)) padded to ``capacity``
     with dead rows, carrying the caller's global ids. The build is always
     fp32; ``corpus_dtype="int8"`` quantizes the stored corpus afterwards
-    (the seal-time contract)."""
+    (the seal-time contract). Spans ``seal`` > ``build`` (``build_index``'s)
+    and ``seal.pad_quantize`` under an active ``obs.tracing`` context."""
     global_ids = np.asarray(global_ids, np.int32)
     n = corpus.n
     if n == 0:
@@ -209,21 +211,24 @@ def build_pool_segment(
     if kg_triplets is not None and doc_entities is not None and n_entities > 0:
         kg_kwargs = dict(kg_triplets=kg_triplets, doc_entities=doc_entities,
                          n_entities=n_entities)
-    idx = build_index(corpus, cfg, generator=generator, draws=draws, device=device, **kg_kwargs)
-    idx = pad_index_rows(idx, capacity)
-    # entry points are built at min(cfg.n_entry, n): cycle them to the
-    # capacity-determined length so equal-capacity segments stack
-    n_entry = min(cfg.n_entry, capacity)
-    ep = idx.entry_points
-    if ep.shape[0] < n_entry:
-        reps = -(-n_entry // ep.shape[0])
-        idx = dataclasses.replace(idx, entry_points=ep.repeat(reps)[:n_entry])
-    if corpus_dtype == "int8":
-        idx = dataclasses.replace(idx, corpus=quantize_corpus(idx.corpus))
-    gids = np.full((capacity,), PAD_IDX, np.int32)
-    gids[:n] = global_ids
-    seg = SegmentedIndex(idx, torch.as_tensor(gids, device=idx.alive.device))
-    return seg.map(lambda t: t[None])
+    with obs.span("seal", n=n, capacity=capacity, corpus_dtype=corpus_dtype):
+        idx = build_index(corpus, cfg, generator=generator, draws=draws, device=device,
+                          **kg_kwargs)
+        with obs.span("seal.pad_quantize"):
+            idx = pad_index_rows(idx, capacity)
+            # entry points are built at min(cfg.n_entry, n): cycle them to the
+            # capacity-determined length so equal-capacity segments stack
+            n_entry = min(cfg.n_entry, capacity)
+            ep = idx.entry_points
+            if ep.shape[0] < n_entry:
+                reps = -(-n_entry // ep.shape[0])
+                idx = dataclasses.replace(idx, entry_points=ep.repeat(reps)[:n_entry])
+            if corpus_dtype == "int8":
+                idx = dataclasses.replace(idx, corpus=quantize_corpus(idx.corpus))
+            gids = np.full((capacity,), PAD_IDX, np.int32)
+            gids[:n] = global_ids
+            seg = SegmentedIndex(idx, torch.as_tensor(gids, device=idx.alive.device))
+            return seg.map(lambda t: t[None])
 
 
 def append_segment(pool: SegmentPool, segment: SegmentedIndex) -> tuple[SegmentPool, int]:

@@ -1,9 +1,10 @@
-"""Observability for the serving stack: per-query span trees (``tracer``),
-a lock-protected metrics registry with streaming histograms (``metrics``),
-and Prometheus/JSON/Chrome-trace exposition (``export``). Dependency-free
-by design (stdlib only) — it imports nothing from the rest of the package,
-so every layer can instrument itself without cycles. The port's own copy of
-``repro/obs``; naming and span taxonomy: DESIGN.md §12.
+"""Observability for the serving stack and the core: per-query span trees
+and the active context the core's spans and counters record into
+(``tracer``), a lock-protected metrics registry with streaming histograms
+(``metrics``), and Prometheus/JSON/Chrome-trace exposition (``export``).
+Dependency-free by design (stdlib only) — it imports nothing from the rest
+of the package, so every layer can instrument itself without cycles. The
+port's own copy of ``repro/obs``; naming and span taxonomy: DESIGN.md §12.
 """
 
 from repro_torch.obs.metrics import (
@@ -17,7 +18,7 @@ from repro_torch.obs.metrics import (
     merged_snapshot,
     time_buckets,
 )
-from repro_torch.obs.tracer import Span, TraceContext, Tracer
+from repro_torch.obs.tracer import Span, TraceContext, Tracer, active, count, span, tracing
 from repro_torch.obs.export import (
     chrome_trace,
     write_chrome_trace,
@@ -37,6 +38,10 @@ __all__ = [
     "Span",
     "TraceContext",
     "Tracer",
+    "active",
+    "count",
+    "span",
+    "tracing",
     "chrome_trace",
     "write_chrome_trace",
     "write_metrics_snapshot",

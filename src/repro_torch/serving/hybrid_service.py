@@ -10,10 +10,10 @@
   * every bucket is keyed on ``(index shape key, bucket, SearchParams)``.
     ``repro`` AOT-compiles an XLA executable per key; PyTorch runs eagerly
     and compiles nothing, so the service only records the keys it has seen.
-    The hit/miss counter ``allanpoe_serving_executable_cache_total`` and
-    ``stats.compiles`` (the misses) keep their meaning: fusion mode and
-    weights are (B,) tensors, never part of the key, so one key serves every
-    weight mix;
+    The hit/miss counter ``allanpoe_serving_executable_cache_total`` keeps
+    its meaning, and ``stats.new_shape_keys`` counts the misses (``repro``'s
+    ``stats.compiles``): fusion mode and weights are (B,) tensors, never part
+    of the key, so one key serves every weight mix;
   * ``insert`` / ``mark_deleted`` go through a copy-on-write snapshot swap:
     the writer builds the next index off to the side and publishes it
     atomically, so in-flight batches never see a half-updated index;
@@ -113,7 +113,7 @@ from repro_torch.launch.mesh import (
 from repro_torch.obs.export import write_metrics_snapshot
 from repro_torch.obs.metrics import GLOBAL as GLOBAL_METRICS
 from repro_torch.obs.metrics import MetricsRegistry
-from repro_torch.obs.tracer import TraceContext, Tracer
+from repro_torch.obs.tracer import TraceContext, Tracer, tracing
 from repro_torch.serving.batcher import (
     AdmissionConfig,
     AdmissionController,
@@ -189,7 +189,9 @@ def _host(t: torch.Tensor) -> np.ndarray:
 class ServiceStats:
     """Thread-safe service counters backed by the metrics registry (every
     increment goes through the registry's single lock); the properties
-    report totals."""
+    report totals. ``new_shape_keys`` stands where ``repro``'s ``compiles``
+    does: eager PyTorch compiles nothing, so it counts the batches that met
+    a new (index key, bucket, params) key."""
 
     def __init__(self, metrics: MetricsRegistry):
         self._requests = metrics.counter(
@@ -200,8 +202,8 @@ class ServiceStats:
         self._batches = metrics.counter(
             "allanpoe_serving_batches_total", "batches executed", labels=("bucket",)
         )
-        self._compiles = metrics.counter(
-            "allanpoe_serving_compiles_total",
+        self._new_shape_keys = metrics.counter(
+            "allanpoe_serving_new_shape_keys_total",
             "first batches per index key x bucket x params (repro's compiles)",
         )
         self._padded_slots = metrics.counter(
@@ -222,8 +224,11 @@ class ServiceStats:
         return int(self._batches.total())
 
     @property
-    def compiles(self) -> int:
-        return int(self._compiles.total())
+    def new_shape_keys(self) -> int:
+        """Batches that met a new (index key, bucket, params) key: what
+        ``repro``'s ``stats.compiles`` counts. Eager PyTorch compiles
+        nothing."""
+        return int(self._new_shape_keys.total())
 
     @property
     def padded_slots(self) -> int:
@@ -244,7 +249,7 @@ class ServiceStats:
     def __repr__(self) -> str:
         return (
             f"ServiceStats(requests={self.requests}, batches={self.batches}, "
-            f"compiles={self.compiles}, padded_slots={self.padded_slots}, "
+            f"new_shape_keys={self.new_shape_keys}, padded_slots={self.padded_slots}, "
             f"rejected_queue_full={self.rejected_queue_full}, "
             f"rejected_admission={self.rejected_admission})"
         )
@@ -853,7 +858,7 @@ class HybridSearchService:
     def _lookup(self, index_key: tuple, bucket: Bucket) -> bool:
         """True if the key was served before. Every lookup lands in
         ``allanpoe_serving_executable_cache_total{outcome}``; a miss counts
-        as one of ``stats.compiles``."""
+        as one of ``stats.new_shape_keys``."""
         key = (index_key, bucket, self.params)
         with self._key_lock:
             if key in self._seen_keys:
@@ -862,7 +867,7 @@ class HybridSearchService:
             self._m_exec_cache.inc(outcome="miss")
             if index_key in self._valid_index_keys(self._snap.index):
                 self._seen_keys.add(key)
-            self.stats._compiles.inc()
+            self.stats._new_shape_keys.inc()
             return False
 
     # -- request path -------------------------------------------------------
@@ -1008,37 +1013,41 @@ class HybridSearchService:
 
     def _run_batch(self, bucket: Bucket, entries) -> None:
         # batch phases are timed once and attributed to every query in the
-        # batch as spans on its TraceContext (DESIGN.md §12 span taxonomy)
+        # batch as spans on its TraceContext (DESIGN.md §12 span taxonomy);
+        # so are the core's spans of the dispatch, recorded into ``core``
         t_batch0 = time.perf_counter()
         blabel = _bucket_label(bucket)
         phases: list[tuple[str, float, float, dict]] = []
+        traced = any(e.request.trace is not None for e in entries)
+        core = TraceContext("device_dispatch") if traced else None
         try:
             snap = self._snap  # one snapshot for the whole batch
             t0 = time.perf_counter()
             args = self._assemble(bucket, entries, _index_device(snap.index))
             phases.append(("batch_assembly", t0, time.perf_counter(),
                            {"bucket": blabel, "requests": len(entries)}))
-            if isinstance(snap.index, SegmentPool):
-                ids, scores, ps, expanded = self._run_pool(snap.index, bucket, args, phases)
-            elif isinstance(snap.index, SegmentedIndex):
-                t0 = time.perf_counter()
-                hit = self._lookup(group_shape_key(snap.index), bucket)
-                t1 = time.perf_counter()
-                phases.append(("executable_lookup", t0, t1, {"hit": hit}))
-                self._m_group_dispatch.inc(group=0)
-                res = self._run_group(snap.index, args)
-                ids, scores = _host(res.ids), _host(res.scores)
-                ps, expanded = _host(res.path_scores), _host(res.expanded)
-                phases.append(("device_dispatch", t1, time.perf_counter(), {}))
-            else:
-                t0 = time.perf_counter()
-                hit = self._lookup(self._index_key(snap.index), bucket)
-                t1 = time.perf_counter()
-                phases.append(("executable_lookup", t0, t1, {"hit": hit}))
-                res = search_padded(snap.index, *args, self.params)
-                ids, scores = _host(res.ids), _host(res.scores)
-                ps, expanded = _host(res.path_scores), _host(res.expanded)
-                phases.append(("device_dispatch", t1, time.perf_counter(), {}))
+            with tracing(core):
+                if isinstance(snap.index, SegmentPool):
+                    ids, scores, ps, expanded = self._run_pool(snap.index, bucket, args, phases)
+                elif isinstance(snap.index, SegmentedIndex):
+                    t0 = time.perf_counter()
+                    hit = self._lookup(group_shape_key(snap.index), bucket)
+                    t1 = time.perf_counter()
+                    phases.append(("executable_lookup", t0, t1, {"hit": hit}))
+                    self._m_group_dispatch.inc(group=0)
+                    res = self._run_group(snap.index, args)
+                    ids, scores = _host(res.ids), _host(res.scores)
+                    ps, expanded = _host(res.path_scores), _host(res.expanded)
+                    phases.append(("device_dispatch", t1, time.perf_counter(), {}))
+                else:
+                    t0 = time.perf_counter()
+                    hit = self._lookup(self._index_key(snap.index), bucket)
+                    t1 = time.perf_counter()
+                    phases.append(("executable_lookup", t0, t1, {"hit": hit}))
+                    res = search_padded(snap.index, *args, self.params)
+                    ids, scores = _host(res.ids), _host(res.scores)
+                    ps, expanded = _host(res.path_scores), _host(res.expanded)
+                    phases.append(("device_dispatch", t1, time.perf_counter(), {}))
             if snap.grow is not None:
                 ids, scores, ps, expanded = self._merge_grow(
                     snap, args, ids, scores, ps, expanded, phases)
@@ -1059,7 +1068,9 @@ class HybridSearchService:
             if ctx is not None:
                 ctx.add_span("queue_wait", e.arrival_perf, t_batch0, bucket=blabel)
                 for name, p0, p1, attrs in phases:
-                    ctx.add_span(name, p0, p1, **attrs)
+                    span = ctx.add_span(name, p0, p1, **attrs)
+                    if name == "device_dispatch":
+                        ctx.graft(span, core)
         self._m_batch_exec.observe(t_done - t_batch0, bucket=blabel)
         self.stats._batches.inc(bucket=blabel)
         self.stats._padded_slots.inc(bucket.batch - len(entries))

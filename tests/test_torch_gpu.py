@@ -687,3 +687,85 @@ def test_text_tier_kernels_match_plain_versions(cuda):
     same = rk.ids == rp.ids
     assert same.float().mean() >= 0.95
     torch.testing.assert_close(rk.scores[same], rp.scores[same], rtol=TOL, atol=TOL)
+
+
+def test_a_program_span_contains_its_kernel_on_the_profilers_clock(cuda):
+    """A span of the program's tracer, put on CLOCK_REALTIME by its context's
+    time pair, holds the device interval of the kernel launched and
+    synchronised inside it, as ``torch.profiler`` records it: the port's
+    distance kernel, then a warm add twenty times. A kernel starts a launch
+    latency after the span opens (tens of us under the profiler), so
+    containment alone would pass a pair that placed spans that much too
+    early. Each add's span therefore ends with a synchronise and is followed
+    by one, both recorded on the kernels' clock: of the twenty spans, the
+    least gap from the last synchronise's return to the span's end bounds how
+    late the pair may place a span, and the least gap from the span's start
+    to its first synchronise, or from its end to the next synchronise, how
+    early. Each least gap is at most 20 us and none is below -2 us: the pair
+    places a span within 20 us of the profiler's own record of the work
+    inside it, on either side."""
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import obs
+    from repro_torch.kernels.hybrid_distance import hybrid_distance
+
+    def spin(seconds):  # a pause that keeps the core awake, unlike sleep
+        t = time.perf_counter()
+        while time.perf_counter() - t < seconds:
+            pass
+
+    rng = np.random.default_rng(5)
+    q = _fused(rng, 512).to(cuda)
+    corpus = _fused(rng, 4096).to(cuda)
+    ids = torch.as_tensor(rng.integers(0, 4096, size=(512, 96)).astype(np.int32), device=cuda)
+    x = torch.zeros(1 << 20, device=cuda)
+    hybrid_distance(q, corpus, ids)  # built and warm
+    torch.cuda.synchronize()
+    reps = 20
+    ctx = obs.TraceContext("clock")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof, \
+            obs.tracing(ctx):
+        torch.cuda.synchronize()
+        spin(0.002)
+        with obs.span("distance") as distance:
+            hybrid_distance(q, corpus, ids)
+            torch.cuda.synchronize()
+        x.add_(1.0)  # the add's first launch under the profiler
+        torch.cuda.synchronize()
+        adds = []
+        for _ in range(reps):
+            spin(0.001)
+            with obs.span("add") as add:
+                torch.cuda.synchronize()
+                x.add_(1.0)
+                torch.cuda.synchronize()
+            torch.cuda.synchronize()
+            adds.append(add)
+        spin(0.002)
+    start_ns = prof.profiler.kineto_results.trace_start_ns()
+    events = sorted((start_ns + round(e.time_range.start * 1e3),
+                     start_ns + round(e.time_range.end * 1e3), e.name, e.device_type)
+                    for e in prof.events())
+    dev = torch.autograd.DeviceType.CUDA
+    ops = [e[:3] for e in events if e[3] == dev]
+    syncs = [e[:2] for e in events if e[3] != dev and "DeviceSynchronize" in e[2]]
+    assert [n for *_, n in ops if "hybrid_distance" in n] and len(ops) == 2 + reps, ops
+    slack = 2_000  # ns: the pair's reads, and the float seconds of a span
+    for span, (k0, k1, name) in zip([distance] + adds, [ops[0]] + ops[2:]):
+        s0, s1 = ctx.unix_ns(span.t0), ctx.unix_ns(span.t1)
+        assert s0 - slack <= k0 <= k1 <= s1 + slack, (span.name, s0, k0, k1, s1)
+    leads, tails, after = [], [], []
+    for add in adds:
+        s0, s1 = ctx.unix_ns(add.t0), ctx.unix_ns(add.t1)
+        near = [(a, b) for a, b in syncs if s0 - 400_000 <= a <= s1 + 400_000]
+        assert len(near) == 3, (s0, s1, near)
+        leads.append(near[0][0] - s0)
+        tails.append(s1 - near[1][1])
+        after.append(near[2][0] - s1)
+    print(f"span start to its first synchronise: {[round(v / 1e3, 3) for v in leads]} us")
+    print(f"last synchronise's return to span end: {[round(v / 1e3, 3) for v in tails]} us")
+    print(f"span end to the next synchronise: {[round(v / 1e3, 3) for v in after]} us")
+    assert min(leads + tails + after) >= -slack, (leads, tails, after)
+    assert min(tails) <= 20_000 and min(leads + after) <= 20_000, (leads, tails, after)

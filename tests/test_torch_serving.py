@@ -5,7 +5,8 @@ fusion merge helpers and corpus stats, and ``HybridSearchService``.
 Service parity: one repro-built two-segment pool, in fp32 and in int8 storage,
 is served by both packages' services with the same 12 requests (three bucket
 shapes, all four fusion modes, keywords on and off): the same ids up to ties,
-scores to 1e-4, and equal ``stats.compiles``. Service behaviour mirrors
+scores to 1e-4, and the port's ``stats.new_shape_keys`` equal to repro's
+``stats.compiles``. Service behaviour mirrors
 tests/test_hybrid_service.py and tests/test_obs.py, without wall-clock
 ratios.
 """
@@ -374,7 +375,7 @@ def test_service_parity_with_repro_on_pool(corpus, pools, dtype):
         np.testing.assert_allclose(gs, np.asarray(ws), rtol=TOL, atol=TOL)
         assert np.all(np.abs(gs - np.asarray(ws))[gi != np.asarray(wi)] <= TOL), (gi, wi)
         np.testing.assert_allclose(gp, np.asarray(wp), rtol=TOL, atol=TOL)
-    assert t_svc.stats.compiles == r_svc.stats.compiles == 4
+    assert t_svc.stats.new_shape_keys == r_svc.stats.compiles == 4
     assert t_svc.stats.batches == r_svc.stats.batches == 4
     assert t_svc.stats.padded_slots == r_svc.stats.padded_slots == 0
     _stats_close(t_svc.path_stats, r_svc.path_stats)
@@ -418,20 +419,20 @@ def test_one_callable_per_bucket_across_weight_mixes(corpus, index, tq):
             svc.submit(SearchRequest(query=tq[rep], weights=w, k=4))
     svc.flush()
     assert svc.stats.requests == 9
-    assert len(svc.executable_cache) == 2 == svc.stats.compiles  # 8-slot + 1-slot tail
-    before = svc.stats.compiles
+    assert len(svc.executable_cache) == 2 == svc.stats.new_shape_keys  # 8-slot + 1-slot tail
+    before = svc.stats.new_shape_keys
     for mode in MODES:
         for i in range(8):
             svc.submit(SearchRequest(query=tq[i], fusion=tfusion.FusionSpec.make(
                 mode, 0.1 + i / 8, 0.9, 0.4), k=4))
     svc.flush()
-    assert svc.stats.compiles == before and len(svc.executable_cache) == 2
+    assert svc.stats.new_shape_keys == before and len(svc.executable_cache) == 2
     assert svc.metrics.value("allanpoe_serving_executable_cache_total", outcome="hit") == 4
     # a new keyword width is a new bucket shape
     for i in range(8):
         svc.submit(SearchRequest(query=tq[i], weights=W3[1], k=4, keywords=np.asarray([3, 5, 7])))
     svc.flush()
-    assert svc.stats.compiles == before + 1
+    assert svc.stats.new_shape_keys == before + 1
 
 
 def test_fp32_params_over_int8_storage_raise(index):
@@ -490,12 +491,12 @@ def test_mark_deleted_swaps_without_recompiling(index, tq):
     svc = _service(index, flush_size=2, max_batch=2)
     w = tusms.PathWeights.make(1.0, 0.5, 0.5)
     r0 = svc.search(tq[:2], w, k=3)
-    compiles = svc.stats.compiles
+    new_keys = svc.stats.new_shape_keys
     top = int(r0.ids[0, 0])
     assert svc.mark_deleted(np.asarray([top])) == 1 == svc.snapshot_version
     r1 = svc.search(tq[:2], w, k=3)
     assert top not in r1.ids[0].tolist()
-    assert svc.stats.compiles == compiles
+    assert svc.stats.new_shape_keys == new_keys
     assert bool(index.alive[top])  # copy-on-write: the served index was replaced
 
 
